@@ -1,0 +1,4 @@
+from .activation import gelu  # noqa: F401
+from .attention import scaled_dot_product_attention  # noqa: F401
+from .common import dropout, embedding, linear  # noqa: F401
+from .norm import layer_norm, rms_norm  # noqa: F401

@@ -1,0 +1,217 @@
+"""Flash attention forward on Hopper (counterpart of
+paddle_tpu/ops/flash_attention.py).
+
+`flash_fwd_cuda` launches the hand-written CUDA kernel csrc/flash_fwd.cu,
+which replaces the TPU Pallas kernel `_fwd_kernel`. For a CUDA tensor it
+launches the kernel or raises: it never falls back. `forward` is the split
+interface `(q, k, v, causal, scale) -> (o, lse)`; it takes the kernel for
+CUDA tensors and its plain version `flash_attention_fwd_ref` for CPU
+tensors. `flash_attention_bnhd` / `_bhnd` are the public entry points.
+
+Routing follows the JAX package's `_dispatch_fwd`: causal attention with
+n != m is not the kernel's contract (the JAX package sends it to blockwise
+attention, which the port does not have yet), and a shape `_supported`
+rejects goes to the plain attention `_ref_bhnd` before any launch, is
+counted, and raises under PADDLE_TPU_FLASH_STRICT=1.
+
+Forward only: the backward kernels are not ported yet, and the autograd
+Function's backward says so.
+"""
+import ctypes
+import math
+import os
+
+import torch
+
+from .. import _build
+
+_NEG_INF = -1e30
+# the kernel's template instantiations (csrc/flash_fwd.cu)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KERNEL_HEAD_DIMS = (64, 128)
+
+# 'flash': calls that reached the flash forward (the kernel on CUDA, its
+# plain version on CPU); 'rejected': calls _supported routed to _ref_bhnd
+counts = {'flash': 0, 'rejected': 0}
+
+
+def strict_mode():
+    """PADDLE_TPU_FLASH_STRICT=1: a shape the kernel cannot take raises
+    instead of running the plain attention."""
+    return os.environ.get('PADDLE_TPU_FLASH_STRICT', '0') == '1'
+
+
+def _supported(q, k, v):
+    """None if the flash kernel can run on these operands, else the reason."""
+    d = q.shape[-1]
+    if not (q.dtype == k.dtype == v.dtype):
+        return 'mixed operand dtypes (%s, %s, %s)' % (q.dtype, k.dtype,
+                                                      v.dtype)
+    if d % 64:
+        return 'head_dim %d %% 64 != 0' % d
+    if d not in _KERNEL_HEAD_DIMS:
+        return 'head_dim %d has no kernel instantiation %s' % (
+            d, _KERNEL_HEAD_DIMS)
+    if q.dtype not in _KERNEL_DTYPES:
+        return 'dtype %s has no kernel instantiation' % q.dtype
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        return 'empty sequence'
+    return None
+
+
+def _ref_bhnd(q, k, v, causal, scale):
+    """Plain attention: bottom-right causal, softmax in f32."""
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        n, m = s.shape[-2], s.shape[-1]
+        if n > m:
+            raise ValueError(
+                'causal attention with more queries (%d) than keys (%d)'
+                % (n, m))
+        keep = torch.ones(n, m, dtype=torch.bool, device=s.device).tril(m - n)
+        s = s.masked_fill(~keep, max(_NEG_INF, torch.finfo(s.dtype).min))
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.matmul(p, v)
+
+
+def flash_attention_fwd_ref(q, k, v, causal, scale):
+    """The kernel's plain version: the same function and numeric contract.
+
+    q [b, h, n, d], k/v [b, h, m, d] of one dtype. Products of the native
+    operands summed in f32, top-left causal masking, softmax in f32, p cast
+    to v's dtype before p @ v. Returns o in q's dtype and lse = m + log(l)
+    as f32 [b, h, n, 1]."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        n, m = s.shape[-2], s.shape[-1]
+        keep = torch.ones(n, m, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, _NEG_INF)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - mx)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
+    return o.to(q.dtype), mx + torch.log(l_safe)
+
+
+def _lib():
+    lib = _build.load('flash_fwd')
+    if lib.flash_fwd.argtypes is None:
+        lib.flash_fwd.restype = ctypes.c_int
+        lib.flash_fwd.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+            [ctypes.c_longlong] * 12 +
+            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_fwd_error_string.restype = ctypes.c_char_p
+        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _rows_aligned(t):
+    """t itself if its rows are contiguous and start on 16-byte boundaries
+    (the kernel copies rows in 16-byte chunks), else an aligned copy."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
+            all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_fwd_cuda(q, k, v, causal, scale):
+    """Launch csrc/flash_fwd.cu on CUDA tensors q [b, h, n, d] and k/v
+    [b, h, m, d]; returns (o, lse). Raises on anything the kernel does not
+    take. `flash_fwd_cuda.launches` counts the launches."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError('flash_fwd_cuda takes CUDA tensors')
+    if not (q.device == k.device == v.device):
+        raise ValueError('q, k, v on different devices')
+    reason = _supported(q, k, v)
+    if reason is not None:
+        raise ValueError('flash_fwd_cuda cannot run: ' + reason)
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    if k.shape != (b, h, m, d) or v.shape != k.shape:
+        raise ValueError('shape mismatch: q %s, k %s, v %s'
+                         % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    if causal and n != m:
+        raise ValueError('the kernel is top-left causal with n == m; got '
+                         'n=%d, m=%d' % (n, m))
+    q, k, v = (_rows_aligned(t) for t in (q, k, v))
+    # o is laid out [b, n, h, d] in memory: the callers read it back in
+    # that layout, so the swap to [b, h, n, d] and back costs no copy
+    o = torch.empty((b, n, h, d), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, n, 1), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, h, n, m, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], float(scale), int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError('flash_fwd launch failed: %s (cuda error %d)' % (
+            lib.flash_fwd_error_string(err).decode(), err))
+    flash_fwd_cuda.launches += 1
+    return o, lse
+
+
+flash_fwd_cuda.launches = 0
+
+
+def forward(q, k, v, causal, scale):
+    """Split interface: (o, lse) with lse f32 [b, h, n, 1]. The kernel for
+    CUDA tensors, its plain version for CPU tensors."""
+    if q.is_cuda:
+        return flash_fwd_cuda(q, k, v, causal, scale)
+    if q.device.type != 'cpu' or k.device != q.device or v.device != q.device:
+        raise ValueError('flash forward takes CUDA tensors or CPU tensors, '
+                         'all on one device; got %s, %s, %s'
+                         % (q.device, k.device, v.device))
+    return flash_attention_fwd_ref(q, k, v, causal, scale)
+
+
+class _FlashForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        return forward(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        raise NotImplementedError(
+            'flash attention backward kernel not ported yet')
+
+
+def _dispatch_fwd(q, k, v, causal, scale):
+    """Returns (o, lse_or_None); lse None means the plain attention ran."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise NotImplementedError(
+            'causal flash attention with n (%d) != m (%d): the kernel is '
+            'top-left causal with n == m, and the bottom-right blockwise '
+            'path is not ported yet' % (q.shape[2], k.shape[2]))
+    reason = _supported(q, k, v)
+    if reason is not None:
+        counts['rejected'] += 1
+        if strict_mode():
+            raise RuntimeError(
+                'PADDLE_TPU_FLASH_STRICT=1 but the flash kernel cannot '
+                'run: ' + reason)
+        return _ref_bhnd(q, k, v, causal, scale), None
+    counts['flash'] += 1
+    return _FlashForward.apply(q, k, v, causal, scale)
+
+
+def flash_attention_bnhd(q, k, v, causal=False, scale=None):
+    """Paddle layout [B, N, H, D] in and out."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    o, _ = _dispatch_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal, scale)
+    return o.transpose(1, 2)
+
+
+def flash_attention_bhnd(q, k, v, causal=False, scale=None):
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _dispatch_fwd(q, k, v, causal, scale)[0]
