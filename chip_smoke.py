@@ -3,15 +3,26 @@
     python3 chip_smoke.py
 
 Phases, each printed as it finishes; any failure exits non-zero:
-  1. build   - nvcc builds every kernel of the path from paddle_tpu_torch/csrc.
+  1. build   - nvcc builds every kernel of the paths from
+               paddle_tpu_torch/csrc, one process per source, in parallel.
   2. kernel  - each kernel against its plain PyTorch version on the card at
-               the main path's shapes and more, with times, the card's bound
+               the paths' shapes and more, with times, the card's bound
                and a PyTorch library call's time as a yardstick.
-  3. slice, f32  - GPT-2 small (seeded weights) prefill logits on the card
+  3. slice 1, f32  - GPT-2 small (seeded weights) prefill logits on the card
                against the same weights on the CPU plain path; greedy tokens.
-  4. slice, bf16 - the main path: generate() on 8 prompts of 768 tokens,
-               128 new tokens, greedy; the flash kernel must launch exactly
-               once per layer. A 64-token run must not launch it.
+  4. slice 1, bf16 - serving: generate() on 8 prompts of 768 tokens, 128 new
+               tokens, greedy; the flash forward must launch exactly once
+               per layer. A 64-token run must not launch it.
+  5. slice 2, f32  - one AdamW TrainStep of the bench's GPT cut to 2 layers
+               (full width and vocabulary, batch 2 x 512) on the card
+               against the same step on the CPU plain path.
+  6. slice 2, bf16 - training, the main path: the bench's configuration
+               (vocab 30528, hidden 768, 12 layers, 12 heads, batch 32 x
+               seq 512, bf16, fused loss, AdamW lr 1e-4); 2 warm-up and 10
+               timed steps, 12 flash forward and 12 fused backward launches
+               a step, falling loss on the fixed batch, and a profile.
+  7. slice 2, seq 1024 - GPT-2 small training at batch 8 x 1024 tokens, the
+               two-pass backward: 12 dq and 12 dk/dv launches a step.
 The last lines are the card's name and power limit as nvidia-smi gives
 them, a {"kernels": [...]} line and the {"ok": true, ...} line.
 """
@@ -123,9 +134,12 @@ def _flash_bound_ms(b, h, n, m, d, dtype, causal, sku):
 
 # (b, h, n, m, d, dtype, causal, strided): `strided` slices q, k, v out of
 # one [b, n, 3, h, d] projection as the GPT prefill does; the first row is
-# the main path's shape
+# the serving path's shape, the second the training path's
+PREFILL_SHAPE = (8, 12, 768, 768, 64, torch.bfloat16, True, True)
+TRAIN_SHAPE = (32, 12, 512, 512, 64, torch.bfloat16, True, True)
 KERNEL_SHAPES = [
-    (8, 12, 768, 768, 64, torch.bfloat16, True, True),
+    PREFILL_SHAPE,
+    TRAIN_SHAPE,
     (8, 12, 768, 768, 64, torch.bfloat16, False, False),
     (8, 12, 768, 768, 64, torch.float32, True, False),
     (8, 12, 768, 768, 64, torch.float32, False, True),
@@ -152,6 +166,21 @@ TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3),
              torch.float16: (2e-2, 1e-3)}
 
 
+def _qkv(gen, b, h, n, m, d, dtype, strided):
+    """Seeded q, k, v [b, h, n|m, d]; strided ones are views of one
+    [b, n, 3, h, d] projection, as in the GPT attention."""
+    if strided:
+        _check(n == m, 'strided inputs share one sequence length')
+        qkv = torch.randn((b, n, 3, h, d), generator=gen, device='cuda')
+        qkv[:, :, 2] *= 0.5
+        qkv = qkv.to(dtype)
+        return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    q = torch.randn((b, h, n, d), generator=gen, device='cuda')
+    k = torch.randn((b, h, m, d), generator=gen, device='cuda')
+    v = 0.5 * torch.randn((b, h, m, d), generator=gen, device='cuda')
+    return [q.to(dtype), k.to(dtype), v.to(dtype)]
+
+
 def kernel_phase(sku):
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -159,17 +188,7 @@ def kernel_phase(sku):
     rows = []
     for b, h, n, m, d, dtype, causal, strided in KERNEL_SHAPES:
         scale = 1.0 / math.sqrt(d)
-        if strided:
-            _check(n == m, 'strided inputs share one sequence length')
-            qkv = torch.randn((b, n, 3, h, d), generator=gen, device='cuda')
-            qkv[:, :, 2] *= 0.5
-            qkv = qkv.to(dtype)
-            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        else:
-            q = torch.randn((b, h, n, d), generator=gen, device='cuda')
-            k = torch.randn((b, h, m, d), generator=gen, device='cuda')
-            v = 0.5 * torch.randn((b, h, m, d), generator=gen, device='cuda')
-            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        q, k, v = _qkv(gen, b, h, n, m, d, dtype, strided)
         o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
         o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, causal, scale)
@@ -202,6 +221,135 @@ def kernel_phase(sku):
         del q, k, v, o, lse, o_ref, lse_ref
         torch.cuda.empty_cache()
     return rows
+
+
+def _bwd_bound_ms(b, h, n, m, d, dtype, causal, which, sku):
+    """Least time for a backward kernel: q, k, v, do, lse and delta read
+    once and its gradients (fused: dq, dk, dv; dq: dq; dkv: dk, dv) written
+    once, over the memory rate; its products (5, 3 or 4 of 2 * d flops for
+    each visible pair) over the peak rate for their type. Returns (ms,
+    'bytes' or 'operations')."""
+    _, bw, ops = sku
+    item = torch.empty((), dtype=dtype).element_size()
+    q_elems, k_elems = b * h * n * d, b * h * m * d
+    written = {'fused': q_elems + 2 * k_elems, 'dq': q_elems,
+               'dkv': 2 * k_elems}[which]
+    nbytes = (2 * q_elems + 2 * k_elems + written) * item + 2 * 4 * b * h * n
+    pairs = (sum(min(i + 1, m) for i in range(n)) if causal else n * m)
+    products = {'fused': 5, 'dq': 3, 'dkv': 4}[which]
+    flops = products * 2 * d * b * h * pairs
+    name = {torch.bfloat16: 'bfloat16', torch.float16: 'float16',
+            torch.float32: 'float32'}[dtype]
+    t_bytes = nbytes / bw * 1e3
+    t_ops = flops / ops[name] * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else
+                                 'operations')
+
+
+# (b, h, n, d, dtype, causal, strided): every backward kernel runs at every
+# shape. The first is the training main path's shape (fused route), the
+# second the seq-1024 path's (two-pass).
+BWD_MAIN_SHAPE = (32, 12, 512, 64, torch.bfloat16, True, True)
+BWD_SECOND_SHAPE = (8, 12, 1024, 64, torch.bfloat16, True, True)
+BWD_SHAPES = [
+    BWD_MAIN_SHAPE,
+    BWD_SECOND_SHAPE,
+    (8, 12, 512, 64, torch.bfloat16, False, True),
+    (8, 12, 512, 64, torch.float16, True, False),
+    (2, 12, 512, 64, torch.float32, True, True),
+    (4, 8, 512, 128, torch.bfloat16, True, False),
+    (2, 8, 1024, 128, torch.bfloat16, False, False),
+    (1, 2, 300, 64, torch.bfloat16, True, False),
+    (1, 2, 700, 64, torch.bfloat16, True, False),
+    (1, 2, 700, 128, torch.float32, False, False),
+]
+
+# Tolerances of the backward kernels against their plain version, as a
+# share of the largest reference gradient. Both take the same f32 products
+# of the same native operands; they differ in the order of the f32 sums
+# (~1e-6 relative), so where p or ds lies that close to a rounding boundary
+# of the operand dtype they may round it differently, and each gradient is
+# then rounded to the operand dtype: one ulp at the largest entry is 2^-8
+# of it in bf16 and 2^-11 in fp16. 2e-2 (bf16) and 4e-3 (fp16) allow a few
+# ulps; f32 sees sum order only, 1e-4.
+BWD_TOLERANCE = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
+                 torch.float32: 1e-4}
+
+
+def bwd_kernel_phase(sku):
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
+    rows = []
+    for shape_key in BWD_SHAPES:
+        b, h, n, d, dtype, causal, strided = shape_key
+        scale = 1.0 / math.sqrt(d)
+        q, k, v = _qkv(gen, b, h, n, n, d, dtype, strided)
+        o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+        # the output gradient as the GPT attention hands it over: a
+        # [b, h, n, d] view of a [b, n, h, d] tensor
+        do = torch.randn((b, n, h, d), generator=gen,
+                         device='cuda').to(dtype).transpose(1, 2)
+        delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        ref = fa.flash_attention_bwd_ref(*args)
+        calls = {
+            'fused': lambda: fa.flash_bwd_fused_cuda(*args),
+            'dq': lambda: (fa.flash_bwd_dq_cuda(*args),),
+            'dkv': lambda: fa.flash_bwd_dkv_cuda(*args),
+        }
+        refs = {'fused': ref, 'dq': ref[:1], 'dkv': ref[1:]}
+        tol = BWD_TOLERANCE[dtype]
+        shape = [b, h, n, n, d]
+        lib = _sdpa_bwd_ms(q, k, v, do, causal, scale)
+        plain_ms = _time_ms(lambda: fa.flash_attention_bwd_ref(*args),
+                            iters=3, warmup=1)
+        for which, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            errs, scales = [], []
+            for g, r in zip(got, refs[which]):
+                _check(g.shape == r.shape and g.dtype == r.dtype,
+                       'flash_bwd_%s output shape / dtype' % which)
+                _check(bool(torch.isfinite(g.float()).all()),
+                       'flash_bwd_%s output finite' % which)
+                errs.append((g.float() - r.float()).abs().max().item())
+                scales.append(r.float().abs().max().item())
+            for err, top in zip(errs, scales):
+                _check(err <= tol * top,
+                       'flash_bwd_%s vs plain at %s %s causal=%s: err %.3g > '
+                       '%g x max %.3g' % (which, shape, dtype, causal, err,
+                                          tol, top))
+            bound_ms, bound_by = _bwd_bound_ms(b, h, n, n, d, dtype, causal,
+                                               which, sku)
+            row = {'shape': shape, 'dtype': str(dtype).split('.')[-1],
+                   'causal': causal, 'strided': strided,
+                   'max_abs_err': max(errs), 'errs': errs,
+                   'ref_max': scales, 'tol_share': tol, 'ms': _time_ms(call),
+                   'plain_ms': plain_ms, 'library_ms': lib,
+                   'bound_ms': bound_ms, 'bound_by': bound_by}
+            print('kernel flash_bwd_%s %s' % (which, json.dumps(row)),
+                  flush=True)
+            rows.append((which, shape_key, row))
+        del q, k, v, o, lse, do, delta, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal, scale):
+    """The backward part of torch's scaled_dot_product_attention on these
+    inputs: forward + backward through autograd, minus the forward."""
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def both():
+        out = sdpa(qr, kr, vr, is_causal=causal, scale=scale)
+        torch.autograd.grad(out, (qr, kr, vr), do)
+
+    with torch.no_grad():
+        fwd_ms = _time_ms(lambda: sdpa(qr, kr, vr, is_causal=causal,
+                                       scale=scale))
+    return _time_ms(both) - fwd_ms
 
 
 def _prefill_logits(model, ids):
@@ -312,6 +460,209 @@ def slice_phases():
     return launches
 
 
+def _reset_counts(fa):
+    for wrapper in (fa.flash_fwd_cuda, fa.flash_bwd_fused_cuda,
+                    fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        wrapper.launches = 0
+    for key in fa.counts:
+        fa.counts[key] = 0
+
+
+def _launches(fa):
+    return {'flash_fwd': fa.flash_fwd_cuda.launches,
+            'flash_bwd_fused': fa.flash_bwd_fused_cuda.launches,
+            'flash_bwd_dq': fa.flash_bwd_dq_cuda.launches,
+            'flash_bwd_dkv': fa.flash_bwd_dkv_cuda.launches,
+            'rejected': fa.counts['rejected']}
+
+
+# the bench's training configuration (bench.py), at full width and depth
+BENCH_CFG = dict(vocab_size=30528, hidden_size=768, num_layers=12,
+                 num_heads=12, max_position_embeddings=512, dropout=0.0,
+                 fused_loss=True)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 32, 512, 1e-4
+
+
+def _train_setup(cfg, device, seed, batch, seq, dtype=None):
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, device=device, seed=seed)
+    if dtype is not None:
+        model.to(dtype)
+    step = TrainStep(model, model.loss,
+                     AdamW(learning_rate=TRAIN_LR,
+                           parameters=model.parameters()))
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+    return model, step, ids.to(device), labels.to(device)
+
+
+def train_f32_phase():
+    """One AdamW step of the bench's GPT cut to 2 layers on the card and on
+    the CPU plain path, from the same weights."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**dict(BENCH_CFG, num_layers=2))
+    t0 = time.time()
+    model, step, ids, labels = _train_setup(cfg, 'cuda', SEED, 2, TRAIN_SEQ)
+    cpu, cpu_step, _, _ = _train_setup(cfg, 'cpu', SEED + 1, 2, TRAIN_SEQ)
+    cpu.load_state_dict(model.state_dict())
+    _reset_counts(fa)
+    loss = step(ids, labels).item()
+    torch.cuda.synchronize()
+    launches = _launches(fa)
+    loss_cpu = cpu_step(ids.cpu(), labels.cpu()).item()
+    _check(launches['flash_fwd'] == 2 and launches['flash_bwd_fused'] == 2,
+           'f32 step launches %s, want 2 forward and 2 fused backward'
+           % launches)
+    # f32 products on both sides (TF32 off), summed in another order: the
+    # loss to 1e-5 of itself
+    rel = abs(loss - loss_cpu) / abs(loss_cpu)
+    _check(rel <= 1e-5, 'f32 loss %.7f vs CPU %.7f' % (loss, loss_cpu))
+    # Adam moves each parameter by ~lr whatever the size of its gradient;
+    # where the exact gradient is 0 (the key third of each qkv bias) the
+    # sign of f32 noise decides, so entries may differ by up to 2 lr. All
+    # others agree to f32 rounding of the update.
+    worst, close, total = 0.0, 0, 0
+    cpu_state = cpu.state_dict()
+    for name, p in model.state_dict().items():
+        diff = (p.cpu() - cpu_state[name]).abs()
+        worst = max(worst, diff.max().item())
+        close += int((diff <= 1e-6 + 1e-4 * cpu_state[name].abs()).sum())
+        total += diff.numel()
+    _check(worst <= 2 * TRAIN_LR + 1e-6,
+           'f32 params after the step differ by %.3g > 2 lr' % worst)
+    _check(close >= 0.999 * total,
+           'f32 params: only %d of %d close to the CPU step' % (close, total))
+    print('train f32: 2 layers, batch 2 x %d, loss %.7f vs CPU %.7f '
+          '(rel %.3g, tol 1e-5), params after the step max abs diff %.3g '
+          '(tol 2 lr), %d of %d within 1e-6 + 1e-4 |p|, launches %s, '
+          '%.1f s' % (TRAIN_SEQ, loss, loss_cpu, rel, worst, close, total,
+                      launches, time.time() - t0), flush=True)
+    del model, step, cpu, cpu_step
+    torch.cuda.empty_cache()
+
+
+def train_main_phase(sku):
+    """The main path: the bench's training step on the card."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    cfg = GPTConfig(**BENCH_CFG)
+    model, step, ids, labels = _train_setup(
+        cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
+    losses = [step(ids, labels).item() for _ in range(2)]  # warm-up
+    steps = 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa)
+    step_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    launches = _launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    _check(launches == {'flash_fwd': layers * steps,
+                        'flash_bwd_fused': layers * steps,
+                        'flash_bwd_dq': 0, 'flash_bwd_dkv': 0,
+                        'rejected': 0},
+           'main path launches %s over %d steps, want %d forward and %d '
+           'fused backward a step' % (launches, steps, layers, layers))
+    _check(all(math.isfinite(x) for x in losses), 'losses finite')
+    _check(losses[-1] < losses[0],
+           'loss %.4f after %d steps not below the first %.4f'
+           % (losses[-1], len(losses), losses[0]))
+    median = sorted(step_ms)[steps // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops_tok = model.flops_per_token(TRAIN_SEQ)
+    peak_flops = sku[2]['bfloat16']
+    mfu = flops_tok * tokens / (median / 1e3) / peak_flops
+    print('train bf16 (main path): %d params, batch %d x %d, median step '
+          '%.2f ms (min %.2f, max %.2f), %.1f samples/s, %.0f tokens/s, '
+          '%.1f MFLOP/token, MFU %.4f of %.0f TFLOP/s (least step at peak '
+          '%.2f ms), peak memory %.2f GiB, launches over %d steps %s, '
+          'losses %s' % (model.num_params(), TRAIN_BATCH, TRAIN_SEQ, median,
+                         min(step_ms), max(step_ms), TRAIN_BATCH / median
+                         * 1e3, tokens / median * 1e3, flops_tok / 1e6, mfu,
+                         peak_flops / 1e12, flops_tok * tokens / peak_flops
+                         * 1e3, peak / 2 ** 30, steps, launches,
+                         ['%.4f' % x for x in losses]), flush=True)
+    wall, dev, top, ops = _profile(lambda: step(ids, labels))
+    print('profile train step: wall %.2f ms, device kernels %.2f ms, busy '
+          'share %.3f; top kernels: %s; top aten ops: %s'
+          % (wall, dev, dev / wall,
+             '; '.join('%s %.2f ms x%d' % t for t in top),
+             '; '.join('%s %.2f ms x%d' % t for t in ops)), flush=True)
+
+    # The fused/two-pass threshold (512) is the TPU's tuning. For its
+    # re-measurement on this card: the same step with the two-pass
+    # backward, after the main path's launches were read.
+    fused_max, fa.FUSED_BWD_MAX_SEQ = fa.FUSED_BWD_MAX_SEQ, 0
+    try:
+        _reset_counts(fa)
+        two_pass_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(ids, labels).item()
+            two_pass_ms.append((time.perf_counter() - t0) * 1e3)
+        _check(fa.flash_bwd_dq_cuda.launches == 5 * layers,
+               'two-pass variant did not take the two-pass kernels')
+    finally:
+        fa.FUSED_BWD_MAX_SEQ = fused_max
+    print('train bf16 with the two-pass backward at seq 512: median step '
+          '%.2f ms (fused route above: %.2f ms)'
+          % (sorted(two_pass_ms)[2], median), flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'steps': steps, 'median_ms': median}
+
+
+def train_seq1024_phase():
+    """GPT-2 small training at 1024 tokens: the two-pass backward."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                    num_heads=12, max_position_embeddings=1024, dropout=0.0,
+                    fused_loss=True)
+    model, step, ids, labels = _train_setup(cfg, 'cuda', SEED, 8, 1024,
+                                            torch.bfloat16)
+    steps = 2
+    torch.cuda.synchronize()
+    _reset_counts(fa)
+    t0 = time.perf_counter()
+    losses = [step(ids, labels).item() for _ in range(steps)]
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches(fa)
+    layers = cfg.num_layers
+    _check(launches == {'flash_fwd': layers * steps, 'flash_bwd_fused': 0,
+                        'flash_bwd_dq': layers * steps,
+                        'flash_bwd_dkv': layers * steps, 'rejected': 0},
+           'seq-1024 launches %s over %d steps, want %d forward, dq and dk/dv '
+           'a step' % (launches, steps, layers))
+    _check(all(math.isfinite(x) for x in losses), 'seq-1024 losses finite')
+    print('train seq 1024 (two-pass path): GPT-2 small, batch 8 x 1024, '
+          'bf16, %d steps in %.1f ms (first includes warm-up), losses %s, '
+          'launches %s' % (steps, total_ms, ['%.4f' % x for x in losses],
+                           launches), flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'steps': steps}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -326,28 +677,59 @@ def main():
           flush=True)
 
     t0 = time.time()
-    outputs = _build.build(['flash_fwd'])
+    outputs = _build.build(['flash_fwd', 'flash_bwd'])
     print('build: %.1f s' % (time.time() - t0), flush=True)
     for src, text in outputs.items():
         for line in text.splitlines():
             if 'registers' in line or 'spill' in line:
                 print('  %s: %s' % (src, line.strip()), flush=True)
 
-    rows = kernel_phase(sku)
-    launches = slice_phases()
+    fwd_rows = kernel_phase(sku)
+    bwd_rows = bwd_kernel_phase(sku)
+    generate_launches = slice_phases()
+    train_f32_phase()
+    train = train_main_phase(sku)
+    second = train_seq1024_phase()
 
-    main_row = rows[0]
-    kernels = [{
-        'name': 'flash_fwd', 'route': 'cuda',
-        'source': 'paddle_tpu_torch/csrc/flash_fwd.cu',
-        'replaces': 'paddle_tpu/ops/flash_attention.py:137',
-        'launches': launches,
-        'max_abs_err': main_row['err_o'],
-        'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
-        'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
-        'library_ms': main_row['library_ms'],
-        'shape': 'b=8 h=12 n=m=768 d=64 bfloat16 causal',
-    }]
+    fwd = next(r for r in fwd_rows
+               if r['shape'] == list(TRAIN_SHAPE[:5]) and r['strided'])
+
+    def bwd(which, shape_key):
+        return next(r for w, key, r in bwd_rows
+                    if w == which and key == shape_key)
+
+    def entry(name, source, line, row, launches, steps, path, shape):
+        return {
+            'name': name, 'route': 'cuda',
+            'source': 'paddle_tpu_torch/csrc/%s.cu' % source,
+            'replaces': 'paddle_tpu/ops/flash_attention.py:%d' % line,
+            'launches': launches, 'launches_per_step': launches // steps,
+            'path': path, 'max_abs_err': row.get('err_o', row.get(
+                'max_abs_err')),
+            'ms': row['ms'], 'plain_ms': row['plain_ms'],
+            'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+            'library_ms': row['library_ms'], 'shape': shape,
+        }
+
+    train_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 causal strided'
+    second_shape = 'b=8 h=12 n=m=1024 d=64 bfloat16 causal strided'
+    kernels = [
+        entry('flash_fwd', 'flash_fwd', 137, fwd,
+              train['launches']['flash_fwd'], train['steps'],
+              'train (generate: %d)' % generate_launches, train_shape),
+        entry('flash_bwd_fused', 'flash_bwd', 659,
+              bwd('fused', BWD_MAIN_SHAPE),
+              train['launches']['flash_bwd_fused'], train['steps'], 'train',
+              train_shape),
+        entry('flash_bwd_dq', 'flash_bwd', 580,
+              bwd('dq', BWD_SECOND_SHAPE),
+              second['launches']['flash_bwd_dq'], second['steps'],
+              'train seq 1024', second_shape),
+        entry('flash_bwd_dkv', 'flash_bwd', 617,
+              bwd('dkv', BWD_SECOND_SHAPE),
+              second['launches']['flash_bwd_dkv'], second['steps'],
+              'train seq 1024', second_shape),
+    ]
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

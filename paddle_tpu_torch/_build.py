@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled by `nvcc` for
 sm_90a into `_build/lib<name>-<hash>.so` at first use, from the sources in
-this package only, and loaded with ctypes. The hash covers the source and
-the flags, so an edited source builds anew and an unchanged one is reused.
+this package only, and loaded with ctypes. The hash covers the source, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source builds
+anew and an unchanged one is reused.
 Nothing here runs at import time.
 """
 import ctypes
@@ -41,8 +42,12 @@ def nvcc_path():
 
 def _target(name):
     src = os.path.join(CSRC, name + '.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    # the shared headers are part of every kernel's source
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith('.cuh'))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, 'rb') as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, 'lib%s-%s.so' % (
         name, digest.hexdigest()[:16]))
 

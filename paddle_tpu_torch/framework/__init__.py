@@ -1,1 +1,1 @@
-from . import device, dtype, random  # noqa: F401
+from . import device, dtype, functional, random  # noqa: F401

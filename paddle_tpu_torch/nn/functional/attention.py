@@ -1,8 +1,9 @@
 """Attention (counterpart of paddle_tpu/nn/functional/attention.py).
 
-Routing as in the JAX package: the flash forward (ops/flash_attention.py)
+Routing as in the JAX package: flash attention (ops/flash_attention.py)
 for sequences of 512 or more with head_dim <= 256, no mask and no dropout;
-otherwise the plain quadratic path `_sdpa_ref`. The JAX package's
+otherwise the plain quadratic path `_sdpa_ref`, which also applies
+attention-probability dropout in training mode. The JAX package's
 blockwise path for long masked-free sequences is not ported yet, so what
 would reach it takes `_sdpa_ref`, which computes the same function.
 """
@@ -11,12 +12,14 @@ import math
 import torch
 
 from ...ops import flash_attention as fa
+from .common import dropout
 
 
-def _sdpa_ref(q, k, v, mask, causal, scale):
+def _sdpa_ref(q, k, v, mask, causal, scale, dropout_p=0.0, generator=None):
     """q, k, v [B, N, H, D]. Scores in the input dtype, bottom-right causal
     (query i sits at absolute position m - n + i, so a decode step sees the
     whole cache), an additive mask, softmax in f32 cast back to q's dtype,
+    dropout on the probabilities (upscale in train, mask from `generator`),
     then p @ v."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
@@ -31,22 +34,25 @@ def _sdpa_ref(q, k, v, mask, causal, scale):
     if mask is not None:
         s = s + mask
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    if dropout_p:
+        p = dropout(p, dropout_p, training=True, generator=generator)
     o = torch.matmul(p, vt)
     return o.transpose(1, 2)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
-    """Inputs [batch, seq, heads, head_dim] (paddle layout). Attention
-    dropout in training mode is not ported yet."""
+                                 training=True, generator=None):
+    """Inputs [batch, seq, heads, head_dim] (paddle layout). Dropout on the
+    attention probabilities in training mode keeps the call off flash, as
+    in the JAX package; its mask comes from `generator`."""
     scale = 1.0 / math.sqrt(query.shape[-1])
-    if training and dropout_p:
-        raise NotImplementedError(
-            'attention dropout in training mode is not ported yet')
+    if not training:
+        dropout_p = 0.0
     use_flash = (query.dim() == 4 and query.shape[1] >= 512
                  and query.shape[-1] <= 256)
-    if use_flash and attn_mask is None:
+    if use_flash and attn_mask is None and dropout_p == 0.0:
         return fa.flash_attention_bnhd(query, key, value, causal=is_causal,
                                        scale=scale)
-    return _sdpa_ref(query, key, value, attn_mask, is_causal, scale)
+    return _sdpa_ref(query, key, value, attn_mask, is_causal, scale,
+                     dropout_p, generator)

@@ -1,5 +1,5 @@
 """Common functionals (counterpart of paddle_tpu/nn/functional/common.py):
-linear, embedding, eval-mode dropout."""
+linear, embedding, dropout."""
 import torch
 
 
@@ -14,10 +14,16 @@ def embedding(x, weight):
     return weight[x]
 
 
-def dropout(x, p=0.5, training=True):
-    """Eval-mode dropout (the identity). Training-mode dropout comes with
-    the training slice."""
-    if training and p:
-        raise NotImplementedError(
-            'training-mode dropout is not ported yet; call model.eval()')
-    return x
+def dropout(x, p=0.5, training=True, generator=None):
+    """Upscale-in-train dropout: each element is kept with probability
+    1 - p and scaled by 1 / (1 - p); the identity in eval mode or at p = 0.
+    The mask is drawn from `generator` (a torch.Generator on x's device;
+    torch's default one when None). JAX's threefry bits cannot be
+    reproduced, so the masks differ from the JAX package's; autograd keeps
+    the forward's mask for the backward."""
+    if not training or p == 0:
+        return x
+    if p == 1:
+        return x * 0.0
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)

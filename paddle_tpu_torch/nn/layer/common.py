@@ -50,12 +50,17 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    def __init__(self, p=0.5):
+    """Dropout with its mask drawn from `generator` (torch's default
+    generator for the input's device when None)."""
+
+    def __init__(self, p=0.5, generator=None):
         super().__init__()
         self.p = p
+        self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, p=self.p, training=self.training)
+        return F.dropout(x, p=self.p, training=self.training,
+                         generator=self.generator)
 
     def extra_repr(self):
         return 'p=%s' % self.p

@@ -1,1 +1,1 @@
-from . import flash_attention  # noqa: F401
+from . import flash_attention, fused_ce  # noqa: F401

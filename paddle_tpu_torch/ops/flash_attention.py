@@ -1,21 +1,28 @@
-"""Flash attention forward on Hopper (counterpart of
-paddle_tpu/ops/flash_attention.py).
+"""Flash attention on Hopper (counterpart of paddle_tpu/ops/flash_attention.py).
 
-`flash_fwd_cuda` launches the hand-written CUDA kernel csrc/flash_fwd.cu,
-which replaces the TPU Pallas kernel `_fwd_kernel`. For a CUDA tensor it
-launches the kernel or raises: it never falls back. `forward` is the split
-interface `(q, k, v, causal, scale) -> (o, lse)`; it takes the kernel for
-CUDA tensors and its plain version `flash_attention_fwd_ref` for CPU
-tensors. `flash_attention_bnhd` / `_bhnd` are the public entry points.
+Forward: `flash_fwd_cuda` launches the hand-written CUDA kernel
+csrc/flash_fwd.cu, which replaces the TPU Pallas kernel `_fwd_kernel`.
+`forward` is the split interface `(q, k, v, causal, scale) -> (o, lse)`.
+
+Backward: csrc/flash_bwd.cu replaces the three Pallas kernels of the
+standard path. `flash_bwd_fused_cuda` computes dq, dk and dv in one pass
+(`_bwd_fused_kernel`); `flash_bwd_dq_cuda` and `flash_bwd_dkv_cuda` are
+the two-pass pair (`_bwd_dq_kernel`, `_bwd_dkv_kernel`). `backward` is the
+split interface `(q, k, v, o, lse, do, causal, scale) -> (dq, dk, dv)`
+and routes as the JAX package's `_bwd_impl` does at its default blocks.
+
+Every kernel wrapper launches its kernel for CUDA tensors or raises: it
+never falls back. For CPU tensors the split interfaces take the plain
+versions `flash_attention_fwd_ref` / `flash_attention_bwd_ref`, which
+follow the kernels' numeric contract. `flash_attention_bnhd` / `_bhnd`
+are the public entry points; their autograd Function saves q, k, v, o and
+lse and runs `backward`.
 
 Routing follows the JAX package's `_dispatch_fwd`: causal attention with
-n != m is not the kernel's contract (the JAX package sends it to blockwise
+n != m is not the kernels' contract (the JAX package sends it to blockwise
 attention, which the port does not have yet), and a shape `_supported`
 rejects goes to the plain attention `_ref_bhnd` before any launch, is
 counted, and raises under PADDLE_TPU_FLASH_STRICT=1.
-
-Forward only: the backward kernels are not ported yet, and the autograd
-Function's backward says so.
 """
 import ctypes
 import math
@@ -30,9 +37,16 @@ _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KERNEL_HEAD_DIMS = (64, 128)
 
+# The JAX package's backward runs one fused kernel when one 512 x 512 block
+# covers the score matrix (`_bwd_impl` at the default blocks, _fit_block),
+# else the dq and dk/dv pair. 512 is the TPU's tuning; it is kept so the
+# port takes the same route, and is to be re-measured on the H100.
+FUSED_BWD_MAX_SEQ = 512
+
 # 'flash': calls that reached the flash forward (the kernel on CUDA, its
-# plain version on CPU); 'rejected': calls _supported routed to _ref_bhnd
-counts = {'flash': 0, 'rejected': 0}
+# plain version on CPU); 'rejected': calls _supported routed to _ref_bhnd;
+# 'bwd_fused' / 'bwd_two_pass': backward calls by route, on either device
+counts = {'flash': 0, 'rejected': 0, 'bwd_fused': 0, 'bwd_two_pass': 0}
 
 
 def strict_mode():
@@ -172,15 +186,196 @@ def forward(q, k, v, causal, scale):
     return flash_attention_fwd_ref(q, k, v, causal, scale)
 
 
+def flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale):
+    """The backward kernels' plain version: one function for all three.
+
+    q, do [b, h, n, d] and k, v [b, h, m, d] of one dtype; lse and
+    delta = rowsum(do * o) f32 [b, h, n, 1]. The TPU kernels' contract:
+    products of the native operands summed in f32, top-left causal
+    masking, p = exp(min(s - lse, 30)), ds = p * (dp - delta) * scale,
+    and p / ds cast to the operand dtype before the products they feed.
+    Returns (dq, dk, dv) in the operands' dtype."""
+    dt = q.dtype
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        n, m = s.shape[-2], s.shape[-1]
+        keep = torch.ones(n, m, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, _NEG_INF)
+    p = torch.exp(torch.clamp_max(s - lse, 30.0))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _bwd_lib():
+    lib = _build.load('flash_bwd')
+    for name in ('flash_bwd_fused', 'flash_bwd_dq', 'flash_bwd_dkv'):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 +
+                           [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                            ctypes.c_void_p])
+    if lib.flash_bwd_error_string.argtypes is None:
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _bwd_operands(name, q, k, v, do, lse, delta, causal):
+    """Check what a backward kernel takes; returns the operands as the
+    kernel reads them and (b, h, n, m, d)."""
+    ops = (q, k, v, do, lse, delta)
+    if not all(t.is_cuda for t in ops):
+        raise ValueError('%s takes CUDA tensors' % name)
+    if any(t.device != q.device for t in ops):
+        raise ValueError('%s: operands on different devices' % name)
+    reason = _supported(q, k, v)
+    if reason is not None:
+        raise ValueError('%s cannot run: %s' % (name, reason))
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    if k.shape != (b, h, m, d) or v.shape != k.shape or do.shape != q.shape:
+        raise ValueError('shape mismatch: q %s, k %s, v %s, do %s' % (
+            tuple(q.shape), tuple(k.shape), tuple(v.shape), tuple(do.shape)))
+    if do.dtype != q.dtype:
+        raise ValueError('do is %s, the operands %s' % (do.dtype, q.dtype))
+    for label, t in (('lse', lse), ('delta', delta)):
+        if t.shape != (b, h, n, 1) or t.dtype != torch.float32:
+            raise ValueError('%s must be float32 %s, got %s %s' % (
+                label, (b, h, n, 1), t.dtype, tuple(t.shape)))
+    if causal and n != m:
+        raise ValueError('the kernels are top-left causal with n == m; got '
+                         'n=%d, m=%d' % (n, m))
+    # lse and delta are indexed as dense [b, h, n] rows
+    return ([_rows_aligned(t) for t in (q, k, v, do)] +
+            [lse.contiguous(), delta.contiguous()], (b, h, n, m, d))
+
+
+def _grad_like(b, rows, h, d, dtype, device):
+    """A [b, h, rows, d] gradient laid out [b, rows, h, d] in memory, the
+    layout the [B, N, H, D] callers take it back in."""
+    return torch.empty((b, rows, h, d), dtype=dtype,
+                       device=device).transpose(1, 2)
+
+
+def _bwd_launch(entry, operands, dims, outs, ds, scale, causal):
+    q, k, v, do, lse, delta = operands
+    dq, dk, dv = outs
+    b, h, n, m, d = dims
+    strides = []
+    for t in (q, k, v, do, dq, dk, dv):
+        strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+    strides = (ctypes.c_longlong * len(strides))(*strides)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
+            ptr(dk), ptr(dv), ptr(ds), _KERNEL_DTYPES[q.dtype], b, h, n,
+            m, d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
+            int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError('%s launch failed: %s (cuda error %d)' % (
+            entry, lib.flash_bwd_error_string(err).decode(), err))
+
+
+def flash_bwd_fused_cuda(q, k, v, do, lse, delta, causal, scale):
+    """Launch the fused backward of csrc/flash_bwd.cu: (dq, dk, dv) from
+    one computation of s, p and dp per tile pair. Its two kernels pass ds^T
+    through a [b, h, m, n rounded up to 64] workspace, and dq is summed in
+    a fixed order, so it is deterministic. `flash_bwd_fused_cuda.launches`
+    counts launches."""
+    operands, dims = _bwd_operands('flash_bwd_fused_cuda', q, k, v, do, lse,
+                                   delta, causal)
+    b, h, n, m, d = dims
+    outs = (_grad_like(b, n, h, d, q.dtype, q.device),
+            _grad_like(b, m, h, d, q.dtype, q.device),
+            _grad_like(b, m, h, d, q.dtype, q.device))
+    ds = torch.empty((b, h, m, -(-n // 64) * 64), dtype=q.dtype,
+                     device=q.device)
+    _bwd_launch('flash_bwd_fused', operands, dims, outs, ds, scale, causal)
+    flash_bwd_fused_cuda.launches += 1
+    return outs
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
+    """Launch the dq pass of csrc/flash_bwd.cu; returns dq."""
+    operands, dims = _bwd_operands('flash_bwd_dq_cuda', q, k, v, do, lse,
+                                   delta, causal)
+    b, h, n, m, d = dims
+    dq = _grad_like(b, n, h, d, q.dtype, q.device)
+    _bwd_launch('flash_bwd_dq', operands, dims, (dq, None, None), None,
+                scale, causal)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
+    """Launch the dk/dv pass of csrc/flash_bwd.cu; returns (dk, dv)."""
+    operands, dims = _bwd_operands('flash_bwd_dkv_cuda', q, k, v, do, lse,
+                                   delta, causal)
+    b, h, n, m, d = dims
+    dk = _grad_like(b, m, h, d, q.dtype, q.device)
+    dv = _grad_like(b, m, h, d, q.dtype, q.device)
+    _bwd_launch('flash_bwd_dkv', operands, dims, (None, dk, dv), None,
+                scale, causal)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+for _wrapper in (flash_bwd_fused_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+    _wrapper.launches = 0
+
+
+def backward(q, k, v, o, lse, do, causal, scale):
+    """Split interface: (dq, dk, dv) of o = attention(q, k, v) given lse
+    and the output gradient do. delta = rowsum(do * o) is a plain f32
+    reduction, as in the JAX package. Fused when max(n, m) <=
+    FUSED_BWD_MAX_SEQ, else dq then dk/dv; the kernels for CUDA tensors,
+    the plain version for CPU tensors."""
+    n, m = q.shape[2], k.shape[2]
+    if causal and n != m:
+        raise NotImplementedError(
+            'causal flash attention backward with n (%d) != m (%d) is not '
+            'ported yet' % (n, m))
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    fused = max(n, m) <= FUSED_BWD_MAX_SEQ
+    counts['bwd_fused' if fused else 'bwd_two_pass'] += 1
+    if q.is_cuda:
+        if fused:
+            return flash_bwd_fused_cuda(q, k, v, do, lse, delta, causal,
+                                        scale)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+        return dq, dk, dv
+    if any(t.device.type != 'cpu' for t in (k, v, o, lse, do)):
+        raise ValueError('flash backward takes CUDA tensors or CPU tensors, '
+                         'all on one device')
+    return flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale)
+
+
 class _FlashForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        return forward(q, k, v, causal, scale)
+        o, lse = forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError(
-            'flash attention backward kernel not ported yet')
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = backward(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def _dispatch_fwd(q, k, v, causal, scale):

@@ -1,10 +1,12 @@
 """GPT decoder-only LM (counterpart of paddle_tpu/text/models/gpt.py): the
-no-cache forward and cached greedy or sampled `generate()`.
+no-cache forward, cached greedy or sampled `generate()`, and the training
+contract (`loss()`, the fused-loss forward, `flops_per_token`).
 
 Causal attention goes through nn.functional.scaled_dot_product_attention,
-which sends a prompt of 512 tokens or more to the flash forward kernel.
+which sends a sequence of 512 tokens or more to the flash kernels.
 Parameter names match the JAX package's state_dict, so
-`load_paddle_tpu_state` carries its weights across as they are.
+`load_paddle_tpu_state` carries its weights across as they are. MoE
+blocks, activation recompute and pipeline stages are not ported yet.
 """
 import numpy as np
 import torch
@@ -21,13 +23,15 @@ __all__ = ['GPTConfig', 'GPTStaticCache', 'GPTModel', 'GPTForCausalLM',
 
 
 class GPTConfig:
-    """The JAX package's GPTConfig for the LayerNorm, tied-embedding model
-    that slice 1 serves."""
+    """The JAX package's GPTConfig."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None,
                  max_position_embeddings=1024, dropout=0.1,
-                 layer_norm_epsilon=1e-5):
+                 layer_norm_epsilon=1e-5, initializer_range=0.02,
+                 use_rmsnorm=False, tie_word_embeddings=True,
+                 recompute=False, num_experts=0, moe_capacity_factor=1.5,
+                 fused_loss=False):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -36,10 +40,32 @@ class GPTConfig:
         self.max_position_embeddings = max_position_embeddings
         self.dropout = dropout
         self.layer_norm_epsilon = layer_norm_epsilon
+        # kept for parity; the JAX package's GPT does not read it either
+        self.initializer_range = initializer_range
+        self.use_rmsnorm = use_rmsnorm
+        self.tie_word_embeddings = tie_word_embeddings
+        self.recompute = recompute
+        self.num_experts = num_experts
+        self.moe_capacity_factor = moe_capacity_factor
+        # fused_loss=True: in training, forward() returns the final hidden
+        # state and loss() fuses the head matmul with the CE. loss() tells
+        # hidden states from logits by the trailing dim, so vocab and hidden
+        # must differ.
+        if fused_loss and vocab_size == hidden_size:
+            raise ValueError(
+                'fused_loss=True requires vocab_size != hidden_size '
+                '(loss() distinguishes hidden states from logits by '
+                'their trailing dimension); got both = %d' % vocab_size)
+        self.fused_loss = fused_loss
 
     @staticmethod
     def gpt2_small():
         return GPTConfig()
+
+    @staticmethod
+    def bert_base_equiv():
+        return GPTConfig(vocab_size=30522, hidden_size=768, num_layers=12,
+                         num_heads=12, max_position_embeddings=512)
 
 
 class GPTStaticCache:
@@ -142,14 +168,17 @@ class GPTMLP(nn.Module):
                                                approximate=True)))
 
 
+def _norm(config, device):
+    norm = pnn.RMSNorm if config.use_rmsnorm else pnn.LayerNorm
+    return norm(config.hidden_size, config.layer_norm_epsilon, device=device)
+
+
 class GPTBlock(nn.Module):
     def __init__(self, config, device='cuda', generator=None):
         super().__init__()
-        self.ln_1 = pnn.LayerNorm(config.hidden_size,
-                                  config.layer_norm_epsilon, device=device)
+        self.ln_1 = _norm(config, device)
         self.attn = GPTAttention(config, device=device, generator=generator)
-        self.ln_2 = pnn.LayerNorm(config.hidden_size,
-                                  config.layer_norm_epsilon, device=device)
+        self.ln_2 = _norm(config, device)
         self.mlp = GPTMLP(config, device=device, generator=generator)
 
     def forward(self, x, cache=None):
@@ -166,6 +195,14 @@ class GPTBlock(nn.Module):
 class GPTModel(nn.Module):
     def __init__(self, config, device='cuda', generator=None):
         super().__init__()
+        if config.num_experts:
+            raise NotImplementedError(
+                'MoE blocks (num_experts > 0) are not ported yet; they come '
+                'with the distributed slice')
+        if config.recompute:
+            raise NotImplementedError(
+                'activation recompute is not ported yet (a later training '
+                'slice)')
         self.config = config
         self.wte = pnn.Embedding(config.vocab_size, config.hidden_size,
                                  device=device, generator=generator)
@@ -176,8 +213,7 @@ class GPTModel(nn.Module):
         self.h = nn.ModuleList([GPTBlock(config, device=device,
                                          generator=generator)
                                 for _ in range(config.num_layers)])
-        self.ln_f = pnn.LayerNorm(config.hidden_size,
-                                  config.layer_norm_epsilon, device=device)
+        self.ln_f = _norm(config, device)
 
     def forward(self, input_ids, caches=None):
         n = input_ids.shape[1]
@@ -198,25 +234,65 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """GPT with a language-model head tied to the token embedding. Weights
-    are drawn from a CPU generator seeded with `seed` and moved to
-    `device`, so one seed gives one model on every device."""
+    """GPT with a language-model head, tied to the token embedding unless
+    config.tie_word_embeddings is False. Weights are drawn from a CPU
+    generator seeded with `seed` and moved to `device`, so one seed gives
+    one model on every device."""
 
     def __init__(self, config, device='cuda', seed=0):
         super().__init__()
         dev = device_mod.resolve(device)
         self.config = config
-        self.gpt = GPTModel(config, device=dev,
-                            generator=random_mod.seed(seed))
+        gen = random_mod.seed(seed)
+        self.gpt = GPTModel(config, device=dev, generator=gen)
+        self.lm_head = None if config.tie_word_embeddings else pnn.Linear(
+            config.hidden_size, config.vocab_size, bias=False, device=dev,
+            generator=gen)
 
     def _logits(self, hidden):
-        return F.linear(hidden, self.gpt.wte.weight.t())
+        if self.lm_head is None:
+            return F.linear(hidden, self.gpt.wte.weight.t())
+        return self.lm_head(hidden)
 
     def forward(self, input_ids, caches=None):
+        """Logits, or with caches (logits, new caches). In training with
+        config.fused_loss the no-cache forward returns the final hidden
+        state instead: loss() then fuses the head matmul with the CE."""
         if caches is not None:
             hidden, new_caches = self.gpt(input_ids, caches=caches)
             return self._logits(hidden), new_caches
-        return self._logits(self.gpt(input_ids))
+        hidden = self.gpt(input_ids)
+        if self.config.fused_loss and self.training:
+            return hidden
+        return self._logits(hidden)
+
+    def loss(self, logits, labels):
+        """Mean token CE. Under the fused training contract `logits` is the
+        final hidden state and the head matmul runs inside
+        F.linear_cross_entropy, which never forms the [rows, vocab]
+        logits."""
+        if self.config.fused_loss and self.training and \
+                logits.shape[-1] == self.config.hidden_size:
+            if self.lm_head is None:
+                return F.linear_cross_entropy(
+                    logits, self.gpt.wte.weight, labels,
+                    transpose_weight=True)
+            return F.linear_cross_entropy(logits, self.lm_head.weight,
+                                          labels)
+        b, n, v = logits.shape
+        return F.cross_entropy(logits.reshape(b * n, v),
+                               labels.reshape(b * n))
+
+    def enable_recompute(self, flag=True):
+        if flag:
+            raise NotImplementedError(
+                'activation recompute is not ported yet (a later training '
+                'slice)')
+
+    def pp_decompose(self, loss_fn=None):
+        raise NotImplementedError(
+            'pipeline stages are not ported yet; they come with the '
+            'distributed slice')
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
@@ -272,10 +348,21 @@ class GPTForCausalLM(nn.Module):
     def num_params(self):
         return int(sum(p.numel() for p in self.parameters()))
 
+    def flops_per_token(self, seq_len=None):
+        """Approximate forward + backward FLOPs per token: 6 N plus the
+        attention term, which scales with the sequence length actually
+        run (max_position_embeddings when None)."""
+        c = self.config
+        if seq_len is None:
+            seq_len = c.max_position_embeddings
+        return (6 * self.num_params() +
+                12 * c.num_layers * c.hidden_size * int(seq_len))
+
 
 def load_paddle_tpu_state(model, arrays):
     """Fill `model` from {name: np.ndarray} as the JAX package's
-    state_dict() gives it (keys like 'gpt.h.0.attn.qkv_proj.weight').
+    state_dict() gives it (keys like 'gpt.h.0.attn.qkv_proj.weight', and
+    'lm_head.weight' for an untied head).
     Raises on a missing key, an extra key or a shape mismatch, before
     anything is copied."""
     own = model.state_dict()

@@ -104,17 +104,72 @@ def test_xavier_normal_scale_and_seed():
 
 
 def test_dropout_is_eval_mode_only():
+    # the name dates from slice 1, when training-mode dropout raised; it is
+    # the identity in eval mode and at p = 0, and drops in training mode
     x = torch.ones(4, 3)
     d = tnn.Dropout(0.25)
     d.eval()
     assert d(x) is x
-    d.train()
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        d(x)
     assert TF.dropout(x, p=0.0, training=True) is x
+    assert TF.dropout(x, p=0.5, training=False) is x
+    d.train()
+    d.generator = torch.Generator().manual_seed(0)
+    y = d(x)
+    vals = np.unique(y.numpy())
+    assert all(v == 0 or np.isclose(v, 1.0 / 0.75, rtol=1e-6) for v in vals)
     q = torch.zeros(1, 4, 2, 64)
-    with pytest.raises(NotImplementedError, match='dropout'):
-        TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    out = TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    assert out.shape == q.shape
+
+
+@pytest.mark.parametrize('p', [0.1, 0.5])
+def test_dropout_keep_rate_and_scale(p):
+    # keep rate 1 - p within 5 standard deviations over 200k draws; kept
+    # values scaled by exactly 1 / (1 - p); the same generator seed gives
+    # the same mask; bf16 stays bf16
+    x = torch.ones(200, 1000)
+    y = TF.dropout(x, p=p, generator=torch.Generator().manual_seed(1))
+    kept = (y != 0).float().mean().item()
+    sd = np.sqrt(p * (1 - p) / x.numel())
+    assert abs(kept - (1 - p)) < 5 * sd
+    np.testing.assert_allclose(y[y != 0].numpy(), 1.0 / (1 - p), rtol=1e-6)
+    again = TF.dropout(x, p=p, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(y, again)
+    assert TF.dropout(x.bfloat16(), p=p).dtype == torch.bfloat16
+    assert torch.equal(TF.dropout(x, p=1.0), torch.zeros_like(x))
+
+
+def test_dropout_backward_reuses_the_forward_mask():
+    x = torch.randn(64, 32, requires_grad=True)
+    y = TF.dropout(x, p=0.3, generator=torch.Generator().manual_seed(2))
+    y.sum().backward()
+    mask = (y != 0).float()
+    np.testing.assert_allclose(x.grad.numpy(), (mask / 0.7).numpy(),
+                               rtol=1e-6)
+
+
+def test_attention_dropout_routes_off_flash():
+    # dropout on the probabilities keeps a 512-token call off flash, as in
+    # the JAX package; eval mode (training=False) drops nothing
+    q, k, v = (torch.from_numpy(_rand(1, 512, 2, 64, seed=s)) for s in
+               range(3))
+    before = tfa.counts['flash']
+    g = torch.Generator().manual_seed(3)
+    out = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.2,
+                                          is_causal=True, generator=g)
+    assert tfa.counts['flash'] == before
+    plain = t_sdpa_ref(q, k, v, None, True, 0.125)
+    assert not torch.allclose(out, plain)
+    evald = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.2,
+                                            is_causal=True, training=False)
+    assert tfa.counts['flash'] == before + 1
+    np.testing.assert_allclose(evald.numpy(), plain.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    # the same generator state gives the same probabilities' mask
+    again = TF.scaled_dot_product_attention(
+        q, k, v, dropout_p=0.2, is_causal=True,
+        generator=torch.Generator().manual_seed(3))
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize('n,m', [(16, 16), (1, 24), (5, 24)])
