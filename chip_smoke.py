@@ -23,6 +23,17 @@ Phases, each printed as it finishes; any failure exits non-zero:
                a step, falling loss on the fixed batch, and a profile.
   7. slice 2, seq 1024 - GPT-2 small training at batch 8 x 1024 tokens, the
                two-pass backward: 12 dq and 12 dk/dv launches a step.
+  8. long kernels - the long route's forward, dq and dk/dv entries against
+               their plain versions (n = 8192 at the slice's shape, 4096
+               with d = 128, a ragged 4100, fp16, f32, non-causal n != m),
+               each timed beside the standard entry at the same shape (both
+               launch the same kernels).
+  9. slice 3, long context - the JAX package's long-context training run
+               (bench.py with PADDLE_TPU_BENCH_SEQ=8192, BATCH=2): the
+               bench's GPT with max_position 8192, bf16, batch 2 x 8192, 2
+               warm-up and 6 timed steps, 12 launches a step of each long
+               kernel and none of the standard ones, falling loss, a
+               profile, and the same step on the standard route.
 The last lines are the card's name and power limit as nvidia-smi gives
 them, a {"kernels": [...]} line and the {"ok": true, ...} line.
 """
@@ -410,8 +421,7 @@ def slice_phases():
     # cent of the f32 logits' range
     _check(rel <= 0.1, 'bf16 vs f32 last logits: %.3g of range' % rel)
 
-    fa.flash_fwd_cuda.launches = 0
-    fa.counts['flash'] = fa.counts['rejected'] = 0
+    _reset_counts(fa)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -460,20 +470,37 @@ def slice_phases():
     return launches
 
 
+def _wrappers(fa):
+    return {'flash_fwd': fa.flash_fwd_cuda,
+            'flash_bwd_fused': fa.flash_bwd_fused_cuda,
+            'flash_bwd_dq': fa.flash_bwd_dq_cuda,
+            'flash_bwd_dkv': fa.flash_bwd_dkv_cuda,
+            'flash_fwd_long': fa.flash_fwd_long_cuda,
+            'flash_bwd_dq_long': fa.flash_bwd_dq_long_cuda,
+            'flash_bwd_dkv_long': fa.flash_bwd_dkv_long_cuda}
+
+
 def _reset_counts(fa):
-    for wrapper in (fa.flash_fwd_cuda, fa.flash_bwd_fused_cuda,
-                    fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+    for wrapper in _wrappers(fa).values():
         wrapper.launches = 0
     for key in fa.counts:
         fa.counts[key] = 0
 
 
 def _launches(fa):
-    return {'flash_fwd': fa.flash_fwd_cuda.launches,
-            'flash_bwd_fused': fa.flash_bwd_fused_cuda.launches,
-            'flash_bwd_dq': fa.flash_bwd_dq_cuda.launches,
-            'flash_bwd_dkv': fa.flash_bwd_dkv_cuda.launches,
-            'rejected': fa.counts['rejected']}
+    out = {name: w.launches for name, w in _wrappers(fa).items()}
+    out['rejected'] = fa.counts['rejected']
+    return out
+
+
+def _want(steps, **per_step):
+    """The launch counts of `steps` steps: per_step[name] a step for the
+    kernels named, none of the others, none rejected."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    out = {name: steps * per_step.get(name, 0) for name in _wrappers(fa)}
+    out['rejected'] = 0
+    return out
 
 
 # the bench's training configuration (bench.py), at full width and depth
@@ -518,7 +545,7 @@ def train_f32_phase():
     torch.cuda.synchronize()
     launches = _launches(fa)
     loss_cpu = cpu_step(ids.cpu(), labels.cpu()).item()
-    _check(launches['flash_fwd'] == 2 and launches['flash_bwd_fused'] == 2,
+    _check(launches == _want(1, flash_fwd=2, flash_bwd_fused=2),
            'f32 step launches %s, want 2 forward and 2 fused backward'
            % launches)
     # f32 products on both sides (TF32 off), summed in another order: the
@@ -573,10 +600,8 @@ def train_main_phase(sku):
     launches = _launches(fa)
     peak = torch.cuda.max_memory_allocated()
     layers = cfg.num_layers
-    _check(launches == {'flash_fwd': layers * steps,
-                        'flash_bwd_fused': layers * steps,
-                        'flash_bwd_dq': 0, 'flash_bwd_dkv': 0,
-                        'rejected': 0},
+    _check(launches == _want(steps, flash_fwd=layers,
+                             flash_bwd_fused=layers),
            'main path launches %s over %d steps, want %d forward and %d '
            'fused backward a step' % (launches, steps, layers, layers))
     _check(all(math.isfinite(x) for x in losses), 'losses finite')
@@ -648,9 +673,8 @@ def train_seq1024_phase():
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = _launches(fa)
     layers = cfg.num_layers
-    _check(launches == {'flash_fwd': layers * steps, 'flash_bwd_fused': 0,
-                        'flash_bwd_dq': layers * steps,
-                        'flash_bwd_dkv': layers * steps, 'rejected': 0},
+    _check(launches == _want(steps, flash_fwd=layers,
+                             flash_bwd_dq=layers, flash_bwd_dkv=layers),
            'seq-1024 launches %s over %d steps, want %d forward, dq and dk/dv '
            'a step' % (launches, steps, layers))
     _check(all(math.isfinite(x) for x in losses), 'seq-1024 losses finite')
@@ -661,6 +685,206 @@ def train_seq1024_phase():
     del model, step
     torch.cuda.empty_cache()
     return {'launches': launches, 'steps': steps}
+
+
+# (b, h, n, m, d, dtype, causal, strided): every long kernel runs at every
+# shape. The first is the long training path's (the attention of one layer
+# at batch 2 x 8192, q, k, v strided views of the packed projection).
+LONG_MAIN_SHAPE = (2, 12, 8192, 8192, 64, torch.bfloat16, True, True)
+LONG_SHAPES = [
+    LONG_MAIN_SHAPE,
+    (1, 8, 4096, 4096, 128, torch.bfloat16, True, False),
+    (1, 4, 4100, 4100, 64, torch.bfloat16, True, False),
+    (1, 4, 4096, 4096, 64, torch.float16, True, False),
+    (1, 2, 4100, 4100, 128, torch.float32, True, False),
+    (1, 4, 1000, 4160, 64, torch.bfloat16, False, False),
+]
+
+
+def _err_share(got, refs):
+    """(largest error, largest error over the largest reference entry) of
+    each output."""
+    errs, shares = [], []
+    for g, r in zip(got, refs):
+        _check(g.shape == r.shape and g.dtype == r.dtype,
+               'output shape / dtype')
+        _check(bool(torch.isfinite(g.float()).all()), 'output finite')
+        err = (g.float() - r.float()).abs().max().item()
+        errs.append(err)
+        shares.append(err / max(r.float().abs().max().item(), 1e-30))
+    return errs, shares
+
+
+def long_kernel_phase(sku):
+    """Each long entry against its plain version, its time beside the
+    standard entry's at the same shape, the bound and the library call."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 2)
+    rows = {}
+    for key in LONG_SHAPES:
+        b, h, n, m, d, dtype, causal, strided = key
+        scale = 1.0 / math.sqrt(d)
+        q, k, v = _qkv(gen, b, h, n, m, d, dtype, strided)
+        do = torch.randn((b, n, h, d), generator=gen,
+                         device='cuda').to(dtype).transpose(1, 2)
+        dt = str(dtype).split('.')[-1]
+        shape = [b, h, n, m, d]
+
+        # forward
+        o, lse = fa.flash_fwd_long_cuda(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, causal, scale)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
+        tol_o, tol_lse = TOLERANCE[dtype]
+        _check(o.shape == (b, h, n, d) and bool(torch.isfinite(
+            o.float()).all()), 'long forward output')
+        _check(err_o <= tol_o and err_lse <= tol_lse,
+               'flash_fwd_long vs plain at %s %s causal=%s: o err %.3g (tol '
+               '%g), lse err %.3g (tol %g)' % (shape, dt, causal, err_o,
+                                                tol_o, err_lse, tol_lse))
+        bound, bound_by = _flash_bound_ms(b, h, n, m, d, dtype, causal, sku)
+        row = {'shape': shape, 'dtype': dt, 'causal': causal,
+               'strided': strided, 'max_abs_err': err_o, 'err_lse': err_lse,
+               'ms': _time_ms(lambda: fa.flash_fwd_long_cuda(
+                   q, k, v, causal, scale)),
+               'std_ms': _time_ms(lambda: fa.flash_fwd_cuda(
+                   q, k, v, causal, scale)),
+               'plain_ms': _time_ms(lambda: fa.flash_attention_fwd_ref(
+                   q, k, v, causal, scale), iters=3, warmup=1),
+               'library_ms': _time_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q, k, v, is_causal=causal, scale=scale)),
+               'bound_ms': bound, 'bound_by': bound_by}
+        print('kernel flash_fwd_long %s' % json.dumps(row), flush=True)
+        rows['fwd', key] = row
+        torch.cuda.empty_cache()
+
+        # backward
+        delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        ref = fa.flash_attention_bwd_ref(*args)
+        torch.cuda.empty_cache()
+        plain_ms = _time_ms(lambda: fa.flash_attention_bwd_ref(*args),
+                            iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        lib = _sdpa_bwd_ms(q, k, v, do, causal, scale)
+        tol = BWD_TOLERANCE[dtype]
+        for which, call, std, refs in (
+                ('dq', lambda: (fa.flash_bwd_dq_long_cuda(*args),),
+                 lambda: fa.flash_bwd_dq_cuda(*args), ref[:1]),
+                ('dkv', lambda: fa.flash_bwd_dkv_long_cuda(*args),
+                 lambda: fa.flash_bwd_dkv_cuda(*args), ref[1:])):
+            got = call()
+            torch.cuda.synchronize()
+            errs, shares = _err_share(got, refs)
+            _check(max(shares) <= tol,
+                   'flash_bwd_%s_long vs plain at %s %s causal=%s: errors %s '
+                   'of the largest gradient > %g' % (which, shape, dt, causal,
+                                                     shares, tol))
+            bound, bound_by = _bwd_bound_ms(b, h, n, m, d, dtype, causal,
+                                            which, sku)
+            row = {'shape': shape, 'dtype': dt, 'causal': causal,
+                   'strided': strided, 'max_abs_err': max(errs),
+                   'err_share': shares, 'tol_share': tol,
+                   'ms': _time_ms(call), 'std_ms': _time_ms(std),
+                   'plain_ms': plain_ms, 'library_ms': lib,
+                   'bound_ms': bound, 'bound_by': bound_by}
+            print('kernel flash_bwd_%s_long %s' % (which, json.dumps(row)),
+                  flush=True)
+            rows[which, key] = row
+            del got
+        del q, k, v, do, o, lse, delta, ref, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the JAX package's long-context run (bench.py:102-120 with
+# PADDLE_TPU_BENCH_SEQ=8192 and PADDLE_TPU_BENCH_BATCH=2)
+LONG_CFG = dict(BENCH_CFG, max_position_embeddings=8192)
+LONG_BATCH, LONG_SEQ = 2, 8192
+
+
+def train_long_phase(sku):
+    """Slice 3: the bench's GPT trained at batch 2 x 8192 on the long
+    route; then the same step with the long route switched off."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    cfg = GPTConfig(**LONG_CFG)
+    model, step, ids, labels = _train_setup(
+        cfg, 'cuda', SEED, LONG_BATCH, LONG_SEQ, torch.bfloat16)
+    losses = [step(ids, labels).item() for _ in range(2)]  # warm-up
+    steps = 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa)
+    step_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    launches = _launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    _check(launches == _want(steps, flash_fwd_long=layers,
+                             flash_bwd_dq_long=layers,
+                             flash_bwd_dkv_long=layers),
+           'long path launches %s over %d steps, want %d of each long '
+           'kernel a step and no other' % (launches, steps, layers))
+    _check(all(math.isfinite(x) for x in losses), 'long losses finite')
+    _check(losses[-1] < losses[0],
+           'long loss %.4f after %d steps not below the first %.4f'
+           % (losses[-1], len(losses), losses[0]))
+    median = sorted(step_ms)[steps // 2]
+    tokens = LONG_BATCH * LONG_SEQ
+    flops_tok = model.flops_per_token(LONG_SEQ)
+    peak_flops = sku[2]['bfloat16']
+    mfu = flops_tok * tokens / (median / 1e3) / peak_flops
+    print('train long (slice 3): %d params, batch %d x %d, median step '
+          '%.2f ms (min %.2f, max %.2f), %.2f samples/s, %.0f tokens/s, '
+          '%.1f MFLOP/token, MFU %.4f of %.0f TFLOP/s (least step at peak '
+          '%.2f ms), peak memory %.2f GiB, launches over %d steps %s, '
+          'losses %s' % (model.num_params(), LONG_BATCH, LONG_SEQ, median,
+                         min(step_ms), max(step_ms), LONG_BATCH / median
+                         * 1e3, tokens / median * 1e3, flops_tok / 1e6, mfu,
+                         peak_flops / 1e12, flops_tok * tokens / peak_flops
+                         * 1e3, peak / 2 ** 30, steps, launches,
+                         ['%.4f' % x for x in losses]), flush=True)
+    wall, dev, top, ops = _profile(lambda: step(ids, labels))
+    print('profile train long step: wall %.2f ms, device kernels %.2f ms, '
+          'busy share %.3f; top kernels: %s; top aten ops: %s'
+          % (wall, dev, dev / wall,
+             '; '.join('%s %.2f ms x%d' % t for t in top),
+             '; '.join('%s %.2f ms x%d' % t for t in ops)), flush=True)
+
+    # The 4096 threshold is the TPU's tuning. Both routes launch the same
+    # kernels here; the same step on the standard route (two-pass backward),
+    # after the long path's launches were read, shows they cost the same.
+    long_seq, fa.LONG_SEQ = fa.LONG_SEQ, LONG_SEQ + 1
+    try:
+        _reset_counts(fa)
+        std_ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(ids, labels).item()
+            std_ms.append((time.perf_counter() - t0) * 1e3)
+        _check(fa.flash_bwd_dq_cuda.launches == 4 * layers
+               and fa.flash_fwd_long_cuda.launches == 0,
+               'standard variant did not take the standard route')
+    finally:
+        fa.LONG_SEQ = long_seq
+    print('train long on the standard route: median step %.2f ms (long '
+          'route above: %.2f ms)' % (sorted(std_ms)[2], median), flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'steps': steps, 'median_ms': median}
 
 
 def main():
@@ -686,10 +910,12 @@ def main():
 
     fwd_rows = kernel_phase(sku)
     bwd_rows = bwd_kernel_phase(sku)
+    long_rows = long_kernel_phase(sku)
     generate_launches = slice_phases()
     train_f32_phase()
     train = train_main_phase(sku)
     second = train_seq1024_phase()
+    long_train = train_long_phase(sku)
 
     fwd = next(r for r in fwd_rows
                if r['shape'] == list(TRAIN_SHAPE[:5]) and r['strided'])
@@ -699,7 +925,7 @@ def main():
                     if w == which and key == shape_key)
 
     def entry(name, source, line, row, launches, steps, path, shape):
-        return {
+        out = {
             'name': name, 'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/%s.cu' % source,
             'replaces': 'paddle_tpu/ops/flash_attention.py:%d' % line,
@@ -710,6 +936,9 @@ def main():
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
             'library_ms': row['library_ms'], 'shape': shape,
         }
+        if 'std_ms' in row:
+            out['std_ms'] = row['std_ms']
+        return out
 
     train_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 causal strided'
     second_shape = 'b=8 h=12 n=m=1024 d=64 bfloat16 causal strided'
@@ -730,6 +959,16 @@ def main():
               second['launches']['flash_bwd_dkv'], second['steps'],
               'train seq 1024', second_shape),
     ]
+    long_shape = 'b=2 h=12 n=m=8192 d=64 bfloat16 causal strided'
+    for kernel, source, line, which in (
+            ('flash_fwd_long', 'flash_fwd', 343, 'fwd'),
+            ('flash_bwd_dq_long', 'flash_bwd', 437, 'dq'),
+            ('flash_bwd_dkv_long', 'flash_bwd', 474, 'dkv')):
+        kernels.append(entry(kernel, source, line,
+                             long_rows[which, LONG_MAIN_SHAPE],
+                             long_train['launches'][kernel],
+                             long_train['steps'], 'train seq 8192',
+                             long_shape))
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

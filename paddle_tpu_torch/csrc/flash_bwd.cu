@@ -45,12 +45,35 @@
 //   register tile, operands staged in shared memory.
 // wgmma, TMA and warp specialisation are later work.
 //
+// flash_bwd_dq_long and flash_bwd_dkv_long launch the same dq and dk/dv
+// kernels. They replace the TPU kernels of _bwd_impl_long, which the JAX
+// package runs for max(n, m) >= 4096: _bwd_dq_kernel_long and
+// _bwd_dkv_kernel_long. The TPU needs them because its standard kernels
+// stage whole sequences in VMEM; these kernels stage 64-row tiles at any
+// length, so that reason does not carry over. What changes on the H100 is
+// the bound: at the long training shape (b=2, h=12, n=m=8192, d=64, bf16,
+// causal) the dq pass must move q, k, v, do, dq (5 x 25.2 MB) and lse,
+// delta: 38 us at 3.35 TB/s, against 3 products of 2*d flops on 33.6M
+// visible pairs per (b, h), 309 GFLOP, 313 us at the bf16 peak (dk/dv: 4
+// products, 417 us). Operations bound both. Three choices serve that, and
+// they measured faster at every length from 512 on, so every kernel here
+// takes them: one ex2.approx per p (exp_e) instead of expf's eight
+// instructions in the tensor-core kernels, a register cap that holds 3
+// blocks on an SM at d = 64, and a one-dimensional grid that keeps the
+// tiles of one (b, h) adjacent and starts the heaviest first (the last
+// query tile for dq, the first key tile for dk/dv). The f32 dk/dv kernel
+// alone runs a few per cent slower in that order; it keeps it, so that one
+// order serves every kernel. 8 warps, 2 m-tiles a warp and other steps
+// measured no faster. Every kernel here applies the
+// causal / ragged mask only on the tiles that cross the diagonal or an end.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
 // Each C entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -80,8 +103,6 @@ struct BwdParams {
     int causal;
 };
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // row length of the ds^T workspace: whole 64-query tiles
 __host__ __device__ constexpr int ds_ld(int n) { return cdiv(n, 64) * 64; }
 
@@ -89,24 +110,36 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int row, int key) {
     return row < p.n && key < p.m && !(p.causal && key > row);
 }
 
-// p and ds of one score; both 0 where the pair is masked
+// p and ds of one score for operands of type T; both 0 where the pair is
+// masked. The 16-bit kernels take exp_e, the f32 ones expf.
+template <typename T>
 __device__ __forceinline__ void p_ds(const BwdParams& p, bool vis, float s, float dp, float lse,
                                      float delta, float& pv, float& dsv) {
-    pv = vis ? expf(fminf(s * p.scale - lse, 30.f)) : 0.f;
+    const float x = fminf(s * p.scale - lse, 30.f);
+    if constexpr (std::is_same_v<T, float>)
+        pv = vis ? expf(x) : 0.f;
+    else
+        pv = vis ? exp_e(x) : 0.f;
     dsv = vis ? pv * (dp - delta) * p.scale : 0.f;
 }
 
-// The first query tile of BQ rows that sees key tile kt (top-left causal:
-// rows at or below the tile's first key).
-__device__ __forceinline__ int first_q_tile(const BwdParams& p, int kt, int bq) {
-    return p.causal ? kt * BK / bq : 0;
+// The first query tile of bq rows that sees the keys from k0 on (top-left
+// causal: rows at or below the first key).
+__device__ __forceinline__ int first_q_tile(const BwdParams& p, int k0, int bq) {
+    return p.causal ? k0 / bq : 0;
 }
 
-// The number of key tiles a query tile [q0, q0 + bq) walks.
-__device__ __forceinline__ int last_k_tile(const BwdParams& p, int q0, int bq) {
-    const int num_kt = cdiv(p.m, BK);
+// Whether a (query rows q0.., keys k0..) tile pair needs the mask: it holds
+// rows or keys past the end, or (causal) a key above some row's diagonal.
+__device__ __forceinline__ bool edge_pair(const BwdParams& p, int q0, int bq, int k0, int bk) {
+    return q0 + bq > p.n || k0 + bk > p.m || (p.causal && k0 + bk - 1 > q0);
+}
+
+// The number of key tiles of kt keys a query tile [q0, q0 + bq) walks.
+__device__ __forceinline__ int last_k_tile(const BwdParams& p, int q0, int bq, int kt) {
+    const int num_kt = cdiv(p.m, kt);
     if (!p.causal) return num_kt;
-    return min(num_kt, (min(q0 + bq, p.n) - 1) / BK + 1);
+    return min(num_kt, (min(q0 + bq, p.n) - 1) / kt + 1);
 }
 
 // the ds^T rows of (batch bi, head hi)
@@ -117,29 +150,17 @@ __device__ __forceinline__ T* ds_rows(const BwdParams& p, int bi, int hi) {
 
 // ---------------------------------------------------------------------------
 // bf16 / fp16: tensor cores (helpers and fragment layouts in mma_sm90.cuh).
-
-constexpr int MMA_THREADS = 128;  // 4 warps
-
-// query rows per tile in the key-tile kernel: 32 at d=128 keeps the dk and
-// dv accumulators (2 x 64 floats a thread) and the score tiles in registers
-template <int D>
-__host__ __device__ constexpr int kv_bq() { return D == 64 ? 64 : 32; }
-
-// Start the copy of a [ROWS, W] tile (rows row0.. of x) into dst, whose rows
-// are W + 8 elements apart (ldmatrix rows then hit distinct banks); rows at
-// or past `limit` are zero.
-template <typename T, int W, int ROWS>
-__device__ __forceinline__ void load_rows_async(T* dst, const T* x, long long row_stride,
-                                                int row0, int limit) {
-    constexpr int CHUNKS = W / 8;  // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += MMA_THREADS) {
-        const int r = idx / CHUNKS;
-        const int c = (idx % CHUNKS) * 8;
-        const int row = row0 + r;
-        const bool in = row < limit;
-        cp_async16(dst + r * (W + 8) + c, in ? x + (long long)row * row_stride + c : x, in);
-    }
-}
+//
+// 4 warps; each owns 16 rows of the block's 64 (query rows in the dq kernel,
+// keys in the dk/dv kernel). The dq kernel walks 64 keys a step, the dk/dv
+// kernel 64 queries (32 at d = 128, which keeps the dk and dv accumulators,
+// 2 x 64 floats a thread, and the score tiles in registers). The register
+// cap: __launch_bounds__ holds MINB blocks on an SM, 65536 / (128 * MINB)
+// registers a thread (at d = 128 the compiler's own choice).
+constexpr int MMA_THREADS = 128;
+constexpr int MMA_ROWS = 64;  // query rows (dq) or keys (dk/dv) per block
+template <int D> __host__ __device__ constexpr int kv_bq() { return D == 64 ? 64 : 32; }
+template <int D> constexpr int mma_minb() { return D == 64 ? 3 : 2; }
 
 // lse and delta of rows row0.. (0 past the end) into shared memory
 template <int ROWS>
@@ -152,10 +173,10 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s, con
     }
 }
 
-// acc[16 x 8 * NB] += A[16 x 16 * KSTEPS] @ B^T with A the 16 rows at `a`
-// and B's rows (the output columns) at `b`, both row-major with stride ld
+// acc[16 x 8 * NB] += A[16 x 16 * KSTEPS] @ B^T, A's rows at a and B's rows
+// (the output columns) at b, both row-major with stride ld
 template <typename T, int KSTEPS, int NB>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const T* a, const T* b, int ld) {
+__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const T* a, const T* b, int ld) {
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
@@ -172,11 +193,11 @@ __device__ __forceinline__ void mma_abt(float (*acc)[4], const T* a, const T* b,
     }
 }
 
-// acc[16 x 8 * NB] += A @ B with A given as fragments (one per 16 of the
+// acc[16 x 8 * NB] += A @ B, A given as fragments (one per 16 of the
 // contraction) and B row-major [16 * KC, >= 8 * NB] with stride ld
 template <typename T, int KC, int NB>
-__device__ __forceinline__ void mma_frag_b(float (*acc)[4], const uint32_t (*af)[4], const T* b,
-                                           int ld) {
+__device__ __forceinline__ void mma_frag_b(float (&acc)[NB][4], const uint32_t (&af)[KC][4],
+                                           const T* b, int ld) {
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
@@ -194,7 +215,7 @@ __device__ __forceinline__ void mma_frag_b(float (*acc)[4], const uint32_t (*af)
 // Store 16 rows (row_a + 8 r) x 8 * NB columns of f32 accumulators as T.
 template <typename T, int NB>
 __device__ __forceinline__ void store_rows(T* x, long long row_stride, int row_a, int limit,
-                                           const float (*acc)[4]) {
+                                           const float (&acc)[NB][4]) {
     const int t = threadIdx.x % 4;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -207,26 +228,36 @@ __device__ __forceinline__ void store_rows(T* x, long long row_stride, int row_a
     }
 }
 
-template <int D>
-constexpr size_t kv_mma_smem_bytes() {
-    constexpr int BQ = kv_bq<D>();
-    // K and V tiles, two buffers each of q and do, two each of lse and delta
-    return (size_t)(2 * BK + 4 * BQ) * (D + 8) * 2 + (size_t)4 * BQ * sizeof(float);
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-// dk and dv of one key tile; with STORE_DS also ds^T of its visible pairs
-// (the fused backward's first kernel).
+template <int D>
+constexpr size_t kv_mma_smem_bytes() {
+    // K and V tiles, two buffers each of q and do, two each of lse and delta
+    constexpr int BQ = kv_bq<D>();
+    return (size_t)(2 * MMA_ROWS + 4 * BQ) * (D + 8) * 2 + (size_t)4 * BQ * sizeof(float);
+}
+
+// dk and dv of one tile of 64 keys, walking kv_bq<D>() queries a step; with
+// STORE_DS also ds^T of its visible pairs (the fused backward's first
+// kernel).
 template <typename T, int D, bool STORE_DS>
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_kv_mma_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(MMA_THREADS, mma_minb<D>())
+    flash_bwd_kv_mma_kernel(const BwdParams p) {
     constexpr int BQ = kv_bq<D>();
     constexpr int LD = D + 8;
     constexpr int QB = BQ / 8;  // 8-query blocks of a score tile
     constexpr int DB = D / 8;   // 8-column blocks of dk and dv
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* Ks = reinterpret_cast<T*>(smem_raw);
-    T* Vs = Ks + BK * LD;
-    T* Qs = Vs + BK * LD;       // two buffers
-    T* dOs = Qs + 2 * BQ * LD;  // two buffers
+    T* Vs = Ks + MMA_ROWS * LD;
+    T* Qs = Vs + MMA_ROWS * LD;  // two buffers
+    T* dOs = Qs + 2 * BQ * LD;   // two buffers
     float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // two buffers
     float* delta_s = lse_s + 2 * BQ;                              // two buffers
 
@@ -234,9 +265,9 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_kv_mma_kernel(const Bwd
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const int kt = blockIdx.x;
-    const int hi = blockIdx.y;
-    const int bi = blockIdx.z;
+    const Tile tile = block_tile<false>(cdiv(p.m, MMA_ROWS), p.h);
+    const int hi = tile.hi;
+    const int bi = tile.bi;
     const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
     const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
     const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
@@ -248,28 +279,28 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_kv_mma_kernel(const Bwd
     const float* delta = p.delta + row_base;
 
     const int num_qt = cdiv(p.n, BQ);
-    const int k0 = kt * BK;
-    const int qt_begin = first_q_tile(p, kt, BQ);
-    load_rows_async<T, D, BK>(Ks, k, p.sk[2], k0, p.m);
-    load_rows_async<T, D, BK>(Vs, v, p.sv[2], k0, p.m);
-    load_rows_async<T, D, BQ>(Qs, q, p.sq[2], qt_begin * BQ, p.n);
-    load_rows_async<T, D, BQ>(dOs, dout, p.sdo[2], qt_begin * BQ, p.n);
+    const int k0 = tile.t * MMA_ROWS;
+    const int qt_begin = first_q_tile(p, k0, BQ);
+    load_rows_async<T, D, MMA_ROWS, MMA_THREADS>(Ks, k, p.sk[2], k0, p.m);
+    load_rows_async<T, D, MMA_ROWS, MMA_THREADS>(Vs, v, p.sv[2], k0, p.m);
+    load_rows_async<T, D, BQ, MMA_THREADS>(Qs, q, p.sq[2], qt_begin * BQ, p.n);
+    load_rows_async<T, D, BQ, MMA_THREADS>(dOs, dout, p.sdo[2], qt_begin * BQ, p.n);
     cp_async_commit();
     load_row_stats<BQ>(lse_s, delta_s, lse, delta, qt_begin * BQ, p.n);
 
     float dk_acc[DB][4], dv_acc[DB][4];
-#pragma unroll
-    for (int j = 0; j < DB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+    zero(dk_acc);
+    zero(dv_acc);
     const int key_a = k0 + warp * 16 + g;  // this thread's keys: key_a, key_a + 8
 
     for (int qt = qt_begin; qt < num_qt; ++qt) {
         const int buf = (qt - qt_begin) & 1;
         if (qt + 1 < num_qt) {  // fetch the next query tile while this one is used
             const int nq0 = (qt + 1) * BQ;
-            load_rows_async<T, D, BQ>(Qs + (buf ^ 1) * BQ * LD, q, p.sq[2], nq0, p.n);
-            load_rows_async<T, D, BQ>(dOs + (buf ^ 1) * BQ * LD, dout, p.sdo[2], nq0, p.n);
+            load_rows_async<T, D, BQ, MMA_THREADS>(Qs + (buf ^ 1) * BQ * LD, q, p.sq[2], nq0,
+                                                   p.n);
+            load_rows_async<T, D, BQ, MMA_THREADS>(dOs + (buf ^ 1) * BQ * LD, dout, p.sdo[2],
+                                                   nq0, p.n);
             cp_async_commit();
             load_row_stats<BQ>(lse_s + (buf ^ 1) * BQ, delta_s + (buf ^ 1) * BQ, lse, delta,
                                nq0, p.n);
@@ -286,14 +317,13 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_kv_mma_kernel(const Bwd
 
         // s^T = k q^T and dp^T = v do^T: the warp's 16 keys x BQ queries
         float s[QB][4], dp[QB][4];
-#pragma unroll
-        for (int nb = 0; nb < QB; ++nb)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+        zero(s);
+        zero(dp);
         mma_abt<T, D / 16, QB>(s, Ks + warp * 16 * LD, Qb, LD);
         mma_abt<T, D / 16, QB>(dp, Vs + warp * 16 * LD, dOb, LD);
 
         // p^T and ds^T, rounded to T as the A fragments of the next products
+        const bool edge = edge_pair(p, q0, BQ, k0, MMA_ROWS);
         uint32_t pf[QB / 2][4], dsf[QB / 2][4];
 #pragma unroll
         for (int nb = 0; nb < QB; ++nb) {
@@ -301,8 +331,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_kv_mma_kernel(const Bwd
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int col = nb * 8 + 2 * t + (e & 1);
-                p_ds(p, visible(p, q0 + col, key_a + (e >> 1) * 8), s[nb][e], dp[nb][e],
-                     lse_b[col], delta_b[col], pv[e], dsv[e]);
+                p_ds<T>(p, !edge || visible(p, q0 + col, key_a + (e >> 1) * 8), s[nb][e],
+                        dp[nb][e], lse_b[col], delta_b[col], pv[e], dsv[e]);
             }
             pf[nb / 2][(nb & 1) * 2 + 0] = MmaOp<T>::pack(pv[0], pv[1]);
             pf[nb / 2][(nb & 1) * 2 + 1] = MmaOp<T>::pack(pv[2], pv[3]);
@@ -335,15 +365,17 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_kv_mma_kernel(const Bwd
 template <int D, bool FROM_DS>
 constexpr size_t dq_mma_smem_bytes() {
     // two buffers each of K and of V (or of ds^T), then the q and do tiles
-    return FROM_DS ? (size_t)2 * BK * ((D + 8) + (64 + 8)) * 2 : (size_t)6 * 64 * (D + 8) * 2;
+    return FROM_DS ? (size_t)2 * BK * ((D + 8) + (MMA_ROWS + 8)) * 2
+                   : (size_t)(4 * BK + 2 * MMA_ROWS) * (D + 8) * 2;
 }
 
-// dq of one tile of 64 query rows: 4 warps x 16 rows walk the key tiles up
-// to the diagonal. FROM_DS (the fused backward's second kernel) reads ds^T
-// from the workspace instead of recomputing s, p and dp.
+// dq of one tile of 64 query rows, walking the key tiles up to the
+// diagonal. FROM_DS (the fused backward's second kernel) reads ds^T from the
+// workspace instead of recomputing s, p and dp.
 template <typename T, int D, bool FROM_DS>
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma_kernel(const BwdParams p) {
-    constexpr int BQ = 64;
+__global__ void __launch_bounds__(MMA_THREADS, mma_minb<D>())
+    flash_bwd_dq_mma_kernel(const BwdParams p) {
+    constexpr int BQ = MMA_ROWS;
     constexpr int LD = D + 8;
     constexpr int LDS = BQ + 8;
     constexpr int XLD = FROM_DS ? LDS : LD;  // row stride of the V / ds^T buffers
@@ -359,9 +391,10 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma_kernel(const Bwd
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const int q0 = blockIdx.x * BQ;
-    const int hi = blockIdx.y;
-    const int bi = blockIdx.z;
+    const Tile tile = block_tile<true>(cdiv(p.n, BQ), p.h);
+    const int q0 = tile.t * BQ;
+    const int hi = tile.hi;
+    const int bi = tile.bi;
     const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
     const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
     const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
@@ -372,17 +405,19 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma_kernel(const Bwd
 
     // key tile kt (K, and V or this tile's ds^T columns) into buffer buf
     auto load_k_tile = [&](int kt, int buf) {
-        load_rows_async<T, D, BK>(Ks + buf * BK * LD, k, p.sk[2], kt * BK, p.m);
+        load_rows_async<T, D, BK, MMA_THREADS>(Ks + buf * BK * LD, k, p.sk[2], kt * BK, p.m);
         if (FROM_DS)
-            load_rows_async<T, BQ, BK>(Xs + buf * BK * XLD, ds_t, ds_ld(p.n), kt * BK, p.m);
+            load_rows_async<T, BQ, BK, MMA_THREADS>(Xs + buf * BK * XLD, ds_t, ds_ld(p.n),
+                                                    kt * BK, p.m);
         else
-            load_rows_async<T, D, BK>(Xs + buf * BK * XLD, v, p.sv[2], kt * BK, p.m);
+            load_rows_async<T, D, BK, MMA_THREADS>(Xs + buf * BK * XLD, v, p.sv[2], kt * BK,
+                                                   p.m);
     };
 
-    const int kt_end = last_k_tile(p, q0, BQ);
+    const int kt_end = last_k_tile(p, q0, BQ, BK);
     if (!FROM_DS) {
-        load_rows_async<T, D, BQ>(Qs, q, p.sq[2], q0, p.n);
-        load_rows_async<T, D, BQ>(dOs, dout, p.sdo[2], q0, p.n);
+        load_rows_async<T, D, BQ, MMA_THREADS>(Qs, q, p.sq[2], q0, p.n);
+        load_rows_async<T, D, BQ, MMA_THREADS>(dOs, dout, p.sdo[2], q0, p.n);
     }
     load_k_tile(0, 0);
     cp_async_commit();
@@ -396,10 +431,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma_kernel(const Bwd
         delta_r[r] = !FROM_DS && row < p.n ? p.delta[row_base + row] : 0.f;
     }
     float dq_acc[DB][4];
-#pragma unroll
-    for (int j = 0; j < DB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+    zero(dq_acc);
 
     for (int kt = 0; kt < kt_end; ++kt) {
         const int buf = kt & 1;
@@ -415,29 +447,29 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma_kernel(const Bwd
         const T* Xb = Xs + buf * BK * XLD;
         const int k0 = kt * BK;
 
-        uint32_t dsf[KB / 2][4];  // ds [the warp's 16 rows x 64 keys] as A fragments
+        // ds [the warp's 16 rows x BK keys] as A fragments
+        uint32_t dsf[KB / 2][4];
         if (FROM_DS) {
 #pragma unroll
             for (int kc = 0; kc < KB / 2; ++kc)
                 ldmatrix_x4_trans(dsf[kc], Xb + (kc * 16 + (lane & 7) + ((lane >> 4) << 3)) * XLD +
                                                warp * 16 + ((lane >> 3) & 1) * 8);
         } else {
-            // s = q k^T and dp = do v^T: the warp's 16 rows x 64 keys
+            // s = q k^T and dp = do v^T: the warp's 16 rows x BK keys
             float s[KB][4], dp[KB][4];
-#pragma unroll
-            for (int nb = 0; nb < KB; ++nb)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+            zero(s);
+            zero(dp);
             mma_abt<T, D / 16, KB>(s, Qs + warp * 16 * LD, Kb, LD);
             mma_abt<T, D / 16, KB>(dp, dOs + warp * 16 * LD, Xb, LD);
+            const bool edge = edge_pair(p, q0, BQ, k0, BK);
 #pragma unroll
             for (int nb = 0; nb < KB; ++nb) {
                 float pv[4], dsv[4];
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const int r = e >> 1;
-                    p_ds(p, visible(p, row_a + r * 8, k0 + nb * 8 + 2 * t + (e & 1)), s[nb][e],
-                         dp[nb][e], lse_r[r], delta_r[r], pv[e], dsv[e]);
+                    p_ds<T>(p, !edge || visible(p, row_a + r * 8, k0 + nb * 8 + 2 * t + (e & 1)),
+                            s[nb][e], dp[nb][e], lse_r[r], delta_r[r], pv[e], dsv[e]);
                 }
                 dsf[nb / 2][(nb & 1) * 2 + 0] = MmaOp<T>::pack(dsv[0], dsv[1]);
                 dsf[nb / 2][(nb & 1) * 2 + 1] = MmaOp<T>::pack(dsv[2], dsv[3]);
@@ -536,9 +568,9 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_kv_f32_kernel(const Bwd
 
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
-    const int kt = blockIdx.x;
-    const int hi = blockIdx.y;
-    const int bi = blockIdx.z;
+    const Tile tile = block_tile<false>(cdiv(p.m, BK), p.h);
+    const int hi = tile.hi;
+    const int bi = tile.bi;
     const float* q = static_cast<const float*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
     const float* k = static_cast<const float*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
     const float* v = static_cast<const float*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
@@ -548,13 +580,13 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_kv_f32_kernel(const Bwd
     const long long row_base = ((long long)bi * p.h + hi) * p.n;
     float* ds_t = STORE_DS ? ds_rows<float>(p, bi, hi) : nullptr;
 
-    const int k0 = kt * BK;
+    const int k0 = tile.t * BK;
     f32_load_rows<D>(Ks, k, p.sk[2], k0, p.m);
     f32_load_rows<D>(Vs, v, p.sv[2], k0, p.m);
     float dk_acc[4][NJ], dv_acc[4][NJ];
     f32_zero<NJ>(dk_acc);
     f32_zero<NJ>(dv_acc);
-    for (int qt = first_q_tile(p, kt, F32_BQ); qt < cdiv(p.n, F32_BQ); ++qt) {
+    for (int qt = first_q_tile(p, k0, F32_BQ); qt < cdiv(p.n, F32_BQ); ++qt) {
         const int q0 = qt * F32_BQ;
         f32_load_rows<D>(Qs, q, p.sq[2], q0, p.n);
         f32_load_rows<D>(dOs, dout, p.sdo[2], q0, p.n);
@@ -574,7 +606,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_kv_f32_kernel(const Bwd
                 const int key = ty + 16 * i;
                 const int col = tx + 16 * j;
                 float pv, dsv;
-                p_ds(p, visible(p, q0 + col, k0 + key), s[i][j], dp[i][j], lse_s[col],
+                p_ds<float>(p, visible(p, q0 + col, k0 + key), s[i][j], dp[i][j], lse_s[col],
                      delta_s[col], pv, dsv);
                 Pt[key * LDP + col] = pv;
                 dSt[key * LDP + col] = dsv;
@@ -613,9 +645,10 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(const Bwd
 
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
-    const int q0 = blockIdx.x * F32_BQ;
-    const int hi = blockIdx.y;
-    const int bi = blockIdx.z;
+    const Tile tile = block_tile<true>(cdiv(p.n, F32_BQ), p.h);
+    const int q0 = tile.t * F32_BQ;
+    const int hi = tile.hi;
+    const int bi = tile.bi;
     const float* q = static_cast<const float*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
     const float* k = static_cast<const float*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
     const float* v = static_cast<const float*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
@@ -631,7 +664,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(const Bwd
     }
     float dq_acc[4][NJ];
     f32_zero<NJ>(dq_acc);
-    const int kt_end = last_k_tile(p, q0, F32_BQ);
+    const int kt_end = last_k_tile(p, q0, F32_BQ, BK);
     for (int kt = 0; kt < kt_end; ++kt) {
         const int k0 = kt * BK;
         f32_load_rows<D>(Ks, k, p.sk[2], k0, p.m);
@@ -661,7 +694,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(const Bwd
                     const int r = ty + 16 * i;
                     const int c = tx + 16 * j;
                     float pv;
-                    p_ds(p, visible(p, q0 + r, k0 + c), s[i][j], dp[i][j], lse_s[r],
+                    p_ds<float>(p, visible(p, q0 + r, k0 + c), s[i][j], dp[i][j], lse_s[r],
                          delta_s[r], pv, dSs[r * LDP + c]);
                 }
             __syncthreads();
@@ -688,7 +721,8 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Bwd
 
 template <typename T, int D>
 cudaError_t launch_mma(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
-    const dim3 kv_grid(cdiv(p.m, BK), p.h, b), q_grid(cdiv(p.n, 64), p.h, b);
+    const dim3 kv_grid = tile_grid(cdiv(p.m, MMA_ROWS), p.h, b);
+    const dim3 q_grid = tile_grid(cdiv(p.n, MMA_ROWS), p.h, b);
     if (pass == DKV_PASS)
         return launch(flash_bwd_kv_mma_kernel<T, D, false>, kv_grid, MMA_THREADS,
                       kv_mma_smem_bytes<D>(), p, s);
@@ -704,7 +738,8 @@ cudaError_t launch_mma(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
 
 template <int D>
 cudaError_t launch_f32(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
-    const dim3 kv_grid(cdiv(p.m, BK), p.h, b), q_grid(cdiv(p.n, F32_BQ), p.h, b);
+    const dim3 kv_grid = tile_grid(cdiv(p.m, BK), p.h, b);
+    const dim3 q_grid = tile_grid(cdiv(p.n, F32_BQ), p.h, b);
     if (pass == DKV_PASS)
         return launch(flash_bwd_kv_f32_kernel<D, false>, kv_grid, F32_THREADS,
                       kv_f32_smem_bytes<D>(), p, s);
@@ -714,8 +749,8 @@ cudaError_t launch_f32(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
     cudaError_t err = launch(flash_bwd_kv_f32_kernel<D, true>, kv_grid, F32_THREADS,
                              kv_f32_smem_bytes<D>(), p, s);
     if (err != cudaSuccess) return err;
-    return launch(flash_bwd_dq_f32_kernel<D, true>, q_grid, F32_THREADS, dq_f32_smem_bytes<D>(),
-                  p, s);
+    return launch(flash_bwd_dq_f32_kernel<D, true>, q_grid, F32_THREADS,
+                  dq_f32_smem_bytes<D>(), p, s);
 }
 
 template <int D>
@@ -736,9 +771,11 @@ int run(Pass pass, const void* q, const void* k, const void* v, const void* dout
         const void* lse, const void* delta, void* dq, void* dk, void* dv, void* ds,
         int dtype, int b, int h, int n, int m, int d, const long long* strides, float scale,
         int causal, void* stream) {
+    const bool writes_dq = pass == FUSED_PASS || pass == DQ_PASS;
+    const bool writes_dkv = pass == FUSED_PASS || pass == DKV_PASS;
     if (b <= 0 || h <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-    if (pass != DKV_PASS && dq == nullptr) return (int)cudaErrorInvalidValue;
-    if (pass != DQ_PASS && (dk == nullptr || dv == nullptr)) return (int)cudaErrorInvalidValue;
+    if (writes_dq && dq == nullptr) return (int)cudaErrorInvalidValue;
+    if (writes_dkv && (dk == nullptr || dv == nullptr)) return (int)cudaErrorInvalidValue;
     if (pass == FUSED_PASS && ds == nullptr) return (int)cudaErrorInvalidValue;
     BwdParams p;
     p.q = q;
@@ -786,6 +823,9 @@ int run(Pass pass, const void* q, const void* k, const void* v, const void* dout
 FLASH_BWD_ENTRY(flash_bwd_fused, FUSED_PASS)
 FLASH_BWD_ENTRY(flash_bwd_dq, DQ_PASS)
 FLASH_BWD_ENTRY(flash_bwd_dkv, DKV_PASS)
+// the long route's entries: the same kernels
+FLASH_BWD_ENTRY(flash_bwd_dq_long, DQ_PASS)
+FLASH_BWD_ENTRY(flash_bwd_dkv_long, DKV_PASS)
 
 extern "C" const char* flash_bwd_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -33,6 +33,29 @@
 //   16 FMAs), so an f32 call keeps full f32 products.
 // wgmma, TMA and warp specialisation are later work.
 //
+// flash_fwd_long() launches the same kernels. It replaces the TPU kernel
+// paddle_tpu/ops/flash_attention.py:_fwd_kernel_long (launched by
+// _fwd_impl_long for max(n, m) >= 4096). The TPU needs a second kernel
+// because its standard one stages the whole K/V of a (b, h) in VMEM, which
+// runs out at 8k; the kernel here stages 64-key tiles at any length, so that
+// reason does not carry over. What changes at n >= 4096 on the H100 is the
+// bound. At the long training shape (b=2, h=12, n=m=8192, d=64, bf16,
+// causal) the bytes are q, k, v, o (4 x 25.2 MB) and lse: 30 us at
+// 3.35 TB/s; the work is 4*d*b*h*n*(n+1)/2 = 206 GFLOP, 208 us at the
+// 989 TFLOP/s bf16 peak. So operations bound it, and the causal triangle is
+// 128 tiles deep. Three choices serve that, and they measured faster at
+// every length from 512 on, so every launch takes them:
+// - the exponentials are one ex2.approx each (exp_e), where expf costs about
+//   eight instructions: at 64 keys a tile a thread computes 32 of them for
+//   64 products, so they, not the tensor cores, held the issue slots;
+// - a register cap that holds 4 blocks on an SM at d = 64 (without it the
+//   compiler takes 144 registers, which hold 3);
+// - a one-dimensional grid in which the tiles of one (b, h) are adjacent and
+//   the heaviest query tile (the last) starts first.
+// Larger blocks that feed more products per K/V tile loaded (8 warps, or 2
+// m-tiles of 16 rows a warp) measured no faster. The kernels mask only the
+// tiles that cross the diagonal or the end of the keys.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_fwd.so flash_fwd.cu
 // The C entry point flash_fwd() launches on the given stream, does not
@@ -67,10 +90,16 @@ struct FwdParams {
 // Number of K/V tiles a query tile starting at q0 walks: causal runs stop
 // at the tile that holds the diagonal of its last row.
 __device__ __forceinline__ int kv_tiles(const FwdParams& p, int q0) {
-    const int num_kt = (p.m + BN - 1) / BN;
+    const int num_kt = cdiv(p.m, BN);
     if (!p.causal) return num_kt;
     const int last_row = min(q0 + BM, p.n) - 1;
     return min(num_kt, last_row / BN + 1);
+}
+
+// Whether the K/V tile at kv0 needs the mask for the query rows q0..: it
+// holds keys past the end, or (causal) a key above some row's diagonal.
+__device__ __forceinline__ bool edge_tile(const FwdParams& p, int q0, int kv0) {
+    return kv0 + BN > p.m || (p.causal && kv0 + BN - 1 > q0);
 }
 
 __device__ __forceinline__ float masked_score(float s, const FwdParams& p, int row, int col) {
@@ -82,6 +111,9 @@ __device__ __forceinline__ float masked_score(float s, const FwdParams& p, int r
 // fragment layouts are in mma_sm90.cuh).
 
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
+// The register cap: __launch_bounds__ holds MINB blocks on an SM, 65536 /
+// (128 * MINB) registers a thread (at d = 128 the compiler's own choice).
+template <int D> constexpr int mma_minb() { return D == 64 ? 4 : 2; }
 
 template <int D>
 __host__ __device__ constexpr int mma_ld() { return D + 8; }  // padded row: ldmatrix rows hit distinct banks
@@ -89,26 +121,12 @@ __host__ __device__ constexpr int mma_ld() { return D + 8; }  // padded row: ldm
 template <int D>
 constexpr size_t mma_smem_bytes() {
     // q tile, then two buffers each of k and v
-    return (size_t)5 * BM * mma_ld<D>() * 2;
-}
-
-// Start the copy of a [BM, D] tile (rows row0.. of x) into dst; rows at or
-// past `limit` are zero, so a ragged last tile contributes nothing.
-template <typename T, int D>
-__device__ __forceinline__ void mma_load_tile(T* dst, const T* x, long long row_stride,
-                                              int row0, int limit) {
-    constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += MMA_THREADS) {
-        const int r = idx / CHUNKS;
-        const int c = (idx % CHUNKS) * 8;
-        const int row = row0 + r;
-        const bool in = row < limit;
-        cp_async16(dst + r * mma_ld<D>() + c, in ? x + (long long)row * row_stride + c : x, in);
-    }
+    return (size_t)(BM + 4 * BN) * mma_ld<D>() * 2;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const FwdParams p) {
+__global__ void __launch_bounds__(MMA_THREADS, mma_minb<D>())
+    flash_fwd_mma_kernel(const FwdParams p) {
     constexpr int LD = mma_ld<D>();
     constexpr int KSTEPS = D / 16;  // 16-deep slices of the head dim
     constexpr int NB = BN / 8;      // 8-key blocks of a score tile
@@ -122,9 +140,10 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const FwdPar
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const int q0 = blockIdx.x * BM;
-    const int hi = blockIdx.y;
-    const int bi = blockIdx.z;
+    const Tile tile = block_tile<true>(cdiv(p.n, BM), p.h);
+    const int q0 = tile.t * BM;
+    const int hi = tile.hi;
+    const int bi = tile.bi;
 
     const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
     const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
@@ -132,9 +151,9 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const FwdPar
     T* o = static_cast<T*>(p.o) + bi * p.so[0] + hi * p.so[1];
 
     const int kt_end = kv_tiles(p, q0);
-    mma_load_tile<T, D>(Qs, q, p.sq[2], q0, p.n);
-    mma_load_tile<T, D>(Ks, k, p.sk[2], 0, p.m);
-    mma_load_tile<T, D>(Vs, v, p.sv[2], 0, p.m);
+    load_rows_async<T, D, BM, MMA_THREADS>(Qs, q, p.sq[2], q0, p.n);
+    load_rows_async<T, D, BN, MMA_THREADS>(Ks, k, p.sk[2], 0, p.m);
+    load_rows_async<T, D, BN, MMA_THREADS>(Vs, v, p.sv[2], 0, p.m);
     cp_async_commit();
 
     uint32_t qf[KSTEPS][4];
@@ -150,8 +169,10 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const FwdPar
     for (int kt = 0; kt < kt_end; ++kt) {
         const int buf = kt & 1;
         if (kt + 1 < kt_end) {  // fetch the next tile while this one is used
-            mma_load_tile<T, D>(Ks + (buf ^ 1) * BN * LD, k, p.sk[2], (kt + 1) * BN, p.m);
-            mma_load_tile<T, D>(Vs + (buf ^ 1) * BN * LD, v, p.sv[2], (kt + 1) * BN, p.m);
+            load_rows_async<T, D, BN, MMA_THREADS>(Ks + (buf ^ 1) * BN * LD, k, p.sk[2],
+                                                   (kt + 1) * BN, p.m);
+            load_rows_async<T, D, BN, MMA_THREADS>(Vs + (buf ^ 1) * BN * LD, v, p.sv[2],
+                                                   (kt + 1) * BN, p.m);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -187,13 +208,15 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const FwdPar
 
         // online softmax over rows row_a (e = 0, 1) and row_a + 8 (e = 2, 3);
         // a row's keys live in the 4 lanes of a quad
+        const bool edge = edge_tile(p, q0, kv0);
         float mx[2] = {MASKED, MASKED};
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const float x = masked_score(s[nb][e], p, row_a + (e >> 1) * 8,
-                                             kv0 + nb * 8 + 2 * t + (e & 1));
+                const float x = edge ? masked_score(s[nb][e], p, row_a + (e >> 1) * 8,
+                                                    kv0 + nb * 8 + 2 * t + (e & 1))
+                                     : s[nb][e] * p.scale;
                 s[nb][e] = x;
                 mx[e >> 1] = fmaxf(mx[e >> 1], x);
             }
@@ -203,7 +226,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const FwdPar
             mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
             mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
             const float m_new = fmaxf(m_run[r], mx[r]);
-            alpha[r] = expf(m_run[r] - m_new);
+            alpha[r] = exp_e(m_run[r] - m_new);
             m_run[r] = m_new;
         }
         uint32_t pf[NB / 2][4];  // p as A fragments, one per 16 keys
@@ -212,7 +235,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(const FwdPar
             float e4[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                e4[e] = expf(s[nb][e] - m_run[e >> 1]);
+                e4[e] = exp_e(s[nb][e] - m_run[e >> 1]);
                 sum[e >> 1] += e4[e];
             }
             // key block nb is half (nb & 1) of the 16-key A fragment nb / 2
@@ -276,8 +299,9 @@ constexpr size_t f32_smem_bytes() {
     return ((size_t)2 * D * LDT + (size_t)BN * D + (size_t)BN * LDT) * sizeof(float);
 }
 
-// Stage a [BM, D] tile of x into shared memory, transposed (dst[c * LDT + r])
-// or row-major (dst[r * D + c]). Rows at or past `limit` are zero.
+// Stage a [BM, D] tile of x into shared memory, transposed
+// (dst[c * LDT + r]) or row-major (dst[r * D + c]). Rows at or past `limit`
+// are zero.
 template <int D, bool TRANSPOSE>
 __device__ __forceinline__ void f32_load_tile(float* dst, const float* x, long long row_stride,
                                               int row0, int limit) {
@@ -304,9 +328,10 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
 
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
-    const int q0 = blockIdx.x * BM;
-    const int hi = blockIdx.y;
-    const int bi = blockIdx.z;
+    const Tile tile = block_tile<true>(cdiv(p.n, BM), p.h);
+    const int q0 = tile.t * BM;
+    const int hi = tile.hi;
+    const int bi = tile.bi;
 
     const float* q = static_cast<const float*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
     const float* k = static_cast<const float*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
@@ -429,8 +454,7 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, const FwdParams& p, 
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.n + BM - 1) / BM, p.h, b);
-    kernel<<<grid, threads, smem, stream>>>(p);
+    kernel<<<tile_grid(cdiv(p.n, BM), p.h, b), threads, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -440,14 +464,37 @@ cudaError_t launch_d(const FwdParams& p, int dtype, int b, cudaStream_t stream) 
         case 0:
             return launch(flash_fwd_f32_kernel<D>, F32_THREADS, f32_smem_bytes<D>(), p, b, stream);
         case 1:
-            return launch(flash_fwd_mma_kernel<__nv_bfloat16, D>, MMA_THREADS,
-                          mma_smem_bytes<D>(), p, b, stream);
+            return launch(flash_fwd_mma_kernel<__nv_bfloat16, D>, MMA_THREADS, mma_smem_bytes<D>(),
+                          p, b, stream);
         case 2:
             return launch(flash_fwd_mma_kernel<__half, D>, MMA_THREADS, mma_smem_bytes<D>(), p, b,
                           stream);
         default:
             return cudaErrorInvalidValue;
     }
+}
+
+int run(const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int b, int h,
+        int n, int m, int d, const long long* strides, float scale, int causal, void* stream) {
+    FwdParams p;
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.o = o;
+    p.lse = static_cast<float*>(lse);
+    long long* dst[4] = {p.sq, p.sk, p.sv, p.so};
+    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+    p.h = h;
+    p.n = n;
+    p.m = m;
+    p.scale = scale;
+    p.causal = causal;
+    if (b <= 0 || h <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (d == 64) return (int)launch_d<64>(p, dtype, b, s);
+    if (d == 128) return (int)launch_d<128>(p, dtype, b, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -462,26 +509,21 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
                          long long svb, long long svh, long long svn,
                          long long sob, long long soh, long long son,
                          float scale, int causal, void* stream) {
-    FwdParams p;
-    p.q = q;
-    p.k = k;
-    p.v = v;
-    p.o = o;
-    p.lse = static_cast<float*>(lse);
-    p.sq[0] = sqb; p.sq[1] = sqh; p.sq[2] = sqn;
-    p.sk[0] = skb; p.sk[1] = skh; p.sk[2] = skn;
-    p.sv[0] = svb; p.sv[1] = svh; p.sv[2] = svn;
-    p.so[0] = sob; p.so[1] = soh; p.so[2] = son;
-    p.h = h;
-    p.n = n;
-    p.m = m;
-    p.scale = scale;
-    p.causal = causal;
-    if (b <= 0 || h <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (d == 64) return (int)launch_d<64>(p, dtype, b, s);
-    if (d == 128) return (int)launch_d<128>(p, dtype, b, s);
-    return (int)cudaErrorInvalidValue;
+    const long long strides[12] = {sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son};
+    return run(q, k, v, o, lse, dtype, b, h, n, m, d, strides, scale, causal, stream);
+}
+
+// The long-sequence forward (the long route's entry): the same kernels,
+// arguments and contract.
+extern "C" int flash_fwd_long(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int dtype, int b, int h, int n, int m, int d,
+                              long long sqb, long long sqh, long long sqn,
+                              long long skb, long long skh, long long skn,
+                              long long svb, long long svh, long long svn,
+                              long long sob, long long soh, long long son,
+                              float scale, int causal, void* stream) {
+    const long long strides[12] = {sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son};
+    return run(q, k, v, o, lse, dtype, b, h, n, m, d, strides, scale, causal, stream);
 }
 
 extern "C" const char* flash_fwd_error_string(int err) {

@@ -1,12 +1,14 @@
-// Tensor-core and copy helpers shared by the flash kernels (flash_fwd.cu,
-// flash_bwd.cu): mma.sync.m16n8k16 with f32 accumulators for bf16 and fp16,
-// ldmatrix fragment loads from shared memory, and cp.async copies.
+// Tensor-core, copy and grid helpers shared by the flash kernels
+// (flash_fwd.cu, flash_bwd.cu): mma.sync.m16n8k16 with f32 accumulators for
+// bf16 and fp16, ldmatrix fragment loads from shared memory, cp.async tile
+// copies, the exponential, and the block order of every kernel.
 #pragma once
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 
 namespace {
 
@@ -77,5 +79,54 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// e^x as one ex2.approx of x * log2(e): two instructions where expf takes
+// about eight. Its relative error is about 2^-22 + |x| * 2^-24 (the second
+// term from rounding x * log2(e) to f32): about 2^-19 at |x| = 30, where the
+// backward clamps. That is far below the bf16 / fp16 rounding (2^-9 / 2^-12)
+// of the p it feeds; the f32 kernels keep expf.
+__device__ __forceinline__ float exp_e(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+    return y;
+}
+
+// Start the copy of a [ROWS, W] tile (rows row0.. of x) into dst, whose rows
+// are W + 8 elements apart (ldmatrix rows then hit distinct banks), by a
+// block of THREADS threads; rows at or past `limit` are zero, so a ragged
+// last tile contributes nothing.
+template <typename T, int W, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows_async(T* dst, const T* x, long long row_stride,
+                                                int row0, int limit) {
+    constexpr int CHUNKS = W / 8;  // 16-byte chunks per row
+    for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
+        const int r = idx / CHUNKS;
+        const int c = (idx % CHUNKS) * 8;
+        const int row = row0 + r;
+        const bool in = row < limit;
+        cp_async16(dst + r * (W + 8) + c, in ? x + (long long)row * row_stride + c : x, in);
+    }
+}
+
+// The (tile, head, batch) a block works on. Every kernel's grid is
+// one-dimensional and ordered for the causal triangle: the tiles of one
+// (b, h) are adjacent, so its K/V stays in L2 while they run, and within it
+// the heaviest tile comes first (HEAVY_LAST: the last tile is the heaviest,
+// as for query tiles; else the first, as for key tiles), so the lightest
+// tiles fill the last wave.
+struct Tile {
+    int t, hi, bi;
+};
+
+template <bool HEAVY_LAST>
+__device__ __forceinline__ Tile block_tile(int num_tiles, int h) {
+    const int bh = blockIdx.x / num_tiles;
+    const int r = blockIdx.x % num_tiles;
+    return {HEAVY_LAST ? num_tiles - 1 - r : r, bh % h, bh / h};
+}
+
+inline dim3 tile_grid(int num_tiles, int h, int b) { return dim3(num_tiles * h * b); }
 
 }  // namespace

@@ -3,9 +3,13 @@
 Routing as in the JAX package: flash attention (ops/flash_attention.py)
 for sequences of 512 or more with head_dim <= 256, no mask and no dropout;
 otherwise the plain quadratic path `_sdpa_ref`, which also applies
-attention-probability dropout in training mode. The JAX package's
-blockwise path for long masked-free sequences is not ported yet, so what
-would reach it takes `_sdpa_ref`, which computes the same function.
+attention-probability dropout in training mode. The flash entry sends a
+sequence of LONG_SEQ (4096) or more to the long route and causal
+attention with n != m to the blockwise attention
+(ops/blockwise_attention.py). The JAX package also takes blockwise here
+when its flash kernel is unavailable (no TPU) or head_dim > 256 at 1024 or
+more; the port's flash kernels are always available, and the head_dim >
+256 case takes `_sdpa_ref`, which computes the same function.
 """
 import math
 

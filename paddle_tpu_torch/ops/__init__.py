@@ -1,1 +1,1 @@
-from . import flash_attention, fused_ce  # noqa: F401
+from . import blockwise_attention, flash_attention, fused_ce  # noqa: F401

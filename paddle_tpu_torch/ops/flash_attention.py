@@ -11,18 +11,28 @@ the two-pass pair (`_bwd_dq_kernel`, `_bwd_dkv_kernel`). `backward` is the
 split interface `(q, k, v, o, lse, do, causal, scale) -> (dq, dk, dv)`
 and routes as the JAX package's `_bwd_impl` does at its default blocks.
 
+Long sequences (max(n, m) >= LONG_SEQ) take the long route, as the JAX
+package's `_use_long_path` does: `flash_fwd_long_cuda` (csrc/flash_fwd.cu,
+replacing `_fwd_kernel_long`), then in the backward `flash_bwd_dq_long_cuda`
+and `flash_bwd_dkv_long_cuda` (csrc/flash_bwd.cu, replacing
+`_bwd_dq_kernel_long` and `_bwd_dkv_kernel_long`); the long route has no
+fused backward. Its entry points launch the same kernels as the standard
+ones: on the H100 one tiling serves every length (the sources' headers
+say why), so the route differs only in the backward's passes and counts.
+
 Every kernel wrapper launches its kernel for CUDA tensors or raises: it
 never falls back. For CPU tensors the split interfaces take the plain
 versions `flash_attention_fwd_ref` / `flash_attention_bwd_ref`, which
-follow the kernels' numeric contract. `flash_attention_bnhd` / `_bhnd`
-are the public entry points; their autograd Function saves q, k, v, o and
-lse and runs `backward`.
+follow the kernels' numeric contract on both routes. `flash_attention_bnhd`
+/ `_bhnd` are the public entry points; their autograd Function saves q, k,
+v, o and lse and runs `backward`.
 
 Routing follows the JAX package's `_dispatch_fwd`: causal attention with
-n != m is not the kernels' contract (the JAX package sends it to blockwise
-attention, which the port does not have yet), and a shape `_supported`
-rejects goes to the plain attention `_ref_bhnd` before any launch, is
-counted, and raises under PADDLE_TPU_FLASH_STRICT=1.
+n != m is not the kernels' contract (they are top-left causal) and goes to
+the bottom-right blockwise attention (ops/blockwise_attention.py) before
+any kernel; a shape `_supported` rejects goes to the plain attention
+`_ref_bhnd` before any launch, is counted, and raises under
+PADDLE_TPU_FLASH_STRICT=1.
 """
 import ctypes
 import math
@@ -31,6 +41,7 @@ import os
 import torch
 
 from .. import _build
+from .blockwise_attention import blockwise_attention_bnhd
 
 _NEG_INF = -1e30
 # the kernel's template instantiations (csrc/flash_fwd.cu)
@@ -43,10 +54,32 @@ _KERNEL_HEAD_DIMS = (64, 128)
 # port takes the same route, and is to be re-measured on the H100.
 FUSED_BWD_MAX_SEQ = 512
 
-# 'flash': calls that reached the flash forward (the kernel on CUDA, its
-# plain version on CPU); 'rejected': calls _supported routed to _ref_bhnd;
-# 'bwd_fused' / 'bwd_two_pass': backward calls by route, on either device
-counts = {'flash': 0, 'rejected': 0, 'bwd_fused': 0, 'bwd_two_pass': 0}
+# The JAX package sends max(n, m) >= 4096 to its long kernels
+# (flash_defaults.LONG_SEQ). 4096 is the TPU's tuning, where the standard
+# kernels ran out of VMEM; it is kept so the port takes the same route. On
+# the H100 both routes launch the same kernels, so above FUSED_BWD_MAX_SEQ
+# the threshold moves no time.
+LONG_SEQ = 4096
+
+# Calls by route, on either device (the kernel on CUDA, its plain version
+# on CPU). Forward: 'flash' (standard) and 'fwd_long'; backward:
+# 'bwd_fused', 'bwd_two_pass' and 'bwd_long'. 'rejected': calls _supported
+# routed to _ref_bhnd; 'blockwise': causal n != m calls routed to the
+# blockwise attention.
+counts = {'flash': 0, 'fwd_long': 0, 'rejected': 0, 'blockwise': 0,
+          'bwd_fused': 0, 'bwd_two_pass': 0, 'bwd_long': 0}
+
+
+def _use_long_path(n, m):
+    return max(n, m) >= LONG_SEQ
+
+
+def _check_causal_lengths(causal, n, m):
+    if causal and n != m:
+        raise ValueError(
+            'the flash kernels are top-left causal with n == m; got n=%d, '
+            'm=%d (flash_attention_bnhd routes cross-length causal to the '
+            'blockwise attention)' % (n, m))
 
 
 def strict_mode():
@@ -91,7 +124,8 @@ def _ref_bhnd(q, k, v, causal, scale):
 
 
 def flash_attention_fwd_ref(q, k, v, causal, scale):
-    """The kernel's plain version: the same function and numeric contract.
+    """The forward kernels' plain version, for the standard and the long
+    route alike (they compute one function under one numeric contract).
 
     q [b, h, n, d], k/v [b, h, m, d] of one dtype. Products of the native
     operands summed in f32, top-left causal masking, softmax in f32, p cast
@@ -109,14 +143,17 @@ def flash_attention_fwd_ref(q, k, v, causal, scale):
     return o.to(q.dtype), mx + torch.log(l_safe)
 
 
-def _lib():
+def _fwd_lib():
     lib = _build.load('flash_fwd')
-    if lib.flash_fwd.argtypes is None:
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
-            [ctypes.c_longlong] * 12 +
-            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    for name in ('flash_fwd', 'flash_fwd_long'):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+                [ctypes.c_longlong] * 12 +
+                [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    if lib.flash_fwd_error_string.argtypes is None:
         lib.flash_fwd_error_string.restype = ctypes.c_char_p
         lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -131,54 +168,75 @@ def _rows_aligned(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def flash_fwd_cuda(q, k, v, causal, scale):
-    """Launch csrc/flash_fwd.cu on CUDA tensors q [b, h, n, d] and k/v
-    [b, h, m, d]; returns (o, lse). Raises on anything the kernel does not
-    take. `flash_fwd_cuda.launches` counts the launches."""
+def _fwd_launch(entry, q, k, v, causal, scale):
+    """Check what the forward kernel `entry` takes, launch it; (o, lse)."""
+    name = entry + '_cuda'
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError('flash_fwd_cuda takes CUDA tensors')
+        raise ValueError('%s takes CUDA tensors' % name)
     if not (q.device == k.device == v.device):
         raise ValueError('q, k, v on different devices')
     reason = _supported(q, k, v)
     if reason is not None:
-        raise ValueError('flash_fwd_cuda cannot run: ' + reason)
+        raise ValueError('%s cannot run: %s' % (name, reason))
     b, h, n, d = q.shape
     m = k.shape[2]
     if k.shape != (b, h, m, d) or v.shape != k.shape:
         raise ValueError('shape mismatch: q %s, k %s, v %s'
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    if causal and n != m:
-        raise ValueError('the kernel is top-left causal with n == m; got '
-                         'n=%d, m=%d' % (n, m))
+    _check_causal_lengths(causal, n, m)
     q, k, v = (_rows_aligned(t) for t in (q, k, v))
     # o is laid out [b, n, h, d] in memory: the callers read it back in
     # that layout, so the swap to [b, h, n, d] and back costs no copy
     o = torch.empty((b, n, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, n, 1), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = _fwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, h, n, m, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], float(scale), int(bool(causal)), stream)
     if err != 0:
-        raise RuntimeError('flash_fwd launch failed: %s (cuda error %d)' % (
-            lib.flash_fwd_error_string(err).decode(), err))
-    flash_fwd_cuda.launches += 1
+        raise RuntimeError('%s launch failed: %s (cuda error %d)' % (
+            entry, lib.flash_fwd_error_string(err).decode(), err))
     return o, lse
 
 
+def flash_fwd_cuda(q, k, v, causal, scale):
+    """Launch csrc/flash_fwd.cu on CUDA tensors q [b, h, n, d] and k/v
+    [b, h, m, d]; returns (o, lse). Raises on anything the kernel does not
+    take. `flash_fwd_cuda.launches` counts the launches."""
+    out = _fwd_launch('flash_fwd', q, k, v, causal, scale)
+    flash_fwd_cuda.launches += 1
+    return out
+
+
+def flash_fwd_long_cuda(q, k, v, causal, scale):
+    """Launch the long route's forward, csrc/flash_fwd.cu's flash_fwd_long
+    (the same kernels as flash_fwd); the arguments, checks and result of
+    flash_fwd_cuda. `flash_fwd_long_cuda.launches` counts the launches."""
+    out = _fwd_launch('flash_fwd_long', q, k, v, causal, scale)
+    flash_fwd_long_cuda.launches += 1
+    return out
+
+
 flash_fwd_cuda.launches = 0
+flash_fwd_long_cuda.launches = 0
 
 
 def forward(q, k, v, causal, scale):
-    """Split interface: (o, lse) with lse f32 [b, h, n, 1]. The kernel for
-    CUDA tensors, its plain version for CPU tensors."""
+    """Split interface: (o, lse) with lse f32 [b, h, n, 1]. The standard or
+    the long kernel for CUDA tensors, by length; the plain version for CPU
+    tensors."""
+    n, m = q.shape[2], k.shape[2]
+    _check_causal_lengths(causal, n, m)
+    long_path = _use_long_path(n, m)
+    counts['fwd_long' if long_path else 'flash'] += 1
     if q.is_cuda:
-        return flash_fwd_cuda(q, k, v, causal, scale)
+        kernel = flash_fwd_long_cuda if long_path else flash_fwd_cuda
+        return kernel(q, k, v, causal, scale)
     if q.device.type != 'cpu' or k.device != q.device or v.device != q.device:
         raise ValueError('flash forward takes CUDA tensors or CPU tensors, '
                          'all on one device; got %s, %s, %s'
@@ -187,7 +245,9 @@ def forward(q, k, v, causal, scale):
 
 
 def flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale):
-    """The backward kernels' plain version: one function for all three.
+    """The backward kernels' plain version: one function for all five
+    (fused, dq and dk/dv of the standard route; dq and dk/dv of the long
+    route).
 
     q, do [b, h, n, d] and k, v [b, h, m, d] of one dtype; lse and
     delta = rowsum(do * o) f32 [b, h, n, 1]. The TPU kernels' contract:
@@ -212,7 +272,8 @@ def flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale):
 
 def _bwd_lib():
     lib = _build.load('flash_bwd')
-    for name in ('flash_bwd_fused', 'flash_bwd_dq', 'flash_bwd_dkv'):
+    for name in ('flash_bwd_fused', 'flash_bwd_dq', 'flash_bwd_dkv',
+                 'flash_bwd_dq_long', 'flash_bwd_dkv_long'):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
@@ -247,9 +308,7 @@ def _bwd_operands(name, q, k, v, do, lse, delta, causal):
         if t.shape != (b, h, n, 1) or t.dtype != torch.float32:
             raise ValueError('%s must be float32 %s, got %s %s' % (
                 label, (b, h, n, 1), t.dtype, tuple(t.shape)))
-    if causal and n != m:
-        raise ValueError('the kernels are top-left causal with n == m; got '
-                         'n=%d, m=%d' % (n, m))
+    _check_causal_lengths(causal, n, m)
     # lse and delta are indexed as dense [b, h, n] rows
     return ([_rows_aligned(t) for t in (q, k, v, do)] +
             [lse.contiguous(), delta.contiguous()], (b, h, n, m, d))
@@ -306,56 +365,87 @@ def flash_bwd_fused_cuda(q, k, v, do, lse, delta, causal, scale):
     return outs
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
-    """Launch the dq pass of csrc/flash_bwd.cu; returns dq."""
-    operands, dims = _bwd_operands('flash_bwd_dq_cuda', q, k, v, do, lse,
-                                   delta, causal)
+def _bwd_dq(entry, q, k, v, do, lse, delta, causal, scale):
+    operands, dims = _bwd_operands(entry + '_cuda', q, k, v, do, lse, delta,
+                                   causal)
     b, h, n, m, d = dims
     dq = _grad_like(b, n, h, d, q.dtype, q.device)
-    _bwd_launch('flash_bwd_dq', operands, dims, (dq, None, None), None,
-                scale, causal)
+    _bwd_launch(entry, operands, dims, (dq, None, None), None, scale, causal)
+    return dq
+
+
+def _bwd_dkv(entry, q, k, v, do, lse, delta, causal, scale):
+    operands, dims = _bwd_operands(entry + '_cuda', q, k, v, do, lse, delta,
+                                   causal)
+    b, h, n, m, d = dims
+    dk = _grad_like(b, m, h, d, q.dtype, q.device)
+    dv = _grad_like(b, m, h, d, q.dtype, q.device)
+    _bwd_launch(entry, operands, dims, (None, dk, dv), None, scale, causal)
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
+    """Launch the dq pass of csrc/flash_bwd.cu; returns dq."""
+    dq = _bwd_dq('flash_bwd_dq', q, k, v, do, lse, delta, causal, scale)
     flash_bwd_dq_cuda.launches += 1
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     """Launch the dk/dv pass of csrc/flash_bwd.cu; returns (dk, dv)."""
-    operands, dims = _bwd_operands('flash_bwd_dkv_cuda', q, k, v, do, lse,
-                                   delta, causal)
-    b, h, n, m, d = dims
-    dk = _grad_like(b, m, h, d, q.dtype, q.device)
-    dv = _grad_like(b, m, h, d, q.dtype, q.device)
-    _bwd_launch('flash_bwd_dkv', operands, dims, (None, dk, dv), None,
-                scale, causal)
+    out = _bwd_dkv('flash_bwd_dkv', q, k, v, do, lse, delta, causal, scale)
     flash_bwd_dkv_cuda.launches += 1
-    return dk, dv
+    return out
 
 
-for _wrapper in (flash_bwd_fused_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+def flash_bwd_dq_long_cuda(q, k, v, do, lse, delta, causal, scale):
+    """Launch the long route's dq pass, csrc/flash_bwd.cu's
+    flash_bwd_dq_long (the same kernel as flash_bwd_dq); returns dq."""
+    dq = _bwd_dq('flash_bwd_dq_long', q, k, v, do, lse, delta, causal, scale)
+    flash_bwd_dq_long_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_long_cuda(q, k, v, do, lse, delta, causal, scale):
+    """Launch the long route's dk/dv pass, csrc/flash_bwd.cu's
+    flash_bwd_dkv_long (the same kernel as flash_bwd_dkv); returns
+    (dk, dv)."""
+    out = _bwd_dkv('flash_bwd_dkv_long', q, k, v, do, lse, delta, causal,
+                   scale)
+    flash_bwd_dkv_long_cuda.launches += 1
+    return out
+
+
+for _wrapper in (flash_bwd_fused_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda,
+                 flash_bwd_dq_long_cuda, flash_bwd_dkv_long_cuda):
     _wrapper.launches = 0
 
 
 def backward(q, k, v, o, lse, do, causal, scale):
     """Split interface: (dq, dk, dv) of o = attention(q, k, v) given lse
     and the output gradient do. delta = rowsum(do * o) is a plain f32
-    reduction, as in the JAX package. Fused when max(n, m) <=
-    FUSED_BWD_MAX_SEQ, else dq then dk/dv; the kernels for CUDA tensors,
-    the plain version for CPU tensors."""
+    reduction, as in the JAX package. The long route (max(n, m) >=
+    LONG_SEQ) runs the long dq then dk/dv kernels; below it, fused when
+    max(n, m) <= FUSED_BWD_MAX_SEQ, else dq then dk/dv. The kernels for
+    CUDA tensors, the plain version for CPU tensors."""
     n, m = q.shape[2], k.shape[2]
-    if causal and n != m:
-        raise NotImplementedError(
-            'causal flash attention backward with n (%d) != m (%d) is not '
-            'ported yet' % (n, m))
+    _check_causal_lengths(causal, n, m)
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    fused = max(n, m) <= FUSED_BWD_MAX_SEQ
-    counts['bwd_fused' if fused else 'bwd_two_pass'] += 1
+    if _use_long_path(n, m):
+        route = 'bwd_long'
+    elif max(n, m) <= FUSED_BWD_MAX_SEQ:
+        route = 'bwd_fused'
+    else:
+        route = 'bwd_two_pass'
+    counts[route] += 1
     if q.is_cuda:
-        if fused:
-            return flash_bwd_fused_cuda(q, k, v, do, lse, delta, causal,
-                                        scale)
-        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
-        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
-        return dq, dk, dv
+        args = (q, k, v, do, lse, delta, causal, scale)
+        if route == 'bwd_fused':
+            return flash_bwd_fused_cuda(*args)
+        if route == 'bwd_long':
+            return (flash_bwd_dq_long_cuda(*args),
+                    *flash_bwd_dkv_long_cuda(*args))
+        return flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args)
     if any(t.device.type != 'cpu' for t in (k, v, o, lse, do)):
         raise ValueError('flash backward takes CUDA tensors or CPU tensors, '
                          'all on one device')
@@ -379,12 +469,15 @@ class _FlashForward(torch.autograd.Function):
 
 
 def _dispatch_fwd(q, k, v, causal, scale):
-    """Returns (o, lse_or_None); lse None means the plain attention ran."""
+    """Returns (o, lse_or_None); lse None means the flash kernels did not
+    run (the blockwise or the plain attention did)."""
     if causal and q.shape[2] != k.shape[2]:
-        raise NotImplementedError(
-            'causal flash attention with n (%d) != m (%d): the kernel is '
-            'top-left causal with n == m, and the bottom-right blockwise '
-            'path is not ported yet' % (q.shape[2], k.shape[2]))
+        # bottom-right causal (a query chunk over a longer cache) is the
+        # blockwise attention's contract, not the kernels': a semantics
+        # route, not a capability fallback, so strict mode does not apply
+        counts['blockwise'] += 1
+        return blockwise_attention_bnhd(q, k, v, causal=True,
+                                        scale=scale), None
     reason = _supported(q, k, v)
     if reason is not None:
         counts['rejected'] += 1
@@ -393,7 +486,6 @@ def _dispatch_fwd(q, k, v, causal, scale):
                 'PADDLE_TPU_FLASH_STRICT=1 but the flash kernel cannot '
                 'run: ' + reason)
         return _ref_bhnd(q, k, v, causal, scale), None
-    counts['flash'] += 1
     return _FlashForward.apply(q, k, v, causal, scale)
 
 

@@ -119,9 +119,18 @@ def test_nonstrict_routes_rejected_shape_to_reference(monkeypatch):
 
 
 def test_causal_cross_length_is_not_ported():
+    # the name dates from slice 1, when cross-length causal raised; slice 3
+    # routes it to the bottom-right blockwise attention, as the JAX package
+    # does, before any kernel
     q, k, v = _torch(*_mk(n=256, m=512))
-    with pytest.raises(NotImplementedError, match='blockwise'):
-        tfa.flash_attention_bhnd(q, k, v, causal=True)
+    before = dict(tfa.counts)
+    out = tfa.flash_attention_bhnd(q, k, v, causal=True)
+    assert tfa.counts['blockwise'] == before['blockwise'] + 1
+    assert tfa.counts['flash'] == before['flash']
+    ref = jfa._ref_bhnd(*(jnp.asarray(x.numpy()) for x in (q, k, v)), True,
+                        0.125)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
     # non-causal cross attention keeps to the flash forward
     out = tfa.flash_attention_bhnd(q, k, v, causal=False)
     ref = jfa._ref_bhnd(*(jnp.asarray(x.numpy()) for x in (q, k, v)), False,

@@ -124,10 +124,16 @@ def test_backward_route_follows_the_512_block(n, route):
 
 
 def test_backward_causal_cross_length_is_not_ported():
+    # the name dates from slice 2, when this raised NotImplementedError;
+    # slice 3 sends cross-length causal to the blockwise attention before
+    # any kernel, so the split backward (top-left causal, the kernels'
+    # contract) refuses it
     q = torch.zeros(1, 2, 256, 64)
     k = torch.zeros(1, 2, 512, 64)
-    with pytest.raises(NotImplementedError, match='not ported'):
+    with pytest.raises(ValueError, match='top-left causal'):
         tfa.backward(q, k, k, q, torch.zeros(1, 2, 256, 1), q, True, 0.125)
+    with pytest.raises(ValueError, match='top-left causal'):
+        tfa.forward(q, k, k, True, 0.125)
 
 
 @pytest.mark.parametrize('wrapper', ['flash_bwd_fused_cuda',

@@ -30,9 +30,10 @@ def _interpret_strict(monkeypatch):
 
 
 def _pair(seed, **cfg):
+    cfg = dict(SMALL, **cfg)
     paddle.seed(seed)
-    jm = JGPT(JConfig(**SMALL, **cfg))
-    tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL, **cfg), device='cpu')
+    jm = JGPT(JConfig(**cfg))
+    tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg), device='cpu')
     tgpt.load_paddle_tpu_state(tm, {k: np.asarray(v.numpy())
                                     for k, v in jm.state_dict().items()})
     return jm, tm
@@ -152,6 +153,31 @@ def test_train_seq1024_takes_the_two_pass_backward():
     assert tfa.counts['bwd_two_pass'] == \
         before['bwd_two_pass'] + SMALL['num_layers']
     assert tfa.counts['bwd_fused'] == before['bwd_fused']
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-5)
+    _assert_params_close(jm, tm, 1)
+
+
+def test_train_seq2048_long_route_matches_jax(monkeypatch):
+    # slice 3: long-context training, with both packages forced onto their
+    # long path at 2048 tokens (the JAX long kernels run 512 x 1024 blocks
+    # through the interpreter; the port takes their plain versions)
+    monkeypatch.setenv('PADDLE_TPU_FLASH_FORCE_LONG', '1')
+    monkeypatch.setattr(tfa, 'LONG_SEQ', 2048)
+    jm, tm = _pair(17, fused_loss=True, max_position_embeddings=2048)
+    ids, labels = _batch(1, 2048, 6)
+    before = dict(tfa.counts)
+    got_loss, got = _torch_loss_and_grads(tm, ids, labels)
+    layers = SMALL['num_layers']
+    assert tfa.counts['fwd_long'] == before['fwd_long'] + layers
+    assert tfa.counts['bwd_long'] == before['bwd_long'] + layers
+    for route in ('flash', 'bwd_fused', 'bwd_two_pass', 'rejected'):
+        assert tfa.counts[route] == before[route], route
+    want_loss, want = _jax_loss_and_grads(jm, ids, labels)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    _assert_grads_close(got, want)
+
+    (got_l, want_l), = _train(jm, tm, [(ids, labels)])
+    assert tfa.counts['bwd_long'] == before['bwd_long'] + 2 * layers
     np.testing.assert_allclose(got_l, want_l, rtol=1e-5)
     _assert_params_close(jm, tm, 1)
 
