@@ -7,17 +7,19 @@
 //   of s, p and dp for each (query tile, key tile) pair.
 // - flash_bwd_dq (_bwd_dq_kernel): one block per (batch, head, tile of 64
 //   query rows) walks the key tiles up to the diagonal, dq in f32 registers.
-// - flash_bwd_dkv (_bwd_dkv_kernel): one block per (batch, head, tile of 64
+// - flash_bwd_dkv (_bwd_dkv_kernel): one block per (batch, head, tile of 128
 //   keys) walks the query tiles from the first that sees it, dk and dv in
 //   f32 registers.
 // They compute the TPU kernels' function, not their blocks: a TPU core holds
 // a whole 512 x 512 score tile in VMEM, a Hopper block has 227 KB of shared
-// memory, so every kernel here walks 64-key tiles.
+// memory, so every kernel here walks tiles of 32 to 128 rows.
 //
 // Numeric contract (the TPU kernels'): products of native-dtype operands
 // summed in f32, top-left causal masking, p = exp(min(s * scale - lse, 30))
 // (0 where masked), ds = p * (dp - delta) * scale, and p and ds rounded to
-// the operand dtype before the products they feed.
+// the operand dtype before the products they feed. The 16-bit dk/dv kernel
+// takes the exponential as one ex2.approx of min(s * scale * log2 e -
+// lse * log2 e, 30 log2 e): exp_e's instruction, the scale folded in.
 //
 // The fused backward is two kernels on one stream. Blocks run in parallel
 // and cannot carry dq's sum over key tiles from one to the next, so the
@@ -27,50 +29,52 @@
 // query tile in registers, reading ds instead of recomputing s, p and dp.
 // dq is deterministic, as the TPU kernel's is: no atomics, a fixed order.
 //
-// What bounds it on the card. At the training shape (b=32, h=12, n=m=512,
-// d=64, bf16, causal) the backward must read q, k, v, do (4 x 25.2 MB) and
-// lse, delta (2 x 0.8 MB) and write dq, dk, dv (3 x 25.2 MB): 177.8 MB,
-// 53 us at the H100 SXM's 3.35 TB/s. Its work is 5 products of 2 * d flops
-// for each of the 131,328 visible pairs per (b, h): 32.3 GFLOP, 33 us at
-// the 989 TFLOP/s bf16 peak. So the bytes bound it, by a small margin. The
-// fused path's ds round trip adds 2 x 113 MB there.
-//
-// Two paths, as in flash_fwd.cu:
-// - bf16 / fp16: 4 warps on the tensor cores (mma.sync.m16n8k16, f32
-//   accumulators, ldmatrix from shared memory, cp.async double-buffered
-//   tiles). In the key-tile kernel each warp owns 16 keys and computes
-//   s^T = k q^T and dp^T = v do^T, so p^T and ds^T go from the accumulators
-//   straight into the A fragments of dv += p^T do and dk += ds^T q.
-// - f32: FMAs on the CUDA cores, 256 threads, each on a 4 x 4 (or 4 x 8)
-//   register tile, operands staged in shared memory.
-// wgmma, TMA and warp specialisation are later work.
-//
 // flash_bwd_dq_long and flash_bwd_dkv_long launch the same dq and dk/dv
 // kernels. They replace the TPU kernels of _bwd_impl_long, which the JAX
 // package runs for max(n, m) >= 4096: _bwd_dq_kernel_long and
 // _bwd_dkv_kernel_long. The TPU needs them because its standard kernels
-// stage whole sequences in VMEM; these kernels stage 64-row tiles at any
-// length, so that reason does not carry over. What changes on the H100 is
-// the bound: at the long training shape (b=2, h=12, n=m=8192, d=64, bf16,
-// causal) the dq pass must move q, k, v, do, dq (5 x 25.2 MB) and lse,
-// delta: 38 us at 3.35 TB/s, against 3 products of 2*d flops on 33.6M
-// visible pairs per (b, h), 309 GFLOP, 313 us at the bf16 peak (dk/dv: 4
-// products, 417 us). Operations bound both. Three choices serve that, and
-// they measured faster at every length from 512 on, so every kernel here
-// takes them: one ex2.approx per p (exp_e) instead of expf's eight
-// instructions in the tensor-core kernels, a register cap that holds 3
-// blocks on an SM at d = 64, and a one-dimensional grid that keeps the
-// tiles of one (b, h) adjacent and starts the heaviest first (the last
-// query tile for dq, the first key tile for dk/dv). The f32 dk/dv kernel
-// alone runs a few per cent slower in that order; it keeps it, so that one
-// order serves every kernel. 8 warps, 2 m-tiles a warp and other steps
-// measured no faster. Every kernel here applies the
-// causal / ragged mask only on the tiles that cross the diagonal or an end.
+// stage whole sequences in VMEM; these kernels stage tiles at any length, so
+// that reason does not carry over.
+//
+// What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16):
+// - the training shape (b=32, h=12, n=m=512, d=64, bf16, causal): the fused
+//   backward must read q, k, v, do (4 x 25.2 MB) and lse, delta, and write
+//   dq, dk, dv (3 x 25.2 MB): 177.8 MB, 53 us; its 5 products of 2 * d
+//   flops for each of the 131,328 visible pairs per (b, h), 32.3 GFLOP, take
+//   33 us. The bytes bound it, by a small margin; the ds round trip adds
+//   2 x 113 MB.
+// - the long shape (b=2, h=12, n=m=8192): the dk/dv pass moves 6 x 25.2 MB
+//   (46 us) for 4 products on 33.6M visible pairs per (b, h), 412 GFLOP
+//   (417 us); the dq pass 3 products (313 us). Operations bound both.
+//
+// Two paths:
+// - bf16 / fp16. The dk/dv kernel (flash_bwd_kv_tma_kernel, with STORE_DS
+//   the fused pass's first kernel) is warpgroup wgmma on shared memory that
+//   TMA fills: a producer warpgroup (one warp working, 40 registers) copies
+//   the K and V of its key tile once and streams q, do, lse and delta
+//   through a ring tracked by mbarriers; two consumer warpgroups (64 keys
+//   each, 232 registers, moved over by setmaxnreg) compute s^T = k q^T and
+//   dp^T = v do^T with K and V resident as A, p^T and ds^T in registers,
+//   and dv += p^T do, dk += ds^T q with those registers as A. Only the
+//   tiles that cross the diagonal or an end test each pair: the test cost
+//   more instructions than the rest of the elementwise step. The dq kernel
+//   (flash_bwd_dq_mma_kernel) is 4 warps on mma.sync.m16n8k16 (ldmatrix,
+//   cp.async double-buffered tiles, a register cap of 3 blocks an SM at
+//   d = 64, one ex2.approx per p).
+// - f32: FMAs on the CUDA cores, 256 threads, each on a 4 x 4 (or 4 x 8)
+//   register tile, operands staged in shared memory.
+// The 16-bit dk/dv kernel is persistent (one block an SM): it walks pairs of
+// key tiles whose causal work adds up to the same (TilePairs), and the next
+// tile's K and V arrive in a second buffer while this one finishes. Every
+// other kernel's grid is one-dimensional, the tiles of one (b, h) adjacent
+// and the heaviest first (the last query tile for dq, the first key tile
+// for the f32 dk/dv).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
 // Each C entry point launches on the given stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError().
+// allocates nothing, and returns cudaGetLastError(), or the error of a
+// tensor map that cuTensorMapEncodeTiled refused.
 
 #include <cstdint>
 #include <type_traits>
@@ -80,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_sm90.cuh"
+#include "sm90_async.cuh"
 
 namespace {
 
@@ -98,7 +103,7 @@ struct BwdParams {
     void* ds;  // the fused path's ds^T: [b, h, m, ds_ld(n)], operand dtype, dense
     // strides of (b, h, row), in elements
     long long sq[3], sk[3], sv[3], sdo[3], sdq[3], sdk[3], sdv[3];
-    int h, n, m;
+    int b, h, n, m;
     float scale;
     int causal;
 };
@@ -149,17 +154,15 @@ __device__ __forceinline__ T* ds_rows(const BwdParams& p, int bi, int hi) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16: tensor cores (helpers and fragment layouts in mma_sm90.cuh).
+// The dq kernel, bf16 / fp16: mma.sync tensor cores (helpers and fragment
+// layouts in mma_sm90.cuh).
 //
-// 4 warps; each owns 16 rows of the block's 64 (query rows in the dq kernel,
-// keys in the dk/dv kernel). The dq kernel walks 64 keys a step, the dk/dv
-// kernel 64 queries (32 at d = 128, which keeps the dk and dv accumulators,
-// 2 x 64 floats a thread, and the score tiles in registers). The register
-// cap: __launch_bounds__ holds MINB blocks on an SM, 65536 / (128 * MINB)
-// registers a thread (at d = 128 the compiler's own choice).
+// 4 warps; each owns 16 of the block's 64 query rows, walking 64 keys a
+// step. The register cap: __launch_bounds__ holds MINB blocks on an SM,
+// 65536 / (128 * MINB) registers a thread (at d = 128 the compiler's own
+// choice).
 constexpr int MMA_THREADS = 128;
-constexpr int MMA_ROWS = 64;  // query rows (dq) or keys (dk/dv) per block
-template <int D> __host__ __device__ constexpr int kv_bq() { return D == 64 ? 64 : 32; }
+constexpr int MMA_ROWS = 64;  // query rows per block
 template <int D> constexpr int mma_minb() { return D == 64 ? 3 : 2; }
 
 // lse and delta of rows row0.. (0 past the end) into shared memory
@@ -236,130 +239,282 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
+// ---------------------------------------------------------------------------
+// The dk/dv kernel, bf16 / fp16: wgmma on TMA-fed shared memory (helpers in
+// sm90_async.cuh).
+//
+// A block walks key tiles of 128: two consumer warpgroups of 64 keys
+// (wgmma's M) and one producer warpgroup, of which one warp works. It copies
+// each tile's K and V once, then streams the query tiles of kv_tma_bq<D>()
+// rows (q and do by TMA, lse and delta by plain loads) into a ring of
+// KV_STAGES buffers. Each consumer
+// computes s^T = k q^T and dp^T = v do^T as SS wgmma (its K and V rows as
+// A, q and do as K-major B), p^T and ds^T in registers, and dv += p^T do and
+// dk += ds^T q as RS wgmma (the packed p^T and ds^T as A, do and q as
+// MN-major B). BQ is 64 at d = 64 and 32 at d = 128, where the dk and dv
+// accumulators take 2 x 64 registers a thread.
+
+constexpr int KV_ROWS = 128;  // keys per tile: 2 consumer warpgroups x 64
+constexpr int KV_CONSUMERS = 2;
+constexpr int KV_THREADS = (KV_CONSUMERS + 1) * 128;  // + the producer warpgroup
+constexpr int KV_STAGES = 3;
+template <int D> __host__ __device__ constexpr int kv_tma_bq() { return D == 64 ? 64 : 32; }
+
 template <int D>
-constexpr size_t kv_mma_smem_bytes() {
-    // K and V tiles, two buffers each of q and do, two each of lse and delta
-    constexpr int BQ = kv_bq<D>();
-    return (size_t)(2 * MMA_ROWS + 4 * BQ) * (D + 8) * 2 + (size_t)4 * BQ * sizeof(float);
+constexpr size_t kv_tma_smem_bytes() {
+    // two buffers each of K and V, then q and do of every stage, lse and
+    // delta of every stage, the barriers and the 1024-byte alignment slack
+    constexpr int BQ = kv_tma_bq<D>();
+    return (size_t)(4 * KV_ROWS + 2 * KV_STAGES * BQ) * D * 2 +
+           (size_t)2 * KV_STAGES * BQ * sizeof(float) + (2 * KV_STAGES + 4) * 8 + 1024;
 }
 
-// dk and dv of one tile of 64 keys, walking kv_bq<D>() queries a step; with
-// STORE_DS also ds^T of its visible pairs (the fused backward's first
-// kernel).
-template <typename T, int D, bool STORE_DS>
-__global__ void __launch_bounds__(MMA_THREADS, mma_minb<D>())
-    flash_bwd_kv_mma_kernel(const BwdParams p) {
-    constexpr int BQ = kv_bq<D>();
-    constexpr int LD = D + 8;
-    constexpr int QB = BQ / 8;  // 8-query blocks of a score tile
-    constexpr int DB = D / 8;   // 8-column blocks of dk and dv
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* Ks = reinterpret_cast<T*>(smem_raw);
-    T* Vs = Ks + MMA_ROWS * LD;
-    T* Qs = Vs + MMA_ROWS * LD;  // two buffers
-    T* dOs = Qs + 2 * BQ * LD;   // two buffers
-    float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // two buffers
-    float* delta_s = lse_s + 2 * BQ;                              // two buffers
+// p^T and ds^T of one warpgroup's 64 keys x NS / 2 queries from the s^T and
+// dp^T accumulators (the p_ds arithmetic, with exp_e's instruction on the
+// score folded into log2 units), packed to T as the A operands of
+// dv += p^T do and dk += ds^T q. lse_b holds lse * log2(e) of the tile's
+// queries, delta_b their delta. MASK tests each pair for visibility.
+template <typename T, bool MASK, int NS>
+__device__ __forceinline__ void p_ds_tile(const BwdParams& p, const float (&s)[NS],
+                                          const float (&dp)[NS], const float* lse_b,
+                                          const float* delta_b, int q0, int key_a,
+                                          uint32_t (&pf)[NS / 8][4], uint32_t (&dsf)[NS / 8][4]) {
+    const int t = threadIdx.x & 3;
+    const float sl2 = p.scale * LOG2E;
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_b + 8 * j + 2 * t);
+        const float2 dl2 = *reinterpret_cast<const float2*>(delta_b + 8 * j + 2 * t);
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float x =
+                fminf(fmaf(s[4 * j + e], sl2, -((e & 1) ? lse2.y : lse2.x)), 30.f * LOG2E);
+            pv[e] = exp2_approx(x);
+            dsv[e] = pv[e] * (dp[4 * j + e] - ((e & 1) ? dl2.y : dl2.x)) * p.scale;
+            if (MASK && !visible(p, q0 + 8 * j + 2 * t + (e & 1), key_a + (e >> 1) * 8)) {
+                pv[e] = 0.f;
+                dsv[e] = 0.f;
+            }
+        }
+        // query block j is half (j & 1) of the k16 slice j / 2
+        pf[j / 2][(j & 1) * 2 + 0] = MmaOp<T>::pack(pv[0], pv[1]);
+        pf[j / 2][(j & 1) * 2 + 1] = MmaOp<T>::pack(pv[2], pv[3]);
+        dsf[j / 2][(j & 1) * 2 + 0] = MmaOp<T>::pack(dsv[0], dsv[1]);
+        dsf[j / 2][(j & 1) * 2 + 1] = MmaOp<T>::pack(dsv[2], dsv[3]);
+    }
+}
 
-    const int warp = threadIdx.x / 32;
+// dk and dv of tiles of 128 keys, each walking the query tiles from the
+// first that sees it; with STORE_DS also ds^T of its visible pairs (the
+// fused backward's first kernel). A persistent block (one an SM) walks pairs
+// of key tiles whose causal work adds up to the same (TilePairs); the
+// producer copies the next tile's K and V into the second buffer while the
+// consumers finish this one.
+template <typename T, int D, bool STORE_DS>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+    flash_bwd_kv_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do, const BwdParams p) {
+    constexpr int BQ = kv_tma_bq<D>();
+    constexpr int NS = BQ / 2;  // s^T (and dp^T) accumulators a thread
+    constexpr int NG = D / 2;   // dk (and dv) accumulators a thread
+    constexpr int KC = BQ / 16; // k16 slices of the dk and dv products
+    constexpr uint32_t KV_BOX = KV_ROWS * 128;  // bytes of a 64-column K or V box
+    constexpr uint32_t Q_BOX = BQ * 128;        // bytes of a 64-column q or do box
+    extern __shared__ unsigned char smem_raw[];
+    T* Ks = reinterpret_cast<T*>(align_1024(smem_raw));  // 2 buffers
+    T* Vs = Ks + 2 * KV_ROWS * D;                         // 2 buffers
+    T* Qs = Vs + 2 * KV_ROWS * D;                         // KV_STAGES stages
+    T* dOs = Qs + KV_STAGES * BQ * D;                     // KV_STAGES stages
+    float* lse_s = reinterpret_cast<float*>(dOs + KV_STAGES * BQ * D);  // lse * log2(e)
+    float* delta_s = lse_s + KV_STAGES * BQ;
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + KV_STAGES * BQ);  // 2
+    uint64_t* kv_empty = kv_full + 2;                                            // 2
+    uint64_t* full = kv_empty + 2;                                               // KV_STAGES
+    uint64_t* empty = full + KV_STAGES;                                          // KV_STAGES
+
+    const TilePairs work(cdiv(p.m, KV_ROWS), p.h * p.b);
+    const int num_qt = cdiv(p.n, BQ);
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(kv_full + i, 1);
+            mbar_init(kv_empty + i, KV_CONSUMERS);
+        }
+        for (int s = 0; s < KV_STAGES; ++s) {
+            mbar_init(full + s, 32);  // every producer lane writes lse and delta
+            mbar_init(empty + s, KV_CONSUMERS);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= KV_CONSUMERS * 128) {
+        // the producer warpgroup: in its first warp, lane 0 issues the copies
+        // and every lane loads the row stats
+        regs_dec<PRODUCER_REGS>();
+        if (threadIdx.x >= KV_CONSUMERS * 128 + 32) return;
+        const int lane = threadIdx.x % 32;
+        Ring<KV_STAGES> ring;
+        int local = 0;  // key tiles this block has walked
+        for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+            for (int si = 0; si < work.count(u); ++si, ++local) {
+                const Tile tile = work.tile<false>(u, si, p.h);
+                const int k0 = tile.t * KV_ROWS;
+                const int kb = local & 1;
+                if (lane == 0) {
+                    mbar_wait(kv_empty + kb, ((local >> 1) & 1) ^ 1);
+                    mbar_arrive_expect_tx(kv_full + kb, 2 * KV_ROWS * D * 2);
+                    tma_load_rows<D, KV_ROWS>(Ks + kb * KV_ROWS * D, &tm_k, kv_full + kb, k0,
+                                              tile.hi, tile.bi);
+                    tma_load_rows<D, KV_ROWS>(Vs + kb * KV_ROWS * D, &tm_v, kv_full + kb, k0,
+                                              tile.hi, tile.bi);
+                }
+                const long long row_base = ((long long)tile.bi * p.h + tile.hi) * p.n;
+                for (int qt = first_q_tile(p, k0, BQ); qt < num_qt; ++qt, ring.advance()) {
+                    const int q0 = qt * BQ;
+                    mbar_wait(empty + ring.stage, ring.phase ^ 1);
+                    for (int r = lane; r < BQ; r += 32) {
+                        const int row = q0 + r;
+                        lse_s[ring.stage * BQ + r] =
+                            row < p.n ? p.lse[row_base + row] * LOG2E : 0.f;
+                        delta_s[ring.stage * BQ + r] = row < p.n ? p.delta[row_base + row] : 0.f;
+                    }
+                    if (lane == 0) {
+                        mbar_arrive_expect_tx(full + ring.stage, 2 * BQ * D * 2);
+                        tma_load_rows<D, BQ>(Qs + ring.stage * BQ * D, &tm_q, full + ring.stage,
+                                             q0, tile.hi, tile.bi);
+                        tma_load_rows<D, BQ>(dOs + ring.stage * BQ * D, &tm_do, full + ring.stage,
+                                             q0, tile.hi, tile.bi);
+                    } else {
+                        mbar_arrive(full + ring.stage);
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    regs_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128;
+    const int w = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const Tile tile = block_tile<false>(cdiv(p.m, MMA_ROWS), p.h);
-    const int hi = tile.hi;
-    const int bi = tile.bi;
-    const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-    const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-    const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-    const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
-    T* dk = static_cast<T*>(p.dk) + bi * p.sdk[0] + hi * p.sdk[1];
-    T* dv = static_cast<T*>(p.dv) + bi * p.sdv[0] + hi * p.sdv[1];
-    const long long row_base = ((long long)bi * p.h + hi) * p.n;
-    const float* lse = p.lse + row_base;
-    const float* delta = p.delta + row_base;
-
-    const int num_qt = cdiv(p.n, BQ);
-    const int k0 = tile.t * MMA_ROWS;
-    const int qt_begin = first_q_tile(p, k0, BQ);
-    load_rows_async<T, D, MMA_ROWS, MMA_THREADS>(Ks, k, p.sk[2], k0, p.m);
-    load_rows_async<T, D, MMA_ROWS, MMA_THREADS>(Vs, v, p.sv[2], k0, p.m);
-    load_rows_async<T, D, BQ, MMA_THREADS>(Qs, q, p.sq[2], qt_begin * BQ, p.n);
-    load_rows_async<T, D, BQ, MMA_THREADS>(dOs, dout, p.sdo[2], qt_begin * BQ, p.n);
-    cp_async_commit();
-    load_row_stats<BQ>(lse_s, delta_s, lse, delta, qt_begin * BQ, p.n);
-
-    float dk_acc[DB][4], dv_acc[DB][4];
-    zero(dk_acc);
-    zero(dv_acc);
-    const int key_a = k0 + warp * 16 + g;  // this thread's keys: key_a, key_a + 8
-
-    for (int qt = qt_begin; qt < num_qt; ++qt) {
-        const int buf = (qt - qt_begin) & 1;
-        if (qt + 1 < num_qt) {  // fetch the next query tile while this one is used
-            const int nq0 = (qt + 1) * BQ;
-            load_rows_async<T, D, BQ, MMA_THREADS>(Qs + (buf ^ 1) * BQ * LD, q, p.sq[2], nq0,
-                                                   p.n);
-            load_rows_async<T, D, BQ, MMA_THREADS>(dOs + (buf ^ 1) * BQ * LD, dout, p.sdo[2],
-                                                   nq0, p.n);
-            cp_async_commit();
-            load_row_stats<BQ>(lse_s + (buf ^ 1) * BQ, delta_s + (buf ^ 1) * BQ, lse, delta,
-                               nq0, p.n);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const T* Qb = Qs + buf * BQ * LD;
-        const T* dOb = dOs + buf * BQ * LD;
-        const float* lse_b = lse_s + buf * BQ;
-        const float* delta_b = delta_s + buf * BQ;
-        const int q0 = qt * BQ;
-
-        // s^T = k q^T and dp^T = v do^T: the warp's 16 keys x BQ queries
-        float s[QB][4], dp[QB][4];
-        zero(s);
-        zero(dp);
-        mma_abt<T, D / 16, QB>(s, Ks + warp * 16 * LD, Qb, LD);
-        mma_abt<T, D / 16, QB>(dp, Vs + warp * 16 * LD, dOb, LD);
-
-        // p^T and ds^T, rounded to T as the A fragments of the next products
-        const bool edge = edge_pair(p, q0, BQ, k0, MMA_ROWS);
-        uint32_t pf[QB / 2][4], dsf[QB / 2][4];
+    const uint32_t q_tiles = smem_addr(Qs);
+    const uint32_t do_tiles = smem_addr(dOs);
+    constexpr uint32_t STAGE_BYTES = BQ * D * 2;  // one stage of q or of do
+    float dk[NG], dv[NG];
+    Ring<KV_STAGES> ring;
+    int local = 0;
+    for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+        for (int si = 0; si < work.count(u); ++si, ++local) {
+            const Tile tile = work.tile<false>(u, si, p.h);
+            const int k0 = tile.t * KV_ROWS;
+            const int kb = local & 1;
+            const int k0w = k0 + wg * 64;        // the warpgroup's first key
+            const int key_a = k0w + 16 * w + g;  // this thread's keys: key_a, key_a + 8
+            const uint32_t k_tile = smem_addr(Ks + kb * KV_ROWS * D) + wg * 64 * 128;
+            const uint32_t v_tile = smem_addr(Vs + kb * KV_ROWS * D) + wg * 64 * 128;
 #pragma unroll
-        for (int nb = 0; nb < QB; ++nb) {
-            float pv[4], dsv[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = nb * 8 + 2 * t + (e & 1);
-                p_ds<T>(p, !edge || visible(p, q0 + col, key_a + (e >> 1) * 8), s[nb][e],
-                        dp[nb][e], lse_b[col], delta_b[col], pv[e], dsv[e]);
+            for (int i = 0; i < NG; ++i) {
+                dk[i] = 0.f;
+                dv[i] = 0.f;
             }
-            pf[nb / 2][(nb & 1) * 2 + 0] = MmaOp<T>::pack(pv[0], pv[1]);
-            pf[nb / 2][(nb & 1) * 2 + 1] = MmaOp<T>::pack(pv[2], pv[3]);
-            dsf[nb / 2][(nb & 1) * 2 + 0] = MmaOp<T>::pack(dsv[0], dsv[1]);
-            dsf[nb / 2][(nb & 1) * 2 + 1] = MmaOp<T>::pack(dsv[2], dsv[3]);
-        }
+            mbar_wait(kv_full + kb, (local >> 1) & 1);
+            for (int qt = first_q_tile(p, k0, BQ); qt < num_qt; ++qt, ring.advance()) {
+                const int q0 = qt * BQ;
+                mbar_wait(full + ring.stage, ring.phase);
+                if (p.causal && q0 + BQ - 1 < k0w) {
+                    // every query of the tile precedes the warpgroup's keys
+                    if (threadIdx.x % 128 == 0) mbar_arrive(empty + ring.stage);
+                    continue;
+                }
+                const uint32_t q_tile = q_tiles + ring.stage * STAGE_BYTES;
+                const uint32_t do_tile = do_tiles + ring.stage * STAGE_BYTES;
 
-        // dv += p^T do, dk += ds^T q
-        mma_frag_b<T, BQ / 16, DB>(dv_acc, pf, dOb, LD);
-        mma_frag_b<T, BQ / 16, DB>(dk_acc, dsf, Qb, LD);
+                // s^T = k q^T and dp^T = v do^T: the warpgroup's 64 keys x BQ queries
+                float s[NS], dp[NS];
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk)
+                    wgmma_ss<T, BQ>(s, kmajor_desc(k_tile, KV_BOX, kk),
+                                    kmajor_desc(q_tile, Q_BOX, kk), kk > 0);
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk)
+                    wgmma_ss<T, BQ>(dp, kmajor_desc(v_tile, KV_BOX, kk),
+                                    kmajor_desc(do_tile, Q_BOX, kk), kk > 0);
+                wgmma_commit();
+                wgmma_wait<0>();
+                reg_fence(s);
+                reg_fence(dp);
 
-        if (STORE_DS) {  // rows key_a (r = 0) and key_a + 8 (r = 1) of ds^T
-            T* ds_t = ds_rows<T>(p, bi, hi);
+                // p^T and ds^T, rounded to T as the A operands of the next
+                // products; only tiles that cross the diagonal or an end test
+                // each pair
+                uint32_t pf[KC][4], dsf[KC][4];
+                const float* lse_b = lse_s + ring.stage * BQ;
+                const float* delta_b = delta_s + ring.stage * BQ;
+                if (edge_pair(p, q0, BQ, k0w, 64))
+                    p_ds_tile<T, true>(p, s, dp, lse_b, delta_b, q0, key_a, pf, dsf);
+                else
+                    p_ds_tile<T, false>(p, s, dp, lse_b, delta_b, q0, key_a, pf, dsf);
+
+                // ds^T is stored before the products below take dsf as their A
+                // operand: registers a wgmma reads may not be touched until
+                // its wait_group
+                if (STORE_DS) {  // rows key_a (r = 0) and key_a + 8 (r = 1) of ds^T
+                    T* ds_t = ds_rows<T>(p, tile.bi, tile.hi);
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        const int key = key_a + r * 8;
+                        if (key >= p.m) continue;
+#pragma unroll
+                        for (int j = 0; j < NS / 4; ++j)
+                            *reinterpret_cast<uint32_t*>(ds_t + (long long)key * ds_ld(p.n) + q0 +
+                                                         8 * j + 2 * t) =
+                                dsf[j / 2][(j & 1) * 2 + r];
+                    }
+                }
+
+                // dv += p^T do, dk += ds^T q
+                wgmma_fence();
+#pragma unroll
+                for (int kc = 0; kc < KC; ++kc) {
+                    wgmma_rs<T, D>(dv, pf[kc], mnmajor_desc(do_tile, Q_BOX, kc), 1);
+                    wgmma_rs<T, D>(dk, dsf[kc], mnmajor_desc(q_tile, Q_BOX, kc), 1);
+                }
+                wgmma_commit();
+                wgmma_wait<0>();
+                reg_fence(dk);
+                reg_fence(dv);
+                reg_fence(pf);
+                reg_fence(dsf);
+                if (threadIdx.x % 128 == 0) mbar_arrive(empty + ring.stage);
+            }
+            // every product of this tile is done: its K/V buffer may be refilled
+            if (threadIdx.x % 128 == 0) mbar_arrive(kv_empty + kb);
+
+            // rows key_a (r = 0) and key_a + 8 (r = 1) of dk and dv
+            T* dk_out = static_cast<T*>(p.dk) + tile.bi * p.sdk[0] + tile.hi * p.sdk[1];
+            T* dv_out = static_cast<T*>(p.dv) + tile.bi * p.sdv[0] + tile.hi * p.sdv[1];
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
                 const int key = key_a + r * 8;
                 if (key >= p.m) continue;
 #pragma unroll
-                for (int nb = 0; nb < QB; ++nb)
-                    *reinterpret_cast<uint32_t*>(ds_t + (long long)key * ds_ld(p.n) + q0 +
-                                                 nb * 8 + 2 * t) = dsf[nb / 2][(nb & 1) * 2 + r];
+                for (int j = 0; j < NG / 4; ++j) {
+                    *reinterpret_cast<uint32_t*>(dk_out + (long long)key * p.sdk[2] + 8 * j +
+                                                 2 * t) =
+                        MmaOp<T>::pack(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+                    *reinterpret_cast<uint32_t*>(dv_out + (long long)key * p.sdv[2] + 8 * j +
+                                                 2 * t) =
+                        MmaOp<T>::pack(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+                }
             }
         }
-        __syncthreads();  // the next iteration's copies overwrite these buffers
     }
-    store_rows<T, DB>(dk, p.sdk[2], key_a, p.m, dk_acc);
-    store_rows<T, DB>(dv, p.sdv[2], key_a, p.m, dv_acc);
 }
 
 template <int D, bool FROM_DS>
@@ -719,18 +874,38 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Bwd
     return cudaGetLastError();
 }
 
+// The dk/dv kernel (with STORE_DS: the fused backward's first kernel) on its
+// four tensor maps.
+template <typename T, int D, bool STORE_DS>
+cudaError_t launch_kv_tma(const BwdParams& p, int b, cudaStream_t stream) {
+    CUtensorMap maps[4];
+    const void* bases[4] = {p.q, p.k, p.v, p.dout};
+    const long long* strides[4] = {p.sq, p.sk, p.sv, p.sdo};
+    const int rows[4] = {p.n, p.m, p.m, p.n};
+    const int box_rows[4] = {kv_tma_bq<D>(), KV_ROWS, KV_ROWS, kv_tma_bq<D>()};
+    for (int i = 0; i < 4; ++i) {
+        const cudaError_t err = encode_rows_map<T>(&maps[i], bases[i], D, rows[i], p.h, b,
+                                                   strides[i], box_rows[i]);
+        if (err != cudaSuccess) return err;
+    }
+    const auto kernel = flash_bwd_kv_tma_kernel<T, D, STORE_DS>;
+    const size_t smem = kv_tma_smem_bytes<D>();
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid = persistent_grid((cdiv(p.m, KV_ROWS) + 1) / 2 * p.h * b);
+    kernel<<<grid, KV_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+    return cudaGetLastError();
+}
+
 template <typename T, int D>
-cudaError_t launch_mma(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
-    const dim3 kv_grid = tile_grid(cdiv(p.m, MMA_ROWS), p.h, b);
+cudaError_t launch_16bit(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
     const dim3 q_grid = tile_grid(cdiv(p.n, MMA_ROWS), p.h, b);
-    if (pass == DKV_PASS)
-        return launch(flash_bwd_kv_mma_kernel<T, D, false>, kv_grid, MMA_THREADS,
-                      kv_mma_smem_bytes<D>(), p, s);
+    if (pass == DKV_PASS) return launch_kv_tma<T, D, false>(p, b, s);
     if (pass == DQ_PASS)
         return launch(flash_bwd_dq_mma_kernel<T, D, false>, q_grid, MMA_THREADS,
                       dq_mma_smem_bytes<D, false>(), p, s);
-    cudaError_t err = launch(flash_bwd_kv_mma_kernel<T, D, true>, kv_grid, MMA_THREADS,
-                             kv_mma_smem_bytes<D>(), p, s);
+    cudaError_t err = launch_kv_tma<T, D, true>(p, b, s);
     if (err != cudaSuccess) return err;
     return launch(flash_bwd_dq_mma_kernel<T, D, true>, q_grid, MMA_THREADS,
                   dq_mma_smem_bytes<D, true>(), p, s);
@@ -759,9 +934,9 @@ cudaError_t launch_d(const BwdParams& p, Pass pass, int dtype, int b, cudaStream
         case 0:
             return launch_f32<D>(p, pass, b, s);
         case 1:
-            return launch_mma<__nv_bfloat16, D>(p, pass, b, s);
+            return launch_16bit<__nv_bfloat16, D>(p, pass, b, s);
         case 2:
-            return launch_mma<__half, D>(p, pass, b, s);
+            return launch_16bit<__half, D>(p, pass, b, s);
         default:
             return cudaErrorInvalidValue;
     }
@@ -791,6 +966,7 @@ int run(Pass pass, const void* q, const void* k, const void* v, const void* dout
     long long* dst[7] = {p.sq, p.sk, p.sv, p.sdo, p.sdq, p.sdk, p.sdv};
     for (int i = 0; i < 7; ++i)
         for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+    p.b = b;
     p.h = h;
     p.n = n;
     p.m = m;

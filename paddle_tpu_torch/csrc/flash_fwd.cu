@@ -2,64 +2,58 @@
 //
 // Replaces the TPU Pallas kernel paddle_tpu/ops/flash_attention.py:_fwd_kernel
 // (launched by _fwd_impl). It computes the same function, not the same
-// blocks: one thread block per (batch, head, tile of 64 query rows) walks the
-// K/V tiles in a loop, keeping a running max, a running sum and the output
-// accumulator in f32 registers, so the [n, m] score matrix never reaches
-// device memory.
+// blocks: a block walks the K/V tiles of a query tile in a loop, keeping a
+// running max, a running sum and the output accumulator in f32 registers,
+// so the [n, m] score matrix never reaches device memory.
 //
 // Numeric contract (the TPU kernel's _mm_f32): products of native-dtype
 // operands summed in f32 (a bf16 or fp16 product is exact in f32), the
 // scale applied to the f32 scores, softmax in f32, and p cast to v's dtype
 // before p @ v. Causal masking is top-left (key j is visible to query i
 // when j <= i), which is the n == m contract of the host side; the host
-// routes cross-length causal elsewhere before any launch.
-//
-// What bounds it on the card. At the GPT-2-small prefill shape (b=8, h=12,
-// n=m=768, d=64, bf16, causal) the kernel must read q, k, v and write o
-// (4 x 9.4 MB) and lse (0.3 MB): ~38 MB, 11.4 us at the H100 SXM's
-// 3.35 TB/s. Its causal work is 4*d*b*h*n*(n+1)/2 ~ 7.3 GFLOP, 7.3 us at
-// the 989 TFLOP/s bf16 tensor-core peak. So the bound is the bytes, and
-// each K/V element is read from device memory once per query tile.
-//
-// Two paths:
-// - bf16 / fp16 (flash_fwd_mma_kernel): 4 warps, 16 query rows each, on the
-//   tensor cores through mma.sync.m16n8k16 with f32 accumulators. Tiles are
-//   copied to shared memory with cp.async, the next K/V tile while the
-//   current one is used, and read into mma fragments with ldmatrix. The
-//   probabilities go from the score accumulators straight into the A
-//   fragments of p @ v, rounded to the input dtype on the way.
-// - f32 (flash_fwd_f32_kernel): f32 FMAs on the CUDA cores, each thread on
-//   a 4x4 register tile of scores (float4 shared-memory reads, 2 loads per
-//   16 FMAs), so an f32 call keeps full f32 products.
-// wgmma, TMA and warp specialisation are later work.
+// routes cross-length causal elsewhere before any launch. The 16-bit path
+// takes e^(s * scale - m) as one ex2.approx of s * (scale * log2 e) - m',
+// with m' the running max in log2 units: exp_e's instruction, the scale
+// folded into the same product.
 //
 // flash_fwd_long() launches the same kernels. It replaces the TPU kernel
 // paddle_tpu/ops/flash_attention.py:_fwd_kernel_long (launched by
 // _fwd_impl_long for max(n, m) >= 4096). The TPU needs a second kernel
 // because its standard one stages the whole K/V of a (b, h) in VMEM, which
-// runs out at 8k; the kernel here stages 64-key tiles at any length, so that
-// reason does not carry over. What changes at n >= 4096 on the H100 is the
-// bound. At the long training shape (b=2, h=12, n=m=8192, d=64, bf16,
-// causal) the bytes are q, k, v, o (4 x 25.2 MB) and lse: 30 us at
-// 3.35 TB/s; the work is 4*d*b*h*n*(n+1)/2 = 206 GFLOP, 208 us at the
-// 989 TFLOP/s bf16 peak. So operations bound it, and the causal triangle is
-// 128 tiles deep. Three choices serve that, and they measured faster at
-// every length from 512 on, so every launch takes them:
-// - the exponentials are one ex2.approx each (exp_e), where expf costs about
-//   eight instructions: at 64 keys a tile a thread computes 32 of them for
-//   64 products, so they, not the tensor cores, held the issue slots;
-// - a register cap that holds 4 blocks on an SM at d = 64 (without it the
-//   compiler takes 144 registers, which hold 3);
-// - a one-dimensional grid in which the tiles of one (b, h) are adjacent and
-//   the heaviest query tile (the last) starts first.
-// Larger blocks that feed more products per K/V tile loaded (8 warps, or 2
-// m-tiles of 16 rows a warp) measured no faster. The kernels mask only the
-// tiles that cross the diagonal or the end of the keys.
+// runs out at 8k; the kernels here stage K/V tiles at any length, so that
+// reason does not carry over.
+//
+// What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16):
+// - the training shape (b=32, h=12, n=m=512, d=64, bf16, causal) must read
+//   q, k, v and write o (4 x 25.2 MB) and lse: 30 us; its causal work,
+//   4*d*b*h*n*(n+1)/2 = 12.9 GFLOP, takes 13 us. The bytes bound it, and
+//   a query tile walks only 1 to 4 K/V tiles, so its start (the first
+//   copies) and end (the o stores) weigh as much as its products.
+// - the long shape (b=2, h=12, n=m=8192) moves 101 MB (30 us) for 206
+//   GFLOP (208 us): operations bound it, over a causal triangle 64 tiles of
+//   128 rows deep.
+//
+// Two paths:
+// - bf16 / fp16 (flash_fwd_tma_kernel): warpgroup wgmma on shared memory
+//   that TMA fills. A producer warpgroup (one thread issuing the copies,
+//   40 registers) and two consumer warpgroups (64 query rows each, 232
+//   registers, moved over by setmaxnreg) share a ring of K/V tiles tracked
+//   by mbarriers. The products of the next K/V tile are issued before the
+//   softmax of this one, so the tensor cores run while the exponentials
+//   issue, and the softmax keeps its row maxima and sums in 4 independent
+//   chains a row. The block is persistent (one an SM): it walks pairs of
+//   query tiles whose causal work adds up to the same (TilePairs), and the
+//   producer copies the next tile's q and K/V while the consumers finish
+//   this one, so the start and end of a tile overlap other work.
+// - f32 (flash_fwd_f32_kernel): f32 FMAs on the CUDA cores, each thread on
+//   a 4x4 register tile of scores (float4 shared-memory reads, 2 loads per
+//   16 FMAs), so an f32 call keeps full f32 products.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_fwd.so flash_fwd.cu
 // The C entry point flash_fwd() launches on the given stream, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// synchronise, allocates nothing, and returns cudaGetLastError(), or the
+// error of a tensor map that cuTensorMapEncodeTiled refused.
 
 #include <cstdint>
 
@@ -68,11 +62,10 @@
 #include <cuda_runtime.h>
 
 #include "mma_sm90.cuh"
+#include "sm90_async.cuh"
 
 namespace {
 
-constexpr int BM = 64;            // query rows per block
-constexpr int BN = 64;            // keys per K/V tile
 constexpr float MASKED = -1e30f;  // the TPU kernel's _NEG_INF
 
 struct FwdParams {
@@ -82,13 +75,15 @@ struct FwdParams {
     void* o;
     float* lse;              // [b, h, n] f32, contiguous
     long long sq[3], sk[3], sv[3], so[3];  // strides of (b, h, row), in elements
-    int h, n, m;
+    int b, h, n, m;
     float scale;
     int causal;
 };
 
-// Number of K/V tiles a query tile starting at q0 walks: causal runs stop
-// at the tile that holds the diagonal of its last row.
+// Number of K/V tiles of BN keys that the block of BM query rows starting at
+// q0 walks: causal blocks stop at the tile that holds the diagonal of their
+// last row.
+template <int BM, int BN>
 __device__ __forceinline__ int kv_tiles(const FwdParams& p, int q0) {
     const int num_kt = cdiv(p.m, BN);
     if (!p.causal) return num_kt;
@@ -96,8 +91,10 @@ __device__ __forceinline__ int kv_tiles(const FwdParams& p, int q0) {
     return min(num_kt, last_row / BN + 1);
 }
 
-// Whether the K/V tile at kv0 needs the mask for the query rows q0..: it
-// holds keys past the end, or (causal) a key above some row's diagonal.
+// Whether the K/V tile of BN keys at kv0 needs the mask for the query rows
+// q0..: it holds keys past the end, or (causal) a key above some row's
+// diagonal.
+template <int BN>
 __device__ __forceinline__ bool edge_tile(const FwdParams& p, int q0, int kv0) {
     return kv0 + BN > p.m || (p.causal && kv0 + BN - 1 > q0);
 }
@@ -107,205 +104,296 @@ __device__ __forceinline__ float masked_score(float s, const FwdParams& p, int r
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16: tensor cores through mma.sync.m16n8k16 (the helpers and the
-// fragment layouts are in mma_sm90.cuh).
+// bf16 / fp16: wgmma on TMA-fed shared memory (the helpers in sm90_async.cuh).
+//
+// A persistent block on each SM walks query tiles of 128 rows (TilePairs):
+// two consumer warpgroups of 64 rows (wgmma's M) and one producer warpgroup,
+// of which one thread issues the copies. It copies each tile's q into one of
+// two buffers and the K/V tiles of fwd_bn<D>() keys into a ring of
+// FWD_STAGES buffers, running ahead into the next query tile while the
+// consumers finish this one. Each consumer computes s = q k^T as SS wgmma,
+// the online softmax on the f32 accumulator in registers, and o += p v as RS
+// wgmma (p packed to T from the s accumulator, v as MN-major B). The
+// products of the next K/V tile are issued before the softmax of this one,
+// so the tensor cores work while the exponentials issue.
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
-// The register cap: __launch_bounds__ holds MINB blocks on an SM, 65536 /
-// (128 * MINB) registers a thread (at d = 128 the compiler's own choice).
-template <int D> constexpr int mma_minb() { return D == 64 ? 4 : 2; }
+constexpr int TMA_BM = 128;  // query rows per tile: 2 consumer warpgroups x 64
+constexpr int TMA_CONSUMERS = 2;
+constexpr int TMA_THREADS = (TMA_CONSUMERS + 1) * 128;  // + the producer warpgroup
+constexpr float LN2 = 0.6931471805599453f;
+
+// keys per K/V tile: at d = 128 the 64-key tile measured faster (the s, o
+// and p of a 128-key tile take 160 registers a thread)
+template <int D> __host__ __device__ constexpr int fwd_bn() { return D == 64 ? 128 : 64; }
+constexpr int FWD_STAGES = 3;  // K/V tiles in flight
 
 template <int D>
-__host__ __device__ constexpr int mma_ld() { return D + 8; }  // padded row: ldmatrix rows hit distinct banks
-
-template <int D>
-constexpr size_t mma_smem_bytes() {
-    // q tile, then two buffers each of k and v
-    return (size_t)(BM + 4 * BN) * mma_ld<D>() * 2;
+constexpr size_t tma_smem_bytes() {
+    // two q buffers, then K and V of every stage, the barriers and the
+    // 1024-byte alignment slack
+    return (size_t)(2 * TMA_BM + 2 * FWD_STAGES * fwd_bn<D>()) * D * 2 +
+           (2 * FWD_STAGES + 4) * 8 + 1024;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(MMA_THREADS, mma_minb<D>())
-    flash_fwd_mma_kernel(const FwdParams p) {
-    constexpr int LD = mma_ld<D>();
-    constexpr int KSTEPS = D / 16;  // 16-deep slices of the head dim
-    constexpr int NB = BN / 8;      // 8-key blocks of a score tile
-    constexpr int DB = D / 8;       // 8-column blocks of the output
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* Qs = reinterpret_cast<T*>(smem_raw);
-    T* Ks = Qs + BM * LD;       // two buffers
-    T* Vs = Ks + 2 * BN * LD;   // two buffers
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const FwdParams p) {
+    constexpr int BN = fwd_bn<D>();
+    constexpr int ST = FWD_STAGES;
+    constexpr int NS = BN / 2;   // score accumulators a thread
+    constexpr int NO = D / 2;    // output accumulators a thread
+    constexpr int KC = BN / 16;  // k16 slices of p @ v
+    constexpr uint32_t Q_BOX = TMA_BM * 128;  // bytes of a 64-column q box
+    constexpr uint32_t KV_BOX = BN * 128;     // bytes of a 64-column K or V box
+    extern __shared__ unsigned char smem_raw[];
+    T* Qs = reinterpret_cast<T*>(align_1024(smem_raw));  // 2 buffers
+    T* Ks = Qs + 2 * TMA_BM * D;                         // ST stages
+    T* Vs = Ks + ST * BN * D;                            // ST stages
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * BN * D);  // 2
+    uint64_t* q_empty = q_full + 2;                                     // 2
+    uint64_t* full = q_empty + 2;                                       // ST
+    uint64_t* empty = full + ST;                                        // ST
 
-    const int warp = threadIdx.x / 32;
+    const TilePairs work(cdiv(p.n, TMA_BM), p.h * p.b);
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(q_full + i, 1);
+            mbar_init(q_empty + i, TMA_CONSUMERS);
+        }
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, TMA_CONSUMERS);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= TMA_CONSUMERS * 128) {
+        // the producer warpgroup; one thread issues every copy
+        regs_dec<PRODUCER_REGS>();
+        if (threadIdx.x != TMA_CONSUMERS * 128) return;
+        Ring<ST> ring;
+        int local = 0;  // tiles this block has walked
+        for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+            for (int s = 0; s < work.count(u); ++s, ++local) {
+                const Tile tile = work.tile<true>(u, s, p.h);
+                const int q0 = tile.t * TMA_BM;
+                const int qb = local & 1;
+                mbar_wait(q_empty + qb, ((local >> 1) & 1) ^ 1);
+                mbar_arrive_expect_tx(q_full + qb, TMA_BM * D * 2);
+                tma_load_rows<D, TMA_BM>(Qs + qb * TMA_BM * D, &tm_q, q_full + qb, q0, tile.hi,
+                                         tile.bi);
+                const int kt_end = kv_tiles<TMA_BM, BN>(p, q0);
+                for (int kt = 0; kt < kt_end; ++kt, ring.advance()) {
+                    mbar_wait(empty + ring.stage, ring.phase ^ 1);
+                    mbar_arrive_expect_tx(full + ring.stage, 2 * BN * D * 2);
+                    tma_load_rows<D, BN>(Ks + ring.stage * BN * D, &tm_k, full + ring.stage,
+                                         kt * BN, tile.hi, tile.bi);
+                    tma_load_rows<D, BN>(Vs + ring.stage * BN * D, &tm_v, full + ring.stage,
+                                         kt * BN, tile.hi, tile.bi);
+                }
+            }
+        }
+        return;
+    }
+
+    regs_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128;
+    const int w = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const Tile tile = block_tile<true>(cdiv(p.n, BM), p.h);
-    const int q0 = tile.t * BM;
-    const int hi = tile.hi;
-    const int bi = tile.bi;
+    const float sl2 = p.scale * LOG2E;  // scores to log2 units
+    const uint32_t k_tiles = smem_addr(Ks);
+    const uint32_t v_tiles = smem_addr(Vs);
+    float o[NO];
+    float s[NS];
+    uint32_t pf[KC][4];
+    float m_run[2], l_run[2];  // running max (log2 units); this thread's share of the row sums
+    Ring<ST> ring;
+    int local = 0;
+    for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+        for (int si = 0; si < work.count(u); ++si, ++local) {
+            const Tile tile = work.tile<true>(u, si, p.h);
+            const int q0 = tile.t * TMA_BM;
+            const int kt_end = kv_tiles<TMA_BM, BN>(p, q0);
+            const int qb = local & 1;
+            const int q0w = q0 + wg * 64;        // the warpgroup's first row
+            const int row_a = q0w + 16 * w + g;  // this thread's rows: row_a, row_a + 8
+            const uint32_t q_tile = smem_addr(Qs + qb * TMA_BM * D) + wg * 64 * 128;
 
-    const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-    const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-    const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-    T* o = static_cast<T*>(p.o) + bi * p.so[0] + hi * p.so[1];
+            // s = q k^T of the K/V tile in `stage`, issued as one group
+            auto issue_qk = [&](int stage) {
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk)
+                    wgmma_ss<T, BN>(s, kmajor_desc(q_tile, Q_BOX, kk),
+                                    kmajor_desc(k_tiles + stage * KV_BOX * (D / 64), KV_BOX, kk),
+                                    kk > 0);
+                wgmma_commit();
+            };
+            // o += p v of the K/V tile in `stage`, issued as one group
+            auto issue_pv = [&](int stage) {
+                wgmma_fence();
+#pragma unroll
+                for (int kc = 0; kc < KC; ++kc)
+                    wgmma_rs<T, D>(o, pf[kc],
+                                   mnmajor_desc(v_tiles + stage * KV_BOX * (D / 64), KV_BOX, kc),
+                                   1);
+                wgmma_commit();
+            };
+            // s of K/V tile kt -> p = exp(s * scale - m_new) in place (f32),
+            // the row maxima and this thread's row sums moved on; returns
+            // alpha, the factor that brings the old sums to the new maxima.
+            // The maxima and sums run in 4 independent chains a row: one
+            // chain of 32 dependent instructions held each warp for longer
+            // than the products took.
+            auto softmax = [&](int kt, float (&alpha)[2]) {
+                const int kv0 = kt * BN;
+                if (edge_tile<BN>(p, q0w, kv0)) {
+#pragma unroll
+                    for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int col = kv0 + 8 * j + 2 * t + (e & 1);
+                            const int row = row_a + (e >> 1) * 8;
+                            if (col >= p.m || (p.causal && col > row)) s[4 * j + e] = MASKED;
+                        }
+                }
+                float mx[2][4];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) mx[i / 4][i % 4] = MASKED;
+#pragma unroll
+                for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        mx[e >> 1][(j & 1) * 2 + (e & 1)] =
+                            fmaxf(mx[e >> 1][(j & 1) * 2 + (e & 1)], s[4 * j + e]);
+                float m_new[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float m = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+                    m_new[r] = fmaxf(m_run[r], m * sl2);
+                    alpha[r] = exp2_approx(m_run[r] - m_new[r]);
+                    m_run[r] = m_new[r];
+                }
+                float sum[2][4];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) sum[i / 4][i % 4] = 0.f;
+#pragma unroll
+                for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float pe = exp2_approx(fmaf(s[4 * j + e], sl2, -m_new[e >> 1]));
+                        s[4 * j + e] = pe;
+                        sum[e >> 1][(j & 1) * 2 + (e & 1)] += pe;
+                    }
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+                    l_run[r] = l_run[r] * alpha[r] +
+                               ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+            };
+            // p (f32, in s) -> the A operands of p v, rounded to T
+            auto pack_p = [&]() {
+#pragma unroll
+                for (int kc = 0; kc < KC; ++kc) {
+                    pf[kc][0] = MmaOp<T>::pack(s[8 * kc + 0], s[8 * kc + 1]);
+                    pf[kc][1] = MmaOp<T>::pack(s[8 * kc + 2], s[8 * kc + 3]);
+                    pf[kc][2] = MmaOp<T>::pack(s[8 * kc + 4], s[8 * kc + 5]);
+                    pf[kc][3] = MmaOp<T>::pack(s[8 * kc + 6], s[8 * kc + 7]);
+                }
+            };
 
-    const int kt_end = kv_tiles(p, q0);
-    load_rows_async<T, D, BM, MMA_THREADS>(Qs, q, p.sq[2], q0, p.n);
-    load_rows_async<T, D, BN, MMA_THREADS>(Ks, k, p.sk[2], 0, p.m);
-    load_rows_async<T, D, BN, MMA_THREADS>(Vs, v, p.sv[2], 0, p.m);
-    cp_async_commit();
+#pragma unroll
+            for (int i = 0; i < NO; ++i) o[i] = 0.f;
+            for (int r = 0; r < 2; ++r) {
+                m_run[r] = -INFINITY;
+                l_run[r] = 0.f;
+            }
+            float alpha[2];
+            mbar_wait(q_full + qb, (local >> 1) & 1);
+            mbar_wait(full + ring.stage, ring.phase);
+            issue_qk(ring.stage);
+            wgmma_wait<0>();
+            reg_fence(s);
+            softmax(0, alpha);
+            pack_p();
+            for (int kt = 1; kt < kt_end; ++kt) {
+                const int prev = ring.stage;
+                ring.advance();
+                mbar_wait(full + ring.stage, ring.phase);
+                issue_qk(ring.stage);  // s of tile kt ...
+                issue_pv(prev);        // ... while p v of tile kt - 1 runs
+                wgmma_wait<1>();
+                reg_fence(s);
+                softmax(kt, alpha);
+                wgmma_wait<0>();
+                reg_fence(o);
+                reg_fence(pf);
+                if (threadIdx.x % 128 == 0) mbar_arrive(empty + prev);
+#pragma unroll
+                for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+                pack_p();
+            }
+            // every q k^T of this tile is done: its q buffer may be refilled
+            if (threadIdx.x % 128 == 0) mbar_arrive(q_empty + qb);
+            issue_pv(ring.stage);
+            wgmma_wait<0>();
+            reg_fence(o);
+            reg_fence(pf);
+            if (threadIdx.x % 128 == 0) mbar_arrive(empty + ring.stage);
+            ring.advance();
 
-    uint32_t qf[KSTEPS][4];
-    float acc[DB][4];
+            // rows row_a (r = 0) and row_a + 8 (r = 1); a row's sums live in
+            // the 4 lanes of a quad
+            T* out = static_cast<T*>(p.o) + tile.bi * p.so[0] + tile.hi * p.so[1];
 #pragma unroll
-    for (int j = 0; j < DB; ++j)
+            for (int r = 0; r < 2; ++r) {
+                float l = l_run[r];
+                l += __shfl_xor_sync(0xffffffffu, l, 1);
+                l += __shfl_xor_sync(0xffffffffu, l, 2);
+                const int row = row_a + r * 8;
+                if (row >= p.n) continue;
+                const float l_safe = fmaxf(l, 1e-30f);
+                const float inv = 1.f / l_safe;
+                T* orow = out + (long long)row * p.so[2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY};
-    float l_run[2] = {0.f, 0.f};
-    const int row_a = q0 + warp * 16 + g;  // this thread's rows: row_a, row_a + 8
-
-    for (int kt = 0; kt < kt_end; ++kt) {
-        const int buf = kt & 1;
-        if (kt + 1 < kt_end) {  // fetch the next tile while this one is used
-            load_rows_async<T, D, BN, MMA_THREADS>(Ks + (buf ^ 1) * BN * LD, k, p.sk[2],
-                                                   (kt + 1) * BN, p.m);
-            load_rows_async<T, D, BN, MMA_THREADS>(Vs + (buf ^ 1) * BN * LD, v, p.sv[2],
-                                                   (kt + 1) * BN, p.m);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        if (kt == 0) {
-#pragma unroll
-            for (int ks = 0; ks < KSTEPS; ++ks)
-                ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
-        }
-        const T* Kb = Ks + buf * BN * LD;
-        const T* Vb = Vs + buf * BN * LD;
-        const int kv0 = kt * BN;
-
-        // s = q @ k^T: 16 rows x 64 keys per warp
-        float s[NB][4];
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-            for (int nb = 0; nb < NB; nb += 2) {
-                uint32_t b[4];  // B fragments of key blocks nb and nb + 1
-                ldmatrix_x4(b, Kb + (nb * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
-                                   ((lane >> 3) & 1) * 8);
-                MmaOp<T>::run(s[nb], qf[ks], b[0], b[1]);
-                MmaOp<T>::run(s[nb + 1], qf[ks], b[2], b[3]);
+                for (int j = 0; j < NO / 4; ++j)
+                    *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+                        MmaOp<T>::pack(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+                if (t == 0)
+                    p.lse[((long long)tile.bi * p.h + tile.hi) * p.n + row] =
+                        m_run[r] * LN2 + logf(l_safe);
             }
         }
-
-        // online softmax over rows row_a (e = 0, 1) and row_a + 8 (e = 2, 3);
-        // a row's keys live in the 4 lanes of a quad
-        const bool edge = edge_tile(p, q0, kv0);
-        float mx[2] = {MASKED, MASKED};
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float x = edge ? masked_score(s[nb][e], p, row_a + (e >> 1) * 8,
-                                                    kv0 + nb * 8 + 2 * t + (e & 1))
-                                     : s[nb][e] * p.scale;
-                s[nb][e] = x;
-                mx[e >> 1] = fmaxf(mx[e >> 1], x);
-            }
-        float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            const float m_new = fmaxf(m_run[r], mx[r]);
-            alpha[r] = exp_e(m_run[r] - m_new);
-            m_run[r] = m_new;
-        }
-        uint32_t pf[NB / 2][4];  // p as A fragments, one per 16 keys
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-            float e4[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                e4[e] = exp_e(s[nb][e] - m_run[e >> 1]);
-                sum[e >> 1] += e4[e];
-            }
-            // key block nb is half (nb & 1) of the 16-key A fragment nb / 2
-            pf[nb / 2][(nb & 1) * 2 + 0] = MmaOp<T>::pack(e4[0], e4[1]);
-            pf[nb / 2][(nb & 1) * 2 + 1] = MmaOp<T>::pack(e4[2], e4[3]);
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-            sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-            l_run[r] = alpha[r] * l_run[r] + sum[r];
-        }
-#pragma unroll
-        for (int j = 0; j < DB; ++j) {
-            acc[j][0] *= alpha[0];
-            acc[j][1] *= alpha[0];
-            acc[j][2] *= alpha[1];
-            acc[j][3] *= alpha[1];
-        }
-
-        // acc += p @ v
-#pragma unroll
-        for (int kc = 0; kc < NB / 2; ++kc) {
-#pragma unroll
-            for (int db = 0; db < DB; db += 2) {
-                uint32_t b[4];  // B fragments of output blocks db and db + 1
-                ldmatrix_x4_trans(b, Vb + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                         db * 8 + (lane >> 4) * 8);
-                MmaOp<T>::run(acc[db], pf[kc], b[0], b[1]);
-                MmaOp<T>::run(acc[db + 1], pf[kc], b[2], b[3]);
-            }
-        }
-        __syncthreads();  // the next iteration's copy overwrites this buffer
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = row_a + r * 8;
-        if (row >= p.n) continue;
-        const float l_safe = fmaxf(l_run[r], 1e-30f);
-        T* orow = o + (long long)row * p.so[2];
-#pragma unroll
-        for (int j = 0; j < DB; ++j) {
-            const uint32_t pair = MmaOp<T>::pack(acc[j][2 * r] / l_safe, acc[j][2 * r + 1] / l_safe);
-            *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) = pair;
-        }
-        if (t == 0)
-            p.lse[((long long)bi * p.h + hi) * p.n + row] = m_run[r] + logf(l_safe);
     }
 }
 
 // ---------------------------------------------------------------------------
 // f32: FMAs on the CUDA cores.
 
+constexpr int F32_BM = 64;  // query rows per block
+constexpr int F32_BN = 64;  // keys per K/V tile
 constexpr int F32_THREADS = 256;  // 16 x 16: each thread owns 4 rows x 4 keys
 constexpr int LDT = 68;           // row stride of the transposed tiles (floats)
 
 template <int D>
 constexpr size_t f32_smem_bytes() {
-    // Qt [D][LDT], Kt [D][LDT], Vs [BN][D], Pt [BN][LDT]
-    return ((size_t)2 * D * LDT + (size_t)BN * D + (size_t)BN * LDT) * sizeof(float);
+    // Qt [D][LDT], Kt [D][LDT], Vs [F32_BN][D], Pt [F32_BN][LDT]
+    return ((size_t)2 * D * LDT + (size_t)F32_BN * D + (size_t)F32_BN * LDT) * sizeof(float);
 }
 
-// Stage a [BM, D] tile of x into shared memory, transposed
+// Stage a [F32_BM, D] tile of x into shared memory, transposed
 // (dst[c * LDT + r]) or row-major (dst[r * D + c]). Rows at or past `limit`
 // are zero.
 template <int D, bool TRANSPOSE>
 __device__ __forceinline__ void f32_load_tile(float* dst, const float* x, long long row_stride,
                                               int row0, int limit) {
-    for (int idx = threadIdx.x; idx < BM * D; idx += F32_THREADS) {
+    for (int idx = threadIdx.x; idx < F32_BM * D; idx += F32_THREADS) {
         const int r = idx / D;
         const int c = idx % D;
         const int row = row0 + r;
@@ -324,12 +412,12 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
     float* Qt = smem;
     float* Kt = Qt + D * LDT;
     float* Vs = Kt + D * LDT;
-    float* Pt = Vs + BN * D;
+    float* Pt = Vs + F32_BN * D;
 
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
-    const Tile tile = block_tile<true>(cdiv(p.n, BM), p.h);
-    const int q0 = tile.t * BM;
+    const Tile tile = block_tile<true>(cdiv(p.n, F32_BM), p.h);
+    const int q0 = tile.t * F32_BM;
     const int hi = tile.hi;
     const int bi = tile.bi;
 
@@ -351,9 +439,9 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
         for (int j = 0; j < OC; ++j) acc[i][j] = 0.f;
     }
 
-    const int kt_end = kv_tiles(p, q0);
+    const int kt_end = kv_tiles<F32_BM, F32_BN>(p, q0);
     for (int kt = 0; kt < kt_end; ++kt) {
-        const int kv0 = kt * BN;
+        const int kv0 = kt * F32_BN;
         f32_load_tile<D, true>(Kt, k, p.sk[2], kv0, p.m);
         f32_load_tile<D, false>(Vs, v, p.sv[2], kv0, p.m);
         __syncthreads();
@@ -414,7 +502,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
 
         // acc += p @ v; this thread's output columns are jj*64 + tx*4 + j
 #pragma unroll 4
-        for (int c = 0; c < BN; ++c) {
+        for (int c = 0; c < F32_BN; ++c) {
             const float4 pp = *reinterpret_cast<const float4*>(&Pt[c * LDT + ty * 4]);
             const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
 #pragma unroll
@@ -454,7 +542,28 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, const FwdParams& p, 
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<tile_grid(cdiv(p.n, BM), p.h, b), threads, smem, stream>>>(p);
+    kernel<<<tile_grid(cdiv(p.n, F32_BM), p.h, b), threads, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_tma(const FwdParams& p, int b, cudaStream_t stream) {
+    CUtensorMap maps[3];
+    const void* bases[3] = {p.q, p.k, p.v};
+    const long long* strides[3] = {p.sq, p.sk, p.sv};
+    const int rows[3] = {p.n, p.m, p.m};
+    for (int i = 0; i < 3; ++i) {
+        const cudaError_t err = encode_rows_map<T>(&maps[i], bases[i], D, rows[i], p.h, b,
+                                                   strides[i], i == 0 ? TMA_BM : fwd_bn<D>());
+        if (err != cudaSuccess) return err;
+    }
+    const auto kernel = flash_fwd_tma_kernel<T, D>;
+    const size_t smem = tma_smem_bytes<D>();
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid = persistent_grid((cdiv(p.n, TMA_BM) + 1) / 2 * p.h * b);
+    kernel<<<grid, TMA_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], p);
     return cudaGetLastError();
 }
 
@@ -464,11 +573,9 @@ cudaError_t launch_d(const FwdParams& p, int dtype, int b, cudaStream_t stream) 
         case 0:
             return launch(flash_fwd_f32_kernel<D>, F32_THREADS, f32_smem_bytes<D>(), p, b, stream);
         case 1:
-            return launch(flash_fwd_mma_kernel<__nv_bfloat16, D>, MMA_THREADS, mma_smem_bytes<D>(),
-                          p, b, stream);
+            return launch_tma<__nv_bfloat16, D>(p, b, stream);
         case 2:
-            return launch(flash_fwd_mma_kernel<__half, D>, MMA_THREADS, mma_smem_bytes<D>(), p, b,
-                          stream);
+            return launch_tma<__half, D>(p, b, stream);
         default:
             return cudaErrorInvalidValue;
     }
@@ -485,6 +592,7 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse, int dty
     long long* dst[4] = {p.sq, p.sk, p.sv, p.so};
     for (int i = 0; i < 4; ++i)
         for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+    p.b = b;
     p.h = h;
     p.n = n;
     p.m = m;

@@ -82,16 +82,23 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x as one ex2.approx, relative error about 2^-22.
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
 // e^x as one ex2.approx of x * log2(e): two instructions where expf takes
 // about eight. Its relative error is about 2^-22 + |x| * 2^-24 (the second
 // term from rounding x * log2(e) to f32): about 2^-19 at |x| = 30, where the
 // backward clamps. That is far below the bf16 / fp16 rounding (2^-9 / 2^-12)
-// of the p it feeds; the f32 kernels keep expf.
-__device__ __forceinline__ float exp_e(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
-    return y;
-}
+// of the p it feeds; the f32 kernels keep expf. The wgmma kernels fold the
+// scale and log2(e) into one factor of the score and call exp2_approx, the
+// same instruction with the same error.
+__device__ __forceinline__ float exp_e(float x) { return exp2_approx(x * LOG2E); }
 
 // Start the copy of a [ROWS, W] tile (rows row0.. of x) into dst, whose rows
 // are W + 8 elements apart (ldmatrix rows then hit distinct banks), by a
@@ -110,8 +117,9 @@ __device__ __forceinline__ void load_rows_async(T* dst, const T* x, long long ro
     }
 }
 
-// The (tile, head, batch) a block works on. Every kernel's grid is
-// one-dimensional and ordered for the causal triangle: the tiles of one
+// The (tile, head, batch) a block works on. The grid of every kernel that
+// is not persistent (the dq and f32 kernels) is one-dimensional and ordered
+// for the causal triangle: the tiles of one
 // (b, h) are adjacent, so its K/V stays in L2 while they run, and within it
 // the heaviest tile comes first (HEAVY_LAST: the last tile is the heaviest,
 // as for query tiles; else the first, as for key tiles), so the lightest

@@ -160,8 +160,11 @@ def _fwd_lib():
 
 
 def _rows_aligned(t):
-    """t itself if its rows are contiguous and start on 16-byte boundaries
-    (the kernel copies rows in 16-byte chunks), else an aligned copy."""
+    """t itself if its rows are contiguous and its base and (b, h, row)
+    strides are multiples of 16 bytes, else an aligned copy. The 16-bit
+    kernels read their operands through TMA tensor maps, which need both;
+    the q/k/v views of a packed [b, n, 3, h, d] projection pass as they
+    are."""
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
             all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]):
         return t
