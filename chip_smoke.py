@@ -10,7 +10,9 @@ Phases, each printed as it finishes; any failure exits non-zero:
                and a PyTorch library call's time as a yardstick. A
                kernel's `ms` is its device time, launches replayed from a
                CUDA graph; `eager_ms` times the same launches from Python,
-               wrapper included.
+               wrapper included. Two launches of each dq entry on the same
+               inputs must give bitwise-equal dq; the fused backward's two
+               kernels are timed apart under the profiler.
   3. slice 1, f32  - GPT-2 small (seeded weights) prefill logits on the card
                against the same weights on the CPU plain path; greedy tokens.
   4. slice 1, bf16 - serving: generate() on 8 prompts of 768 tokens, 128 new
@@ -297,22 +299,24 @@ def _bwd_bound_ms(b, h, n, m, d, dtype, causal, which, sku):
                                  'operations')
 
 
-# (b, h, n, d, dtype, causal, strided): every backward kernel runs at every
-# shape. The first is the training main path's shape (fused route), the
-# second the seq-1024 path's (two-pass).
-BWD_MAIN_SHAPE = (32, 12, 512, 64, torch.bfloat16, True, True)
-BWD_SECOND_SHAPE = (8, 12, 1024, 64, torch.bfloat16, True, True)
+# (b, h, n, m, d, dtype, causal, strided): every backward kernel runs at
+# every shape. The first is the training main path's shape (fused route),
+# the second the seq-1024 path's (two-pass); the last the non-causal
+# cross-length call with which ring attention takes the two-pass pair.
+BWD_MAIN_SHAPE = (32, 12, 512, 512, 64, torch.bfloat16, True, True)
+BWD_SECOND_SHAPE = (8, 12, 1024, 1024, 64, torch.bfloat16, True, True)
 BWD_SHAPES = [
     BWD_MAIN_SHAPE,
     BWD_SECOND_SHAPE,
-    (8, 12, 512, 64, torch.bfloat16, False, True),
-    (8, 12, 512, 64, torch.float16, True, False),
-    (2, 12, 512, 64, torch.float32, True, True),
-    (4, 8, 512, 128, torch.bfloat16, True, False),
-    (2, 8, 1024, 128, torch.bfloat16, False, False),
-    (1, 2, 300, 64, torch.bfloat16, True, False),
-    (1, 2, 700, 64, torch.bfloat16, True, False),
-    (1, 2, 700, 128, torch.float32, False, False),
+    (8, 12, 512, 512, 64, torch.bfloat16, False, True),
+    (8, 12, 512, 512, 64, torch.float16, True, False),
+    (2, 12, 512, 512, 64, torch.float32, True, True),
+    (4, 8, 512, 512, 128, torch.bfloat16, True, False),
+    (2, 8, 1024, 1024, 128, torch.bfloat16, False, False),
+    (1, 2, 300, 300, 64, torch.bfloat16, True, False),
+    (1, 2, 700, 700, 64, torch.bfloat16, True, False),
+    (1, 2, 700, 700, 128, torch.float32, False, False),
+    (2, 8, 640, 1152, 64, torch.bfloat16, False, False),
 ]
 
 # Tolerances of the backward kernels against their plain version, as a
@@ -333,9 +337,9 @@ def bwd_kernel_phase(sku):
     gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
     rows = []
     for shape_key in BWD_SHAPES:
-        b, h, n, d, dtype, causal, strided = shape_key
+        b, h, n, m, d, dtype, causal, strided = shape_key
         scale = 1.0 / math.sqrt(d)
-        q, k, v = _qkv(gen, b, h, n, n, d, dtype, strided)
+        q, k, v = _qkv(gen, b, h, n, m, d, dtype, strided)
         o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
         # the output gradient as the GPT attention hands it over: a
         # [b, h, n, d] view of a [b, n, h, d] tensor
@@ -351,7 +355,7 @@ def bwd_kernel_phase(sku):
         }
         refs = {'fused': ref, 'dq': ref[:1], 'dkv': ref[1:]}
         tol = BWD_TOLERANCE[dtype]
-        shape = [b, h, n, n, d]
+        shape = [b, h, n, m, d]
         lib = _sdpa_bwd_ms(q, k, v, do, causal, scale)
         plain_ms = _time_ms(lambda: fa.flash_attention_bwd_ref(*args),
                             iters=3, warmup=1)
@@ -371,7 +375,9 @@ def bwd_kernel_phase(sku):
                        'flash_bwd_%s vs plain at %s %s causal=%s: err %.3g > '
                        '%g x max %.3g' % (which, shape, dtype, causal, err,
                                           tol, top))
-            bound_ms, bound_by = _bwd_bound_ms(b, h, n, n, d, dtype, causal,
+            if which != 'dkv':
+                _check_same_dq(call, got[0], 'flash_bwd_%s' % which, shape)
+            bound_ms, bound_by = _bwd_bound_ms(b, h, n, m, d, dtype, causal,
                                                which, sku)
             row = {'shape': shape, 'dtype': str(dtype).split('.')[-1],
                    'causal': causal, 'strided': strided,
@@ -380,12 +386,41 @@ def bwd_kernel_phase(sku):
                    'eager_ms': _time_ms(call),
                    'plain_ms': plain_ms, 'library_ms': lib,
                    'bound_ms': bound_ms, 'bound_by': bound_by}
+            if which == 'fused' and shape_key == BWD_MAIN_SHAPE:
+                row['kernels_ms'] = _kernels_ms(call)
             print('kernel flash_bwd_%s %s' % (which, json.dumps(row)),
                   flush=True)
             rows.append((which, shape_key, row))
         del q, k, v, o, lse, do, delta, ref
         torch.cuda.empty_cache()
     return rows
+
+
+def _check_same_dq(call, dq, name, shape):
+    """A second launch of a dq entry on the same inputs gives a bitwise-equal
+    dq: the kernels sum in a fixed order, with no atomics."""
+    again = call()[0]
+    torch.cuda.synchronize()
+    _check(torch.equal(again, dq),
+           '%s at %s: two launches differ by up to %.3g' % (
+               name, shape, (again.float() - dq.float()).abs().max().item()))
+
+
+def _kernels_ms(fn, calls=10):
+    """{kernel name: mean device ms a launch} over `calls` calls of fn
+    under torch.profiler: the fused backward's two kernels apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split('<')[0].split('::')[-1]:
+            e.self_device_time_total / 1e3 / e.count
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def _sdpa_bwd_ms(q, k, v, do, causal, scale):
@@ -840,6 +875,8 @@ def long_kernel_phase(sku):
                    'flash_bwd_%s_long vs plain at %s %s causal=%s: errors %s '
                    'of the largest gradient > %g' % (which, shape, dt, causal,
                                                      shares, tol))
+            if which == 'dq':
+                _check_same_dq(call, got[0], 'flash_bwd_dq_long', shape)
             bound, bound_by = _bwd_bound_ms(b, h, n, m, d, dtype, causal,
                                             which, sku)
             row = {'shape': shape, 'dtype': dt, 'causal': causal,
@@ -946,13 +983,12 @@ def train_long_phase(sku):
 
 # How each kernel entry computes its products: "wgmma+tma" (warpgroup
 # wgmma on TMA-fed shared memory, a producer warpgroup and consumer
-# warpgroups) or "mma.sync" (per-warp mma.sync on cp.async tiles). The fused
-# backward launches the dk/dv kernel, then the dq kernel; its design is that
-# of its first kernel, where most of its time goes.
+# warpgroups). The fused backward launches the dk/dv kernel, then the dq
+# kernel; both are wgmma+tma.
 DESIGN = {'flash_fwd': 'wgmma+tma', 'flash_fwd_long': 'wgmma+tma',
           'flash_bwd_fused': 'wgmma+tma', 'flash_bwd_dkv': 'wgmma+tma',
-          'flash_bwd_dkv_long': 'wgmma+tma', 'flash_bwd_dq': 'mma.sync',
-          'flash_bwd_dq_long': 'mma.sync'}
+          'flash_bwd_dkv_long': 'wgmma+tma', 'flash_bwd_dq': 'wgmma+tma',
+          'flash_bwd_dq_long': 'wgmma+tma'}
 
 
 def main():
@@ -976,8 +1012,10 @@ def main():
         for line in text.splitlines():
             if 'Compiling entry function' in line:
                 entry = line.split("'")[1] if "'" in line else line
-            if 'registers' in line or 'spill' in line:
-                print('  %s: %s %s' % (src, entry[-60:], line.strip()), flush=True)
+                # from the kernel's name on: its template arguments follow
+                entry = entry[entry.rfind('flash_'):]
+            if any(key in line for key in ('registers', 'spill', 'wgmma')):
+                print('  %s: %s %s' % (src, entry[:64], line.strip()), flush=True)
 
     fwd_rows = kernel_phase(sku)
     bwd_rows = bwd_kernel_phase(sku)
@@ -1011,9 +1049,15 @@ def main():
             'library_ms': row['library_ms'],
             'vs_library': row['ms'] / row['library_ms'], 'shape': shape,
         }
-        if 'std_ms' in row:
-            out['std_ms'] = row['std_ms']
+        for key in ('std_ms', 'kernels_ms'):
+            if key in row:
+                out[key] = row[key]
         return out
+
+    def pair(dq_row, dkv_row):
+        """The two-pass pair (dq + dk/dv ms) over the library's whole
+        backward at the same shape: no PyTorch call computes dq alone."""
+        return (dq_row['ms'] + dkv_row['ms']) / dq_row['library_ms']
 
     train_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 causal strided'
     second_shape = 'b=8 h=12 n=m=1024 d=64 bfloat16 causal strided'
@@ -1021,10 +1065,12 @@ def main():
         entry('flash_fwd', 'flash_fwd', 137, fwd,
               train['launches']['flash_fwd'], train['steps'],
               'train (generate: %d)' % generate_launches, train_shape),
-        entry('flash_bwd_fused', 'flash_bwd', 659,
-              bwd('fused', BWD_MAIN_SHAPE),
-              train['launches']['flash_bwd_fused'], train['steps'], 'train',
-              train_shape),
+        dict(entry('flash_bwd_fused', 'flash_bwd', 659,
+                   bwd('fused', BWD_MAIN_SHAPE),
+                   train['launches']['flash_bwd_fused'], train['steps'],
+                   'train', train_shape),
+             two_pass_ms=bwd('dq', BWD_MAIN_SHAPE)['ms'] +
+             bwd('dkv', BWD_MAIN_SHAPE)['ms']),
         entry('flash_bwd_dq', 'flash_bwd', 580,
               bwd('dq', BWD_SECOND_SHAPE),
               second['launches']['flash_bwd_dq'], second['steps'],
@@ -1044,6 +1090,13 @@ def main():
                              long_train['launches'][kernel],
                              long_train['steps'], 'train seq 8192',
                              long_shape))
+    pairs = {'flash_bwd_dq': pair(bwd('dq', BWD_SECOND_SHAPE),
+                                  bwd('dkv', BWD_SECOND_SHAPE)),
+             'flash_bwd_dq_long': pair(long_rows['dq', LONG_MAIN_SHAPE],
+                                       long_rows['dkv', LONG_MAIN_SHAPE])}
+    for k in kernels:
+        if k['name'] in pairs:
+            k['pair_vs_library'] = pairs[k['name']]
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

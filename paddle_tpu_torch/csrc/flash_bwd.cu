@@ -5,8 +5,8 @@
 // paddle_tpu/ops/flash_attention.py:
 // - flash_bwd_fused (_bwd_fused_kernel): dq, dk and dv from one computation
 //   of s, p and dp for each (query tile, key tile) pair.
-// - flash_bwd_dq (_bwd_dq_kernel): one block per (batch, head, tile of 64
-//   query rows) walks the key tiles up to the diagonal, dq in f32 registers.
+// - flash_bwd_dq (_bwd_dq_kernel): each query tile walks the key tiles up to
+//   the diagonal, dq in f32 registers.
 // - flash_bwd_dkv (_bwd_dkv_kernel): one block per (batch, head, tile of 128
 //   keys) walks the query tiles from the first that sees it, dk and dv in
 //   f32 registers.
@@ -17,9 +17,10 @@
 // Numeric contract (the TPU kernels'): products of native-dtype operands
 // summed in f32, top-left causal masking, p = exp(min(s * scale - lse, 30))
 // (0 where masked), ds = p * (dp - delta) * scale, and p and ds rounded to
-// the operand dtype before the products they feed. The 16-bit dk/dv kernel
-// takes the exponential as one ex2.approx of min(s * scale * log2 e -
-// lse * log2 e, 30 log2 e): exp_e's instruction, the scale folded in.
+// the operand dtype before the products they feed. The 16-bit kernels take
+// the exponential as one ex2.approx of min(s * scale * log2 e - lse * log2 e,
+// 30 log2 e), the scale folded in (exp2_approx in mma_sm90.cuh); the f32
+// kernels take expf.
 //
 // The fused backward is two kernels on one stream. Blocks run in parallel
 // and cannot carry dq's sum over key tiles from one to the next, so the
@@ -48,27 +49,29 @@
 //   (417 us); the dq pass 3 products (313 us). Operations bound both.
 //
 // Two paths:
-// - bf16 / fp16. The dk/dv kernel (flash_bwd_kv_tma_kernel, with STORE_DS
-//   the fused pass's first kernel) is warpgroup wgmma on shared memory that
-//   TMA fills: a producer warpgroup (one warp working, 40 registers) copies
-//   the K and V of its key tile once and streams q, do, lse and delta
-//   through a ring tracked by mbarriers; two consumer warpgroups (64 keys
-//   each, 232 registers, moved over by setmaxnreg) compute s^T = k q^T and
-//   dp^T = v do^T with K and V resident as A, p^T and ds^T in registers,
-//   and dv += p^T do, dk += ds^T q with those registers as A. Only the
-//   tiles that cross the diagonal or an end test each pair: the test cost
-//   more instructions than the rest of the elementwise step. The dq kernel
-//   (flash_bwd_dq_mma_kernel) is 4 warps on mma.sync.m16n8k16 (ldmatrix,
-//   cp.async double-buffered tiles, a register cap of 3 blocks an SM at
-//   d = 64, one ex2.approx per p).
+// - bf16 / fp16: warpgroup wgmma on shared memory that TMA fills, a
+//   producer warpgroup (40 registers) feeding two consumer warpgroups (232
+//   registers, moved over by setmaxnreg) through rings tracked by mbarriers.
+//   The dk/dv kernel (flash_bwd_kv_tma_kernel, with STORE_DS the fused
+//   pass's first kernel) copies the K and V of its key tile once and
+//   streams q, do, lse and delta; its consumers (64 keys each) compute
+//   s^T = k q^T and dp^T = v do^T with K and V resident as A, p^T and ds^T
+//   in registers, and dv += p^T do, dk += ds^T q with those registers as A.
+//   The dq kernel (flash_bwd_dq_tma_kernel, with FROM_DS the fused pass's
+//   second kernel) copies the q and do of its query tile once and streams
+//   K and V; its consumers (64 query rows each) compute s = q k^T and
+//   dp = do v^T, ds in registers, and dq += ds k with ds as A and the same
+//   K tile as B. Only the tiles that cross the diagonal or an end test
+//   each pair: the test cost more instructions than the rest of the
+//   elementwise step.
 // - f32: FMAs on the CUDA cores, 256 threads, each on a 4 x 4 (or 4 x 8)
 //   register tile, operands staged in shared memory.
-// The 16-bit dk/dv kernel is persistent (one block an SM): it walks pairs of
-// key tiles whose causal work adds up to the same (TilePairs), and the next
-// tile's K and V arrive in a second buffer while this one finishes. Every
-// other kernel's grid is one-dimensional, the tiles of one (b, h) adjacent
-// and the heaviest first (the last query tile for dq, the first key tile
-// for the f32 dk/dv).
+// The 16-bit kernels are persistent (one block an SM): each walks pairs of
+// tiles whose causal work adds up to the same (TilePairs), and the next
+// tile's resident operands (K and V, or q and do) arrive in a second buffer
+// while this one finishes. The f32 kernels' grid is one-dimensional, the
+// tiles of one (b, h) adjacent and the heaviest first (the last query tile
+// for dq, the first key tile for dk/dv).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
@@ -77,7 +80,6 @@
 // tensor map that cuTensorMapEncodeTiled refused.
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -115,18 +117,6 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int row, int key) {
     return row < p.n && key < p.m && !(p.causal && key > row);
 }
 
-// p and ds of one score for operands of type T; both 0 where the pair is
-// masked. The 16-bit kernels take exp_e, the f32 ones expf.
-template <typename T>
-__device__ __forceinline__ void p_ds(const BwdParams& p, bool vis, float s, float dp, float lse,
-                                     float delta, float& pv, float& dsv) {
-    const float x = fminf(s * p.scale - lse, 30.f);
-    if constexpr (std::is_same_v<T, float>)
-        pv = vis ? expf(x) : 0.f;
-    else
-        pv = vis ? exp_e(x) : 0.f;
-    dsv = vis ? pv * (dp - delta) * p.scale : 0.f;
-}
 
 // The first query tile of bq rows that sees the keys from k0 on (top-left
 // causal: rows at or below the first key).
@@ -151,92 +141,6 @@ __device__ __forceinline__ int last_k_tile(const BwdParams& p, int q0, int bq, i
 template <typename T>
 __device__ __forceinline__ T* ds_rows(const BwdParams& p, int bi, int hi) {
     return static_cast<T*>(p.ds) + ((long long)bi * p.h + hi) * p.m * ds_ld(p.n);
-}
-
-// ---------------------------------------------------------------------------
-// The dq kernel, bf16 / fp16: mma.sync tensor cores (helpers and fragment
-// layouts in mma_sm90.cuh).
-//
-// 4 warps; each owns 16 of the block's 64 query rows, walking 64 keys a
-// step. The register cap: __launch_bounds__ holds MINB blocks on an SM,
-// 65536 / (128 * MINB) registers a thread (at d = 128 the compiler's own
-// choice).
-constexpr int MMA_THREADS = 128;
-constexpr int MMA_ROWS = 64;  // query rows per block
-template <int D> constexpr int mma_minb() { return D == 64 ? 3 : 2; }
-
-// lse and delta of rows row0.. (0 past the end) into shared memory
-template <int ROWS>
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s, const float* lse,
-                                               const float* delta, int row0, int n) {
-    for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
-        const int row = row0 + r;
-        lse_s[r] = row < n ? lse[row] : 0.f;
-        delta_s[r] = row < n ? delta[row] : 0.f;
-    }
-}
-
-// acc[16 x 8 * NB] += A[16 x 16 * KSTEPS] @ B^T, A's rows at a and B's rows
-// (the output columns) at b, both row-major with stride ld
-template <typename T, int KSTEPS, int NB>
-__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const T* a, const T* b, int ld) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t af[4];
-        ldmatrix_x4(af, a + (lane & 15) * ld + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int nb = 0; nb < NB; nb += 2) {
-            uint32_t bf[4];
-            ldmatrix_x4(bf, b + (nb * 8 + (lane & 7) + ((lane >> 4) << 3)) * ld + ks * 16 +
-                                ((lane >> 3) & 1) * 8);
-            MmaOp<T>::run(acc[nb], af, bf[0], bf[1]);
-            MmaOp<T>::run(acc[nb + 1], af, bf[2], bf[3]);
-        }
-    }
-}
-
-// acc[16 x 8 * NB] += A @ B, A given as fragments (one per 16 of the
-// contraction) and B row-major [16 * KC, >= 8 * NB] with stride ld
-template <typename T, int KC, int NB>
-__device__ __forceinline__ void mma_frag_b(float (&acc)[NB][4], const uint32_t (&af)[KC][4],
-                                           const T* b, int ld) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-        for (int nb = 0; nb < NB; nb += 2) {
-            uint32_t bf[4];
-            ldmatrix_x4_trans(bf, b + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                                      nb * 8 + (lane >> 4) * 8);
-            MmaOp<T>::run(acc[nb], af[kc], bf[0], bf[1]);
-            MmaOp<T>::run(acc[nb + 1], af[kc], bf[2], bf[3]);
-        }
-    }
-}
-
-// Store 16 rows (row_a + 8 r) x 8 * NB columns of f32 accumulators as T.
-template <typename T, int NB>
-__device__ __forceinline__ void store_rows(T* x, long long row_stride, int row_a, int limit,
-                                           const float (&acc)[NB][4]) {
-    const int t = threadIdx.x % 4;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = row_a + r * 8;
-        if (row >= limit) continue;
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-            *reinterpret_cast<uint32_t*>(x + (long long)row * row_stride + nb * 8 + 2 * t) =
-                MmaOp<T>::pack(acc[nb][2 * r], acc[nb][2 * r + 1]);
-    }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -270,8 +174,8 @@ constexpr size_t kv_tma_smem_bytes() {
 }
 
 // p^T and ds^T of one warpgroup's 64 keys x NS / 2 queries from the s^T and
-// dp^T accumulators (the p_ds arithmetic, with exp_e's instruction on the
-// score folded into log2 units), packed to T as the A operands of
+// dp^T accumulators (the contract's arithmetic, the scale folded into the
+// one ex2.approx in log2 units), packed to T as the A operands of
 // dv += p^T do and dk += ds^T q. lse_b holds lse * log2(e) of the tile's
 // queries, delta_b their delta. MASK tests each pair for visibility.
 template <typename T, bool MASK, int NS>
@@ -517,123 +421,370 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
     }
 }
 
+// ---------------------------------------------------------------------------
+// The dq kernel, bf16 / fp16: wgmma on TMA-fed shared memory, the forward's
+// design with a second score product.
+//
+// A persistent block (one an SM) walks query tiles of 128 rows in pairs
+// whose causal work adds up to the same (TilePairs): two consumer
+// warpgroups of 64 rows (wgmma's M) and one producer warpgroup, of which
+// one thread issues the copies. It copies each tile's q and do once into
+// one of two buffers, so the next tile's copy overlaps this one, and
+// streams the K and V tiles of BN keys up to the tile's diagonal through a
+// ring of DQ_STAGES buffers. Each consumer computes s = q k^T and dp = do
+// v^T as SS wgmma (q and do K-major A, K and V K-major B), ds from the f32
+// accumulators in registers (lse and delta of its two rows held there), and
+// dq += ds k as RS wgmma: ds packed to T as the A operand, and the same
+// swizzled K tile as an MN-major B. The products of the next key tile are
+// issued with this tile's dq += ds k, so the tensor cores work while the
+// exponentials of the next tile issue. Without that overlap, or with
+// 64-key tiles, the kernel measured 10-14 % slower at seq 8192 on an H100
+// SXM at 700 W (64-key tiles were 9-16 % faster at seq 512-1024, where
+// the diagonal tiles weigh more).
+//
+// FROM_DS (the fused backward's second kernel) streams K and the ds^T
+// workspace instead and needs no q, do, V, lse or delta: the tile's 128
+// query columns of ds^T are two 64-column boxes, box w holding warpgroup
+// w's queries contiguous; ldmatrix.trans takes ds from it into registers
+// for dq += ds k as RS wgmma (an SS wgmma with A transposed measured the
+// same on the H100, within 1 %). The dk/dv kernel writes ds^T only for
+// the pairs it visits: key k at queries from k rounded down to 64 on
+// (causal). So a warpgroup reads only the keys up to its last row (on the
+// diagonal tile of 128 keys, the first warpgroup takes 64), and the tensor
+// map's columns end at n: the workspace is never zeroed, and what it holds
+// past that region never reaches a product.
+
+constexpr int DQ_ROWS = 128;  // query rows per tile: 2 consumer warpgroups x 64
+constexpr int DQ_CONSUMERS = 2;
+constexpr int DQ_THREADS = (DQ_CONSUMERS + 1) * 128;  // + the producer warpgroup
+constexpr int DQ_STAGES = 3;                          // key tiles in flight
+
+// keys per tile: at d = 128 the recomputing kernel takes 64 (its q and do
+// buffers take 128 KB of shared memory)
 template <int D, bool FROM_DS>
-constexpr size_t dq_mma_smem_bytes() {
-    // two buffers each of K and of V (or of ds^T), then the q and do tiles
-    return FROM_DS ? (size_t)2 * BK * ((D + 8) + (MMA_ROWS + 8)) * 2
-                   : (size_t)(4 * BK + 2 * MMA_ROWS) * (D + 8) * 2;
+__host__ __device__ constexpr int dq_bn() {
+    return FROM_DS || D == 64 ? 128 : 64;
 }
 
-// dq of one tile of 64 query rows, walking the key tiles up to the
-// diagonal. FROM_DS (the fused backward's second kernel) reads ds^T from the
-// workspace instead of recomputing s, p and dp.
-template <typename T, int D, bool FROM_DS>
-__global__ void __launch_bounds__(MMA_THREADS, mma_minb<D>())
-    flash_bwd_dq_mma_kernel(const BwdParams p) {
-    constexpr int BQ = MMA_ROWS;
-    constexpr int LD = D + 8;
-    constexpr int LDS = BQ + 8;
-    constexpr int XLD = FROM_DS ? LDS : LD;  // row stride of the V / ds^T buffers
-    constexpr int KB = BK / 8;  // 8-key blocks of a score tile
-    constexpr int DB = D / 8;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* Ks = reinterpret_cast<T*>(smem_raw);  // two buffers
-    T* Xs = Ks + 2 * BK * LD;                // two buffers of V or of ds^T
-    T* Qs = Xs + 2 * BK * XLD;               // recomputing only
-    T* dOs = Qs + BQ * LD;
+// columns of the second tile of a stage: V (d) or the tile's ds^T (128 queries)
+template <int D, bool FROM_DS>
+__host__ __device__ constexpr int dq_x_cols() {
+    return FROM_DS ? DQ_ROWS : D;
+}
 
-    const int warp = threadIdx.x / 32;
+template <int D, bool FROM_DS>
+constexpr size_t dq_tma_smem_bytes() {
+    // two buffers each of q and do (recomputing only), then K and V (or
+    // ds^T) of every stage, the barriers and the 1024-byte alignment slack
+    constexpr int BN = dq_bn<D, FROM_DS>();
+    return (size_t)(FROM_DS ? 0 : 4 * DQ_ROWS * D) * 2 +
+           (size_t)DQ_STAGES * BN * (D + dq_x_cols<D, FROM_DS>()) * 2 +
+           (2 * DQ_STAGES + 4) * 8 + 1024;
+}
+
+// ds of one warpgroup's 64 query rows x NS / 2 keys from the s and dp
+// accumulators, left in s as f32: the dk/dv kernel's arithmetic (p_ds_tile),
+// for rows row_a (r = 0) and row_a + 8 (r = 1) of this thread, keys k0 + 8 j
+// + 2 t (+ 1). lse2 holds lse * log2(e) of the two rows, dl their delta.
+// MASK tests each pair for visibility.
+template <bool MASK, int NS>
+__device__ __forceinline__ void ds_rows_tile(const BwdParams& p, float (&s)[NS],
+                                             const float (&dp)[NS], const float (&lse2)[2],
+                                             const float (&dl)[2], int row_a, int k0) {
+    const int t = threadIdx.x & 3;
+    const float sl2 = p.scale * LOG2E;
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float pv = exp2_approx(fminf(fmaf(s[4 * j + e], sl2, -lse2[r]), 30.f * LOG2E));
+            float dsv = pv * (dp[4 * j + e] - dl[r]) * p.scale;
+            if (MASK && !visible(p, row_a + 8 * r, k0 + 8 * j + 2 * t + (e & 1))) dsv = 0.f;
+            s[4 * j + e] = dsv;
+        }
+}
+
+// ldmatrix.x4.trans: four 8 x 8 16-bit matrices from shared memory,
+// transposed, lane l giving the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// dq += ds k over the first SLICES k16 slices of the key tile (FROM_DS):
+// ds from the warpgroup's swizzled ds^T box (keys as rows, its 64 queries
+// contiguous) by ldmatrix.trans into the RS A fragments (rows g, g + 8,
+// keys 2t.. and 2t + 8..), K as the MN-major B
+template <typename T, int D, int SLICES>
+__device__ __forceinline__ void dq_from_ds(float (&dq)[D / 2], uint32_t ds_tile, uint32_t k_tile,
+                                           uint32_t box) {
+    const int lane = threadIdx.x % 32;
+    const int w = (threadIdx.x % 128) / 32;
+    // the 16-byte chunk of the warp's 16 queries that this lane's matrix holds
+    const int chunk = 2 * w + ((lane >> 3) & 1);
+    uint32_t a[SLICES][4];
+#pragma unroll
+    for (int kc = 0; kc < SLICES; ++kc) {
+        const int key = 16 * kc + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4_trans(a[kc], ds_tile + key * 128 + ((chunk ^ (key & 7)) << 4));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < SLICES; ++kc) wgmma_rs<T, D>(dq, a[kc], mnmajor_desc(k_tile, box, kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq);
+    reg_fence(a);
+}
+
+// dq of query tiles of 128 rows, each walking the key tiles up to its
+// diagonal. FROM_DS (the fused backward's second kernel) reads ds^T from
+// the workspace instead of recomputing s, p and dp. tm_q and tm_do are
+// unused with FROM_DS, and tm_x maps V or, with FROM_DS, the ds^T workspace.
+template <typename T, int D, bool FROM_DS>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_x,
+                            const __grid_constant__ CUtensorMap tm_do, const BwdParams p) {
+    constexpr int BQ = DQ_ROWS;
+    constexpr int BN = dq_bn<D, FROM_DS>();
+    constexpr int XW = dq_x_cols<D, FROM_DS>();
+    constexpr int ST = DQ_STAGES;
+    constexpr int QBUFS = FROM_DS ? 0 : 2;
+    constexpr int NS = BN / 2;   // s (and dp) accumulators a thread
+    constexpr int NO = D / 2;    // dq accumulators a thread
+    constexpr int KC = BN / 16;  // k16 slices of dq += ds k
+    constexpr uint32_t Q_BOX = BQ * 128;   // bytes of a 64-column q or do box
+    constexpr uint32_t KV_BOX = BN * 128;  // bytes of a 64-column K, V or ds^T box
+    constexpr uint32_t K_STAGE = BN * D * 2;
+    constexpr uint32_t X_STAGE = BN * XW * 2;
+    extern __shared__ unsigned char smem_raw[];
+    T* Qs = reinterpret_cast<T*>(align_1024(smem_raw));  // QBUFS buffers
+    T* dOs = Qs + QBUFS * BQ * D;                         // QBUFS buffers
+    T* Ks = dOs + QBUFS * BQ * D;                         // ST stages
+    T* Xs = Ks + ST * BN * D;                             // ST stages of V or ds^T
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(Xs + ST * BN * XW);  // 2
+    uint64_t* q_empty = q_full + 2;                                      // 2
+    uint64_t* full = q_empty + 2;                                        // ST
+    uint64_t* empty = full + ST;                                         // ST
+
+    const TilePairs work(cdiv(p.n, BQ), p.h * p.b);
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(q_full + i, 1);
+            mbar_init(q_empty + i, DQ_CONSUMERS);
+        }
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, DQ_CONSUMERS);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= DQ_CONSUMERS * 128) {
+        // the producer warpgroup; one thread issues every copy
+        regs_dec<PRODUCER_REGS>();
+        if (threadIdx.x != DQ_CONSUMERS * 128) return;
+        Ring<ST> ring;
+        int local = 0;  // tiles this block has walked
+        for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+            for (int si = 0; si < work.count(u); ++si, ++local) {
+                const Tile tile = work.tile<true>(u, si, p.h);
+                const int q0 = tile.t * BQ;
+                if constexpr (!FROM_DS) {
+                    const int qb = local & 1;
+                    mbar_wait(q_empty + qb, ((local >> 1) & 1) ^ 1);
+                    mbar_arrive_expect_tx(q_full + qb, 2 * BQ * D * 2);
+                    tma_load_rows<D, BQ>(Qs + qb * BQ * D, &tm_q, q_full + qb, q0, tile.hi,
+                                         tile.bi);
+                    tma_load_rows<D, BQ>(dOs + qb * BQ * D, &tm_do, q_full + qb, q0, tile.hi,
+                                         tile.bi);
+                }
+                const int kt_end = last_k_tile(p, q0, BQ, BN);
+                for (int kt = 0; kt < kt_end; ++kt, ring.advance()) {
+                    mbar_wait(empty + ring.stage, ring.phase ^ 1);
+                    mbar_arrive_expect_tx(full + ring.stage, BN * (D + XW) * 2);
+                    tma_load_rows<D, BN>(Ks + ring.stage * BN * D, &tm_k, full + ring.stage,
+                                         kt * BN, tile.hi, tile.bi);
+                    T* x = Xs + ring.stage * BN * XW;
+                    if constexpr (FROM_DS) {
+                        // ds^T rows kt * BN.. (keys), columns q0.. (queries)
+#pragma unroll
+                        for (int c = 0; c < XW / 64; ++c)
+                            tma_load_box(x + c * BN * 64, &tm_x, full + ring.stage, q0 + c * 64,
+                                         kt * BN, tile.hi, tile.bi);
+                    } else {
+                        tma_load_rows<D, BN>(x, &tm_x, full + ring.stage, kt * BN, tile.hi,
+                                             tile.bi);
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    regs_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128;
+    const int w = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const Tile tile = block_tile<true>(cdiv(p.n, BQ), p.h);
-    const int q0 = tile.t * BQ;
-    const int hi = tile.hi;
-    const int bi = tile.bi;
-    const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-    const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-    const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-    const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
-    T* dq = static_cast<T*>(p.dq) + bi * p.sdq[0] + hi * p.sdq[1];
-    const long long row_base = ((long long)bi * p.h + hi) * p.n;
-    const T* ds_t = FROM_DS ? ds_rows<T>(p, bi, hi) + q0 : nullptr;
-
-    // key tile kt (K, and V or this tile's ds^T columns) into buffer buf
-    auto load_k_tile = [&](int kt, int buf) {
-        load_rows_async<T, D, BK, MMA_THREADS>(Ks + buf * BK * LD, k, p.sk[2], kt * BK, p.m);
-        if (FROM_DS)
-            load_rows_async<T, BQ, BK, MMA_THREADS>(Xs + buf * BK * XLD, ds_t, ds_ld(p.n),
-                                                    kt * BK, p.m);
-        else
-            load_rows_async<T, D, BK, MMA_THREADS>(Xs + buf * BK * XLD, v, p.sv[2], kt * BK,
-                                                   p.m);
-    };
-
-    const int kt_end = last_k_tile(p, q0, BQ, BK);
-    if (!FROM_DS) {
-        load_rows_async<T, D, BQ, MMA_THREADS>(Qs, q, p.sq[2], q0, p.n);
-        load_rows_async<T, D, BQ, MMA_THREADS>(dOs, dout, p.sdo[2], q0, p.n);
-    }
-    load_k_tile(0, 0);
-    cp_async_commit();
-
-    const int row_a = q0 + warp * 16 + g;  // this thread's rows: row_a, row_a + 8
-    float lse_r[2], delta_r[2];
+    const uint32_t k_tiles = smem_addr(Ks);
+    const uint32_t x_tiles = smem_addr(Xs);
+    float dq[NO];
+    Ring<ST> ring;
+    int local = 0;
+    for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+        for (int si = 0; si < work.count(u); ++si, ++local) {
+            const Tile tile = work.tile<true>(u, si, p.h);
+            const int q0 = tile.t * BQ;
+            const int kt_end = last_k_tile(p, q0, BQ, BN);
+            const int q0w = q0 + wg * 64;        // the warpgroup's first row
+            const int row_a = q0w + 16 * w + g;  // this thread's rows: row_a, row_a + 8
+            // key tiles with a key that some row of the warpgroup sees; the
+            // rest (causal) only pass through the ring
+            const int kt_wg = p.causal ? min(kt_end, (q0w + 63) / BN + 1) : kt_end;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = row_a + r * 8;
-        lse_r[r] = !FROM_DS && row < p.n ? p.lse[row_base + row] : 0.f;
-        delta_r[r] = !FROM_DS && row < p.n ? p.delta[row_base + row] : 0.f;
-    }
-    float dq_acc[DB][4];
-    zero(dq_acc);
+            for (int i = 0; i < NO; ++i) dq[i] = 0.f;
 
-    for (int kt = 0; kt < kt_end; ++kt) {
-        const int buf = kt & 1;
-        if (kt + 1 < kt_end) {  // fetch the next key tile while this one is used
-            load_k_tile(kt + 1, buf ^ 1);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const T* Kb = Ks + buf * BK * LD;
-        const T* Xb = Xs + buf * BK * XLD;
-        const int k0 = kt * BK;
-
-        // ds [the warp's 16 rows x BK keys] as A fragments
-        uint32_t dsf[KB / 2][4];
-        if (FROM_DS) {
-#pragma unroll
-            for (int kc = 0; kc < KB / 2; ++kc)
-                ldmatrix_x4_trans(dsf[kc], Xb + (kc * 16 + (lane & 7) + ((lane >> 4) << 3)) * XLD +
-                                               warp * 16 + ((lane >> 3) & 1) * 8);
-        } else {
-            // s = q k^T and dp = do v^T: the warp's 16 rows x BK keys
-            float s[KB][4], dp[KB][4];
-            zero(s);
-            zero(dp);
-            mma_abt<T, D / 16, KB>(s, Qs + warp * 16 * LD, Kb, LD);
-            mma_abt<T, D / 16, KB>(dp, dOs + warp * 16 * LD, Xb, LD);
-            const bool edge = edge_pair(p, q0, BQ, k0, BK);
-#pragma unroll
-            for (int nb = 0; nb < KB; ++nb) {
-                float pv[4], dsv[4];
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int r = e >> 1;
-                    p_ds<T>(p, !edge || visible(p, row_a + r * 8, k0 + nb * 8 + 2 * t + (e & 1)),
-                            s[nb][e], dp[nb][e], lse_r[r], delta_r[r], pv[e], dsv[e]);
+            if constexpr (FROM_DS) {
+                for (int kt = 0; kt < kt_wg; ++kt, ring.advance()) {
+                    mbar_wait(full + ring.stage, ring.phase);
+                    // the warpgroup's queries are box wg of the ds^T tile;
+                    // causal, on the diagonal tile the first warpgroup's rows
+                    // see 64 keys
+                    const uint32_t ds_tile = x_tiles + ring.stage * X_STAGE + wg * KV_BOX;
+                    const uint32_t k_tile = k_tiles + ring.stage * K_STAGE;
+                    if (p.causal && q0w + 64 - kt * BN < BN)
+                        dq_from_ds<T, D, KC / 2>(dq, ds_tile, k_tile, KV_BOX);
+                    else
+                        dq_from_ds<T, D, KC>(dq, ds_tile, k_tile, KV_BOX);
+                    if (threadIdx.x % 128 == 0) mbar_arrive(empty + ring.stage);
                 }
-                dsf[nb / 2][(nb & 1) * 2 + 0] = MmaOp<T>::pack(dsv[0], dsv[1]);
-                dsf[nb / 2][(nb & 1) * 2 + 1] = MmaOp<T>::pack(dsv[2], dsv[3]);
+            } else {
+                const int qb = local & 1;
+                const uint32_t q_tile = smem_addr(Qs + qb * BQ * D) + wg * 64 * 128;
+                const uint32_t do_tile = smem_addr(dOs + qb * BQ * D) + wg * 64 * 128;
+                const long long row_base = ((long long)tile.bi * p.h + tile.hi) * p.n;
+                float lse2[2], dl[2];  // lse * log2(e) and delta of rows row_a, row_a + 8
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const int row = row_a + r * 8;
+                    lse2[r] = row < p.n ? p.lse[row_base + row] * LOG2E : 0.f;
+                    dl[r] = row < p.n ? p.delta[row_base + row] : 0.f;
+                }
+                float s[NS], dp[NS];
+                uint32_t dsf[KC][4];
+                // The tiles' addresses pass through an empty asm, so the
+                // shared-memory descriptors are rebuilt at each issue (a few
+                // integer operations) instead of held in registers across
+                // the loop: held, they spilled at d = 64, where s, dp, dq
+                // and the in-flight ds take 192 registers a thread.
+                // s = q k^T and dp = do v^T of the key tile in `stage`, one group
+                auto issue_s = [&](int stage) {
+                    uint32_t qa = q_tile, da = do_tile;
+                    uint32_t ka = k_tiles + stage * K_STAGE, va = x_tiles + stage * X_STAGE;
+                    asm volatile("" : "+r"(qa), "+r"(da), "+r"(ka), "+r"(va));
+                    wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < D / 16; ++kk)
+                        wgmma_ss<T, BN>(s, kmajor_desc(qa, Q_BOX, kk),
+                                        kmajor_desc(ka, KV_BOX, kk), kk > 0);
+#pragma unroll
+                    for (int kk = 0; kk < D / 16; ++kk)
+                        wgmma_ss<T, BN>(dp, kmajor_desc(da, Q_BOX, kk),
+                                        kmajor_desc(va, KV_BOX, kk), kk > 0);
+                    wgmma_commit();
+                };
+                // dq += ds k of the key tile in `stage` (the same swizzled K
+                // tile, MN-major), one group
+                auto issue_dq = [&](int stage) {
+                    uint32_t ka = k_tiles + stage * K_STAGE;
+                    asm volatile("" : "+r"(ka));
+                    wgmma_fence();
+#pragma unroll
+                    for (int kc = 0; kc < KC; ++kc)
+                        wgmma_rs<T, D>(dq, dsf[kc], mnmajor_desc(ka, KV_BOX, kc), 1);
+                    wgmma_commit();
+                };
+                // ds of key tile kt, left in s (f32); only tiles that cross
+                // the diagonal or an end test each pair
+                auto make_ds = [&](int kt) {
+                    const int k0 = kt * BN;
+                    if (edge_pair(p, q0w, 64, k0, BN))
+                        ds_rows_tile<true>(p, s, dp, lse2, dl, row_a, k0);
+                    else
+                        ds_rows_tile<false>(p, s, dp, lse2, dl, row_a, k0);
+                };
+                // ds (f32, in s) -> the A operands of dq += ds k, rounded to T
+                auto pack_ds = [&]() {
+#pragma unroll
+                    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i)
+                            dsf[kc][i] = MmaOp<T>::pack(s[8 * kc + 2 * i], s[8 * kc + 2 * i + 1]);
+                };
+
+                mbar_wait(q_full + qb, (local >> 1) & 1);
+                mbar_wait(full + ring.stage, ring.phase);
+                issue_s(ring.stage);
+                wgmma_wait<0>();
+                reg_fence(s);
+                reg_fence(dp);
+                make_ds(0);
+                pack_ds();
+                for (int kt = 1; kt < kt_wg; ++kt) {
+                    const int prev = ring.stage;
+                    ring.advance();
+                    mbar_wait(full + ring.stage, ring.phase);
+                    issue_s(ring.stage);  // s and dp of tile kt ...
+                    issue_dq(prev);       // ... while dq of tile kt - 1 runs
+                    wgmma_wait<1>();
+                    reg_fence(s);
+                    reg_fence(dp);
+                    make_ds(kt);
+                    // registers an in-flight RS wgmma reads (dsf) are not
+                    // touched before its wait_group
+                    wgmma_wait<0>();
+                    reg_fence(dq);
+                    reg_fence(dsf);
+                    if (threadIdx.x % 128 == 0) mbar_arrive(empty + prev);
+                    pack_ds();
+                }
+                // every product on this tile's q and do has been issued and
+                // is done but the last dq += ds k, which reads K only
+                if (threadIdx.x % 128 == 0) mbar_arrive(q_empty + qb);
+                issue_dq(ring.stage);
+                wgmma_wait<0>();
+                reg_fence(dq);
+                reg_fence(dsf);
+                if (threadIdx.x % 128 == 0) mbar_arrive(empty + ring.stage);
+                ring.advance();
+            }
+            // key tiles whose keys all follow the warpgroup's rows
+            for (int kt = kt_wg; kt < kt_end; ++kt, ring.advance()) {
+                mbar_wait(full + ring.stage, ring.phase);
+                if (threadIdx.x % 128 == 0) mbar_arrive(empty + ring.stage);
+            }
+
+            // rows row_a (r = 0) and row_a + 8 (r = 1) of dq
+            T* dq_out = static_cast<T*>(p.dq) + tile.bi * p.sdq[0] + tile.hi * p.sdq[1];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int row = row_a + r * 8;
+                if (row >= p.n) continue;
+#pragma unroll
+                for (int j = 0; j < NO / 4; ++j)
+                    *reinterpret_cast<uint32_t*>(dq_out + (long long)row * p.sdq[2] + 8 * j +
+                                                 2 * t) =
+                        MmaOp<T>::pack(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
             }
         }
-        mma_frag_b<T, BK / 16, DB>(dq_acc, dsf, Kb, LD);  // dq += ds k
-        __syncthreads();  // the next iteration's copy overwrites this buffer
     }
-    store_rows<T, DB>(dq, p.sdq[2], row_a, p.n, dq_acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -644,6 +795,23 @@ __global__ void __launch_bounds__(MMA_THREADS, mma_minb<D>())
 constexpr int F32_THREADS = 256;
 constexpr int F32_BQ = 64;  // query rows per tile
 constexpr int LDP = F32_BQ + 1;
+
+// p and ds of one score; both 0 where the pair is masked
+__device__ __forceinline__ void p_ds(const BwdParams& p, bool vis, float s, float dp, float lse,
+                                     float delta, float& pv, float& dsv) {
+    pv = vis ? expf(fminf(s * p.scale - lse, 30.f)) : 0.f;
+    dsv = vis ? pv * (dp - delta) * p.scale : 0.f;
+}
+
+// lse and delta of rows row0.. (0 past the end) into shared memory
+__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s, const float* lse,
+                                               const float* delta, int row0, int n) {
+    for (int r = threadIdx.x; r < F32_BQ; r += blockDim.x) {
+        const int row = row0 + r;
+        lse_s[r] = row < n ? lse[row] : 0.f;
+        delta_s[r] = row < n ? delta[row] : 0.f;
+    }
+}
 
 // acc[i][j] += sum_kk A[(ty + 16 i) * a_r + kk * a_k] * B[kk * b_k + (tx + 16 j) * b_c]
 template <int NJ>
@@ -745,7 +913,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_kv_f32_kernel(const Bwd
         const int q0 = qt * F32_BQ;
         f32_load_rows<D>(Qs, q, p.sq[2], q0, p.n);
         f32_load_rows<D>(dOs, dout, p.sdo[2], q0, p.n);
-        load_row_stats<F32_BQ>(lse_s, delta_s, p.lse + row_base, p.delta + row_base, q0, p.n);
+        load_row_stats(lse_s, delta_s, p.lse + row_base, p.delta + row_base, q0, p.n);
         __syncthreads();
 
         // s^T[key][query] = k q^T and dp^T = v do^T
@@ -761,7 +929,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_kv_f32_kernel(const Bwd
                 const int key = ty + 16 * i;
                 const int col = tx + 16 * j;
                 float pv, dsv;
-                p_ds<float>(p, visible(p, q0 + col, k0 + key), s[i][j], dp[i][j], lse_s[col],
+                p_ds(p, visible(p, q0 + col, k0 + key), s[i][j], dp[i][j], lse_s[col],
                      delta_s[col], pv, dsv);
                 Pt[key * LDP + col] = pv;
                 dSt[key * LDP + col] = dsv;
@@ -815,7 +983,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(const Bwd
     if (!FROM_DS) {
         f32_load_rows<D>(Qs, q, p.sq[2], q0, p.n);
         f32_load_rows<D>(dOs, dout, p.sdo[2], q0, p.n);
-        load_row_stats<F32_BQ>(lse_s, delta_s, p.lse + row_base, p.delta + row_base, q0, p.n);
+        load_row_stats(lse_s, delta_s, p.lse + row_base, p.delta + row_base, q0, p.n);
     }
     float dq_acc[4][NJ];
     f32_zero<NJ>(dq_acc);
@@ -849,7 +1017,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(const Bwd
                     const int r = ty + 16 * i;
                     const int c = tx + 16 * j;
                     float pv;
-                    p_ds<float>(p, visible(p, q0 + r, k0 + c), s[i][j], dp[i][j], lse_s[r],
+                    p_ds(p, visible(p, q0 + r, k0 + c), s[i][j], dp[i][j], lse_s[r],
                          delta_s[r], pv, dSs[r * LDP + c]);
                 }
             __syncthreads();
@@ -898,17 +1066,44 @@ cudaError_t launch_kv_tma(const BwdParams& p, int b, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// The dq kernel on its four tensor maps: q, K, V and do, or with FROM_DS
+// K and the ds^T workspace (columns n of rows ds_ld(n), so the queries past
+// n read as zeros) with K's map in the unused places.
+template <typename T, int D, bool FROM_DS>
+cudaError_t launch_dq_tma(const BwdParams& p, int b, cudaStream_t stream) {
+    constexpr int BN = dq_bn<D, FROM_DS>();
+    CUtensorMap maps[4];
+    cudaError_t err = encode_rows_map<T>(&maps[1], p.k, D, p.m, p.h, b, p.sk, BN);
+    if (err != cudaSuccess) return err;
+    if (FROM_DS) {
+        const long long ld = ds_ld(p.n);
+        const long long ds_strides[3] = {(long long)p.h * p.m * ld, (long long)p.m * ld, ld};
+        err = encode_rows_map<T>(&maps[2], p.ds, p.n, p.m, p.h, b, ds_strides, BN);
+        maps[0] = maps[3] = maps[1];
+    } else {
+        err = encode_rows_map<T>(&maps[0], p.q, D, p.n, p.h, b, p.sq, DQ_ROWS);
+        if (err == cudaSuccess) err = encode_rows_map<T>(&maps[2], p.v, D, p.m, p.h, b, p.sv, BN);
+        if (err == cudaSuccess)
+            err = encode_rows_map<T>(&maps[3], p.dout, D, p.n, p.h, b, p.sdo, DQ_ROWS);
+    }
+    if (err != cudaSuccess) return err;
+    const auto kernel = flash_bwd_dq_tma_kernel<T, D, FROM_DS>;
+    constexpr size_t smem = dq_tma_smem_bytes<D, FROM_DS>();
+    static_assert(smem <= 232448, "the dq kernel's shared memory exceeds a block's 227 KB");
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid = persistent_grid((cdiv(p.n, DQ_ROWS) + 1) / 2 * p.h * b);
+    kernel<<<grid, DQ_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+    return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_16bit(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
-    const dim3 q_grid = tile_grid(cdiv(p.n, MMA_ROWS), p.h, b);
     if (pass == DKV_PASS) return launch_kv_tma<T, D, false>(p, b, s);
-    if (pass == DQ_PASS)
-        return launch(flash_bwd_dq_mma_kernel<T, D, false>, q_grid, MMA_THREADS,
-                      dq_mma_smem_bytes<D, false>(), p, s);
+    if (pass == DQ_PASS) return launch_dq_tma<T, D, false>(p, b, s);
     cudaError_t err = launch_kv_tma<T, D, true>(p, b, s);
     if (err != cudaSuccess) return err;
-    return launch(flash_bwd_dq_mma_kernel<T, D, true>, q_grid, MMA_THREADS,
-                  dq_mma_smem_bytes<D, true>(), p, s);
+    return launch_dq_tma<T, D, true>(p, b, s);
 }
 
 template <int D>

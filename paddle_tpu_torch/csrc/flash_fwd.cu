@@ -13,8 +13,8 @@
 // when j <= i), which is the n == m contract of the host side; the host
 // routes cross-length causal elsewhere before any launch. The 16-bit path
 // takes e^(s * scale - m) as one ex2.approx of s * (scale * log2 e) - m',
-// with m' the running max in log2 units: exp_e's instruction, the scale
-// folded into the same product.
+// with m' the running max in log2 units (exp2_approx in mma_sm90.cuh), the
+// scale folded into the same product.
 //
 // flash_fwd_long() launches the same kernels. It replaces the TPU kernel
 // paddle_tpu/ops/flash_attention.py:_fwd_kernel_long (launched by

@@ -67,6 +67,27 @@ def test_plain_version_matches_pallas_two_pass_bwd(causal):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL)
 
 
+@pytest.mark.parametrize('n,m,d', [(512, 1024, 64), (1024, 512, 128),
+                                   (640, 1152, 64)])
+def test_plain_version_matches_pallas_two_pass_bwd_cross_length(n, m, d):
+    # non-causal n != m, as ring attention calls the dq and dk/dv pair:
+    # the JAX package runs _bwd_dq_kernel and _bwd_dkv_kernel
+    rng = np.random.RandomState(n + m + d)
+    q, do = (rng.randn(1, 2, n, d).astype(np.float32) * 0.5 for _ in range(2))
+    k, v = (rng.randn(1, 2, m, d).astype(np.float32) * 0.5 for _ in range(2))
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    o, lse = jfa._fwd_impl(jq, jk, jv, False, scale)
+    want = jfa._bwd_impl(jq, jk, jv, o, lse, jdo, False, scale)
+    delta = (torch.from_numpy(do) * torch.tensor(np.asarray(o))).sum(
+        -1, keepdim=True)
+    got = tfa.flash_attention_bwd_ref(
+        *_torch(q, k, v, do, lse), delta, False, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL)
+
+
 def test_plain_version_bf16_close_to_pallas():
     # both round p and ds to bf16 before the products they feed; they may
     # round a value near a boundary differently, and the grads are bf16

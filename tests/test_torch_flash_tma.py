@@ -124,18 +124,13 @@ def test_tensor_maps_need_no_lcuda_link():
 @pytest.mark.parametrize('source, gone, kept', [
     ('flash_fwd.cu', 'flash_fwd_mma_kernel', 'flash_fwd_tma_kernel'),
     ('flash_bwd.cu', 'flash_bwd_kv_mma_kernel', 'flash_bwd_kv_tma_kernel'),
+    ('flash_bwd.cu', 'flash_bwd_dq_mma_kernel', 'flash_bwd_dq_tma_kernel'),
 ])
 def test_redesigned_kernels_replace_their_mma_sync_bodies(source, gone,
                                                           kept):
     text = _read(source)
     assert gone not in text
     assert kept in text
-
-
-def test_dq_kernel_keeps_its_mma_sync_body():
-    text = _read('flash_bwd.cu')
-    assert 'flash_bwd_dq_mma_kernel' in text
-    assert '#include "mma_sm90.cuh"' in text
 
 
 @pytest.mark.parametrize('entry', ['flash_fwd', 'flash_fwd_long'])
