@@ -34,14 +34,33 @@ Phases, each printed as it finishes; any failure exits non-zero:
                with d = 128, a ragged 4100, fp16, f32, non-causal n != m),
                each timed beside the standard entry at the same shape (both
                launch the same kernels).
-  9. slice 3, long context - the JAX package's long-context training run
+  9. wide heads - the d = 192 and 256 instantiations of the forward,
+               fused, dq and dk/dv entries (CUDA cores, 16-bit operands
+               staged as 16-bit), bf16 / fp16 / f32, at b=2 h=4 n=m=512
+               causal and a ragged cross-length shape, each against its
+               plain version with its time, bound and library time (the
+               `kernels_wide` line). No path runs these head dims.
+ 10. slice 4, f32 - engine parity: GPT-2 small at full width and depth,
+               6 prompts of 5-300 tokens + 32 new, greedy, through the slot
+               engine (3 slots x 512), the paged engine with prefix sharing
+               and the paged engine with spec_k=4: each token-identical to
+               sequential generate() on the card.
+ 11. slice 4, bf16 - engine throughput: 64 requests at t = 0 (prompts of
+               64-512 tokens, 128 new) through the slot engine (16 slots x
+               1024, chunk 128, burst 4): tokens/s, TTFT p50/p99, the decode
+               burst's time, a profiled burst's busy share, peak memory;
+               the same requests through the paged engine with 4 groups
+               sharing a 256-token prefix; spec_k=4 on repetitive prompts.
+ 12. slice 3, long context - the JAX package's long-context training run
                (bench.py with PADDLE_TPU_BENCH_SEQ=8192, BATCH=2): the
                bench's GPT with max_position 8192, bf16, batch 2 x 8192, 2
                warm-up and 6 timed steps, 12 launches a step of each long
                kernel and none of the standard ones, falling loss, a
                profile, and the same step on the standard route.
-The last lines are the card's name and power limit as nvidia-smi gives
-them, a {"kernels": [...]} line and the {"ok": true, ...} line.
+(Phases 9-11 run after phase 8 and before phases 5-7 and 12 in main().)
+The last lines are a {"kernels_wide": [...]} line, the card's name and
+power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
+{"ok": true, ...} line.
 """
 import json
 import math
@@ -776,6 +795,101 @@ def train_seq1024_phase():
     return {'launches': launches, 'steps': steps}
 
 
+# (b, h, n, m, d, dtype, causal): the d = 192 / 256 instantiations (CUDA
+# cores, operands staged as their own type) of every entry, at one short
+# causal shape and one ragged non-causal cross-length shape. No path of this
+# script runs these head dims; their launches here are checks, not a path.
+WIDE_SHAPES = [(b, h, n, m, d, dtype, causal)
+               for d in (192, 256)
+               for dtype in (torch.bfloat16, torch.float16, torch.float32)
+               for b, h, n, m, causal in ((2, 4, 512, 512, True),
+                                          (1, 3, 300, 700, False))]
+
+
+def wide_kernel_phase(sku):
+    """Each entry at d = 192 and 256 against its plain version, at the
+    forward's and the backward's tolerances, with its time, bound and the
+    library call's time."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
+    rows = []
+    for key in WIDE_SHAPES:
+        b, h, n, m, d, dtype, causal = key
+        scale = 1.0 / math.sqrt(d)
+        q, k, v = _qkv(gen, b, h, n, m, d, dtype, False)
+        do = torch.randn((b, n, h, d), generator=gen,
+                         device='cuda').to(dtype).transpose(1, 2)
+        dt = str(dtype).split('.')[-1]
+        shape = [b, h, n, m, d]
+        o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, causal, scale)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        tol_o, tol_lse = TOLERANCE[dtype]
+        _check(o.shape == (b, h, n, d) and bool(torch.isfinite(
+            o.float()).all()), 'wide forward output')
+        _check(err_o <= tol_o and err_lse <= tol_lse,
+               'flash_fwd vs plain at %s %s causal=%s: o err %.3g (tol %g), '
+               'lse err %.3g (tol %g)' % (shape, dt, causal, err_o, tol_o,
+                                          err_lse, tol_lse))
+        bound, bound_by = _flash_bound_ms(b, h, n, m, d, dtype, causal, sku)
+        row = {'name': 'flash_fwd', 'shape': shape, 'dtype': dt,
+               'causal': causal, 'max_abs_err': err_o, 'err_lse': err_lse,
+               'ms': _graph_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal,
+                                                         scale)),
+               'plain_ms': _time_ms(lambda: fa.flash_attention_fwd_ref(
+                   q, k, v, causal, scale), iters=3, warmup=1),
+               'library_ms': _graph_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q, k, v, is_causal=causal, scale=scale)),
+               'bound_ms': bound, 'bound_by': bound_by}
+        print('kernel wide %s' % json.dumps(row), flush=True)
+        rows.append(row)
+
+        delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        calls = (('fused', lambda: fa.flash_bwd_fused_cuda(*args)),
+                 ('dq', lambda: (fa.flash_bwd_dq_cuda(*args),)),
+                 ('dkv', lambda: fa.flash_bwd_dkv_cuda(*args)))
+        # every kernel runs before the plain version first does, so no
+        # output of the plain version lies freed in the allocator's cache
+        # for a kernel's output to be handed (a kernel that wrote nothing
+        # would then read as exact)
+        outs = {which: call() for which, call in calls}
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_ref(*args)
+        refs = {'fused': ref, 'dq': ref[:1], 'dkv': ref[1:]}
+        plain_ms = _time_ms(lambda: fa.flash_attention_bwd_ref(*args),
+                            iters=3, warmup=1)
+        lib = _sdpa_bwd_ms(q, k, v, do, causal, scale)
+        tol = BWD_TOLERANCE[dtype]
+        for which, call in calls:
+            got = outs.pop(which)
+            errs, shares = _err_share(got, refs[which])
+            _check(max(shares) <= tol,
+                   'flash_bwd_%s vs plain at %s %s causal=%s: errors %s of '
+                   'the largest gradient > %g' % (which, shape, dt, causal,
+                                                  shares, tol))
+            if which != 'dkv':
+                _check_same_dq(call, got[0], 'flash_bwd_%s' % which, shape)
+            bound, bound_by = _bwd_bound_ms(b, h, n, m, d, dtype, causal,
+                                            which, sku)
+            row = {'name': 'flash_bwd_%s' % which, 'shape': shape,
+                   'dtype': dt, 'causal': causal, 'max_abs_err': max(errs),
+                   'err_share': shares, 'tol_share': tol,
+                   'ms': _graph_ms(call), 'plain_ms': plain_ms,
+                   'library_ms': lib, 'bound_ms': bound,
+                   'bound_by': bound_by}
+            print('kernel wide %s' % json.dumps(row), flush=True)
+            rows.append(row)
+            del got
+        del q, k, v, do, o, lse, delta, ref, args, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 # (b, h, n, m, d, dtype, causal, strided): every long kernel runs at every
 # shape. The first is the long training path's (the attention of one layer
 # at batch 2 x 8192, q, k, v strided views of the packed projection).
@@ -981,6 +1095,217 @@ def train_long_phase(sku):
     return {'launches': launches, 'steps': steps, 'median_ms': median}
 
 
+def _first_divergence(model, prompt, want, got):
+    """(index, top-2 logit gap of generate()'s model at that token) of the
+    first token where `got` leaves `want`."""
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    ids = torch.tensor([prompt + want[:j]], device='cuda')
+    with torch.no_grad():
+        top = model(ids)[0, -1].float().topk(2).values
+    return j, (top[0] - top[1]).item()
+
+
+def engine_parity_phase():
+    """Slice 4, f32: the slot engine, the paged engine with prefix sharing
+    and the paged engine with spec_k=4 against sequential generate() on the
+    card, GPT-2 small at full width and depth, token for token."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedContinuousBatchingEngine)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    cfg = GPTConfig.gpt2_small()
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
+    gen = torch.Generator().manual_seed(SEED + 4)
+
+    def tokens(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    # six prompts of 5 to 300 tokens; the first and the fourth share a
+    # 64-token head (the fourth is admitted after the first has prefilled)
+    head = tokens(64)
+    prompts = [head + tokens(40), tokens(5), tokens(300), head + tokens(100),
+               tokens(23), tokens(150)]
+    new = 32
+    want = [model.generate(torch.tensor([p], device='cuda'),
+                           max_new_tokens=new)[0, len(p):].tolist()
+            for p in prompts]
+    kw = dict(max_len=512, prefill_chunk=16, decode_block=4)
+    engines = [
+        ('slot', ContinuousBatchingEngine(model, num_slots=3, **kw)),
+        ('paged prefix', PagedContinuousBatchingEngine(
+            model, num_seqs=3, page_size=16, **kw)),
+        ('paged spec_k=4', PagedContinuousBatchingEngine(
+            model, num_seqs=3, page_size=16, spec_k=4, **kw))]
+    _reset_counts(fa)
+    reports = {}
+    for label, eng in engines:
+        got = eng.generate(prompts, max_new_tokens=new)
+        for i, (w, g) in enumerate(zip(want, got)):
+            if w != g:
+                j, gap = _first_divergence(model, prompts[i], w, g)
+                raise RuntimeError(
+                    'check failed: %s engine diverges from generate() on '
+                    'prompt %d (%d tokens) at new token %d: %d vs %d, top-2 '
+                    'logit gap there %.3g' % (label, i, len(prompts[i]), j,
+                                              g[j], w[j], gap))
+        reports[label] = eng.metrics.report()
+    _check(reports['paged prefix']['prefix_hits'] > 0,
+           'the shared head hit no prefix-cache page')
+    _check(_launches(fa) == _want(1), 'an engine launched a flash kernel: '
+           '%s' % _launches(fa))
+    print('engine f32 parity: GPT-2 small, 6 prompts of %s tokens, %d new, '
+          'greedy: slot, paged (prefix hits %d blocks) and paged spec_k=4 '
+          '(accept rate %.3f) token-identical to generate() on the card, '
+          '%.1f s' % ([len(p) for p in prompts], new,
+                      reports['paged prefix']['prefix_hits'],
+                      reports['paged spec_k=4']['spec_accept_rate'],
+                      time.time() - t0), flush=True)
+    del model, engines
+    torch.cuda.empty_cache()
+
+
+# the throughput workload: 64 requests at t = 0, prompts of 64-512 tokens
+# from the seed, 128 new tokens, greedy
+THROUGHPUT_REQUESTS, THROUGHPUT_NEW = 64, 128
+
+
+def _serve(eng, prompts, new):
+    """Submit every prompt at once, drive to the end; (requests, wall s,
+    pages in use at peak)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, max_new_tokens=new) for p in prompts]
+    peak_pages = 0
+    while eng.step():
+        peak_pages = max(peak_pages, getattr(eng, 'pages', eng.allocator)
+                         .in_use)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check(all(len(r.tokens) == new for r in reqs), 'a request came short')
+    return reqs, wall, peak_pages
+
+
+def engine_throughput_phase():
+    """Slice 4, bf16: the throughput workload through the slot engine, the
+    paged engine with 4 groups sharing a 256-token prefix, and spec_k=4 on
+    repetitive prompts."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedContinuousBatchingEngine)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    t_phase = time.time()
+    cfg = GPTConfig.gpt2_small()
+    model = GPTForCausalLM(cfg, device='cuda',
+                           seed=SEED).eval().bfloat16()
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def tokens(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    lengths = torch.randint(64, 513, (THROUGHPUT_REQUESTS,),
+                            generator=gen).tolist()
+    prompts = [tokens(n) for n in lengths]
+    new = THROUGHPUT_NEW
+    slot = ContinuousBatchingEngine(model, num_slots=16, max_len=1024,
+                                    prefill_chunk=128, decode_block=4)
+    slot.generate(prompts[:2], max_new_tokens=8)     # warm-up
+    _reset_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    metrics_before = slot.metrics.report()['tokens']
+    reqs, wall, _ = _serve(slot, prompts, new)
+    peak = torch.cuda.max_memory_allocated()
+    _check(_launches(fa) == _want(1), 'the slot engine launched a flash '
+           'kernel: %s' % _launches(fa))
+    ttft = sorted(r._first_token_t - r._arrival_t for r in reqs)
+    rep = slot.metrics.report()
+    _check(rep['tokens'] - metrics_before == THROUGHPUT_REQUESTS * new,
+           'token count')
+    tl = slot.timeline
+    burst = {key: tl.percentile(50, key) for key in ('host_dispatch',
+                                                     'device_block')}
+    print('engine bf16 slot: %d requests (prompts %d-%d, mean %.0f tokens) '
+          '+ %d new at t=0, 16 slots x 1024: %.0f tokens/s (%d tokens in '
+          '%.2f s), TTFT p50 %.1f ms p99 %.1f ms, decode burst (4 steps) '
+          'p50 %.2f ms (host dispatch %.2f, wait for the card %.2f), peak '
+          'memory %.2f GiB' % (
+              THROUGHPUT_REQUESTS, min(lengths), max(lengths),
+              sum(lengths) / len(lengths), new,
+              THROUGHPUT_REQUESTS * new / wall, THROUGHPUT_REQUESTS * new,
+              wall, _pct(ttft, 50) * 1e3, _pct(ttft, 99) * 1e3,
+              tl.percentile(50) * 1e3, burst['host_dispatch'] * 1e3,
+              burst['device_block'] * 1e3, peak / 2 ** 30), flush=True)
+
+    # one burst with all 16 slots decoding, under the profiler
+    for p in prompts[:16]:
+        slot.add_request(p[:128], max_new_tokens=64)
+    while slot.scheduler.queue or any(
+            r.state != 'decode' for r in slot.scheduler.resident.values()):
+        slot.step()
+
+    def burst_fn():
+        with slot._lock, torch.no_grad():
+            slot._decode_step()
+
+    wall_ms, dev_ms, top, ops = _profile(burst_fn)
+    print('profile decode burst (16 slots, 4 steps): wall %.2f ms, device '
+          'kernels %.2f ms, busy share %.3f; top kernels: %s; top aten '
+          'ops: %s' % (wall_ms, dev_ms, dev_ms / wall_ms,
+                       '; '.join('%s %.2f ms x%d' % t for t in top),
+                       '; '.join('%s %.2f ms x%d' % t for t in ops)),
+          flush=True)
+    slot.run()
+    del slot
+    torch.cuda.empty_cache()
+
+    # the same requests, 4 groups each sharing a 256-token prefix
+    heads = [tokens(256) for _ in range(4)]
+    shared = [heads[i % 4] + p[:max(len(p) - 256, 16)]
+              for i, p in enumerate(prompts)]
+    paged = PagedContinuousBatchingEngine(
+        model, num_seqs=16, max_len=1024, page_size=16, prefill_chunk=128,
+        decode_block=4)
+    _reset_counts(fa)
+    reqs, wall, peak_pages = _serve(paged, shared, new)
+    rep = paged.metrics.report()
+    _check(rep['prefix_hits'] > 0, 'the shared prefixes hit no page')
+    print('engine bf16 paged: the same %d requests with 4 groups sharing a '
+          '256-token prefix (prompts %d-%d tokens), page 16: %.0f tokens/s '
+          '(%.2f s), prompt tokens saved by the prefix cache %d of %d, '
+          'pages in use at peak %d of %d, launches %s' % (
+              THROUGHPUT_REQUESTS, min(map(len, shared)),
+              max(map(len, shared)), THROUGHPUT_REQUESTS * new / wall, wall,
+              rep['prefix_hits'] * 16, sum(map(len, shared)), peak_pages,
+              paged.num_pages - 1, _launches(fa)), flush=True)
+    del paged
+    torch.cuda.empty_cache()
+
+    # spec_k=4 on repetitive prompts: a 16-token motif repeated
+    spec_prompts = [(tokens(16) * 16)[:96 + 8 * i] for i in range(16)]
+    spec = PagedContinuousBatchingEngine(
+        model, num_seqs=16, max_len=1024, page_size=16, prefill_chunk=128,
+        decode_block=4, spec_k=4)
+    reqs, wall, _ = _serve(spec, spec_prompts, 64)
+    rep = spec.metrics.report()
+    print('engine bf16 paged spec_k=4: 16 repetitive prompts (a 16-token '
+          'motif, 96-216 tokens) + 64 new: acceptance rate %.3f (%d of %d '
+          'drafts), %.0f tokens/s (%.2f s); whole phase %.1f s' % (
+              rep['spec_accept_rate'], rep['spec_accepted'],
+              rep['spec_proposed'], 16 * 64 / wall, wall,
+              time.time() - t_phase), flush=True)
+    del spec, model
+    torch.cuda.empty_cache()
+
+
+def _pct(xs, q):
+    from paddle_tpu_torch.serving import percentile
+    return percentile(xs, q)
+
+
 # How each kernel entry computes its products: "wgmma+tma" (warpgroup
 # wgmma on TMA-fed shared memory, a producer warpgroup and consumer
 # warpgroups). The fused backward launches the dk/dv kernel, then the dq
@@ -1020,7 +1345,10 @@ def main():
     fwd_rows = kernel_phase(sku)
     bwd_rows = bwd_kernel_phase(sku)
     long_rows = long_kernel_phase(sku)
+    wide_rows = wide_kernel_phase(sku)
     generate_launches = slice_phases()
+    engine_parity_phase()
+    engine_throughput_phase()
     train_f32_phase()
     train = train_main_phase(sku)
     second = train_seq1024_phase()
@@ -1097,6 +1425,17 @@ def main():
     for k in kernels:
         if k['name'] in pairs:
             k['pair_vs_library'] = pairs[k['name']]
+    body_line = {'flash_fwd': 137, 'flash_bwd_fused': 659,
+                 'flash_bwd_dq': 580, 'flash_bwd_dkv': 617}
+    wide = [dict(row, route='cuda', design='cuda cores, 16-bit staged',
+                 source='paddle_tpu_torch/csrc/%s.cu' % (
+                     'flash_fwd' if row['name'] == 'flash_fwd'
+                     else 'flash_bwd'),
+                 replaces='paddle_tpu/ops/flash_attention.py:%d'
+                 % body_line[row['name']],
+                 launches=0, path='none (a check at d = 192 / 256)')
+            for row in wide_rows]
+    print(json.dumps({'kernels_wide': wide}), flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -49,9 +49,10 @@
 //   (417 us); the dq pass 3 products (313 us). Operations bound both.
 //
 // Two paths:
-// - bf16 / fp16: warpgroup wgmma on shared memory that TMA fills, a
-//   producer warpgroup (40 registers) feeding two consumer warpgroups (232
-//   registers, moved over by setmaxnreg) through rings tracked by mbarriers.
+// - bf16 / fp16 at d = 64 and 128: warpgroup wgmma on shared memory that
+//   TMA fills, a producer warpgroup (40 registers) feeding two consumer
+//   warpgroups (232 registers, moved over by setmaxnreg) through rings
+//   tracked by mbarriers.
 //   The dk/dv kernel (flash_bwd_kv_tma_kernel, with STORE_DS the fused
 //   pass's first kernel) copies the K and V of its key tile once and
 //   streams q, do, lse and delta; its consumers (64 keys each) compute
@@ -64,12 +65,15 @@
 //   K tile as B. Only the tiles that cross the diagonal or an end test
 //   each pair: the test cost more instructions than the rest of the
 //   elementwise step.
-// - f32: FMAs on the CUDA cores, 256 threads, each on a 4 x 4 (or 4 x 8)
-//   register tile, operands staged in shared memory.
-// The 16-bit kernels are persistent (one block an SM): each walks pairs of
+// - f32, and every type at d = 192 and 256: FMAs on the CUDA cores, 256
+//   threads, each on a 4 x 2 to 4 x 16 register tile, operands staged in
+//   shared memory as their own type (flash_bwd_kv_cc_kernel,
+//   flash_bwd_dq_cc_kernel). This is the simple first kernel for the wide
+//   heads; it runs at CUDA-core rates, far below the tensor cores'.
+// The wgmma kernels are persistent (one block an SM): each walks pairs of
 // tiles whose causal work adds up to the same (TilePairs), and the next
 // tile's resident operands (K and V, or q and do) arrive in a second buffer
-// while this one finishes. The f32 kernels' grid is one-dimensional, the
+// while this one finishes. The CUDA-core kernels' grid is one-dimensional, the
 // tiles of one (b, h) adjacent and the heaviest first (the last query tile
 // for dq, the first key tile for dk/dv).
 //
@@ -788,13 +792,28 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMAs on the CUDA cores. 256 threads as 16 x 16; thread (ty, tx) owns
-// rows ty + 16 i and columns tx + 16 j of every product, so the operand
-// reads of a warp are broadcasts or hit consecutive banks.
+// The CUDA-core kernels: f32 at every head dim, and bf16 / fp16 at d = 192
+// and 256, where the wgmma kernels' rings would not fit in shared memory
+// (they are instantiated at d = 64 and 128). 256 threads as 16 x 16; thread
+// (ty, tx) owns rows ty + 16 i and columns tx + 16 j of every product, so the
+// operand reads of a warp are broadcasts or hit distinct banks. Operands are
+// staged in shared memory as T (16-bit ones in half the bytes of f32, rows
+// padded to an odd number of 32-bit words) and widened to f32 at use: a
+// product of two bf16 or fp16 values is exact in f32, so this is the wgmma
+// kernels' "native products, f32 sums"; p and ds are rounded to T before the
+// products they feed, as those kernels pack them.
+//
+// Tiles of 64 rows and 64 columns, except where that does not fit in a
+// block's 227 KB (f32 at d = 256): there the dk/dv kernel streams query tiles
+// of 32 rows and the dq kernel key tiles of 32 (kv_cc_bq, dq_cc_bn). Each
+// budget is a static_assert.
 
 constexpr int F32_THREADS = 256;
-constexpr int F32_BQ = 64;  // query rows per tile
-constexpr int LDP = F32_BQ + 1;
+constexpr int F32_BQ = 64;  // query rows of the dq kernel's tile
+
+// row stride of a staged [rows, D] operand tile, in elements of T
+template <typename T, int D>
+__host__ __device__ constexpr int cc_ldf() { return D + (sizeof(T) == 4 ? 1 : 2); }
 
 // p and ds of one score; both 0 where the pair is masked
 __device__ __forceinline__ void p_ds(const BwdParams& p, bool vis, float s, float dp, float lse,
@@ -804,9 +823,10 @@ __device__ __forceinline__ void p_ds(const BwdParams& p, bool vis, float s, floa
 }
 
 // lse and delta of rows row0.. (0 past the end) into shared memory
+template <int ROWS>
 __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s, const float* lse,
                                                const float* delta, int row0, int n) {
-    for (int r = threadIdx.x; r < F32_BQ; r += blockDim.x) {
+    for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
         const int row = row0 + r;
         lse_s[r] = row < n ? lse[row] : 0.f;
         delta_s[r] = row < n ? delta[row] : 0.f;
@@ -814,18 +834,18 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s, con
 }
 
 // acc[i][j] += sum_kk A[(ty + 16 i) * a_r + kk * a_k] * B[kk * b_k + (tx + 16 j) * b_c]
-template <int NJ>
-__device__ __forceinline__ void f32_mm(float (*acc)[NJ], const float* A, int a_r, int a_k,
-                                       const float* B, int b_k, int b_c, int depth) {
+template <int NJ, typename TA, typename TB>
+__device__ __forceinline__ void cc_mm(float (*acc)[NJ], const TA* A, int a_r, int a_k,
+                                      const TB* B, int b_k, int b_c, int depth) {
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
 #pragma unroll 4
     for (int kk = 0; kk < depth; ++kk) {
         float a[4], b[NJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * a_r + kk * a_k];
+        for (int i = 0; i < 4; ++i) a[i] = Cvt<TA>::to(A[(ty + 16 * i) * a_r + kk * a_k]);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) b[j] = B[kk * b_k + (tx + 16 * j) * b_c];
+        for (int j = 0; j < NJ; ++j) b[j] = Cvt<TB>::to(B[kk * b_k + (tx + 16 * j) * b_c]);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -833,15 +853,17 @@ __device__ __forceinline__ void f32_mm(float (*acc)[NJ], const float* A, int a_r
     }
 }
 
-// rows row0.. of x into dst[r * (D + 1) + c]; rows at or past `limit` are 0
-template <int D>
-__device__ __forceinline__ void f32_load_rows(float* dst, const float* x, long long row_stride,
-                                              int row0, int limit) {
-    for (int idx = threadIdx.x; idx < 64 * D; idx += F32_THREADS) {
+// ROWS rows row0.. of x into dst[r * cc_ldf + c]; rows at or past `limit`
+// are 0
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void cc_load_rows(T* dst, const T* x, long long row_stride, int row0,
+                                             int limit) {
+    constexpr int LDF = cc_ldf<T, D>();
+    for (int idx = threadIdx.x; idx < ROWS * D; idx += F32_THREADS) {
         const int r = idx / D;
         const int c = idx % D;
         const int row = row0 + r;
-        dst[r * (D + 1) + c] = row < limit ? x[(long long)row * row_stride + c] : 0.f;
+        dst[r * LDF + c] = row < limit ? x[(long long)row * row_stride + c] : Cvt<T>::from(0.f);
     }
 }
 
@@ -854,10 +876,10 @@ __device__ __forceinline__ void f32_zero(float (*acc)[NJ]) {
 }
 
 // Store this thread's rows ty + 16 i (row0.., below limit) and columns
-// tx + 16 j.
-template <int NJ>
-__device__ __forceinline__ void f32_store_rows(float* x, long long row_stride, int row0,
-                                               int limit, const float (*acc)[NJ]) {
+// tx + 16 j, rounded to T.
+template <int NJ, typename T>
+__device__ __forceinline__ void cc_store_rows(T* x, long long row_stride, int row0, int limit,
+                                              const float (*acc)[NJ]) {
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
 #pragma unroll
@@ -865,105 +887,124 @@ __device__ __forceinline__ void f32_store_rows(float* x, long long row_stride, i
         const int row = row0 + ty + 16 * i;
         if (row >= limit) continue;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) x[(long long)row * row_stride + tx + 16 * j] = acc[i][j];
+        for (int j = 0; j < NJ; ++j)
+            x[(long long)row * row_stride + tx + 16 * j] = Cvt<T>::from(acc[i][j]);
     }
 }
 
-template <int D>
-constexpr size_t kv_f32_smem_bytes() {
-    // K, V, q, do tiles; p^T and ds^T; lse and delta
-    return ((size_t)4 * 64 * (D + 1) + (size_t)2 * BK * LDP + 2 * F32_BQ) * sizeof(float);
+template <typename T, int D, int BQ>
+constexpr size_t kv_cc_smem_bytes() {
+    // K, V tiles of BK keys and q, do tiles of BQ rows (T); p^T and ds^T;
+    // lse and delta
+    return (size_t)(2 * BK + 2 * BQ) * cc_ldf<T, D>() * sizeof(T) +
+           ((size_t)2 * BK * (BQ + 1) + 2 * BQ) * sizeof(float);
 }
 
-template <int D, bool STORE_DS>
-__global__ void __launch_bounds__(F32_THREADS) flash_bwd_kv_f32_kernel(const BwdParams p) {
-    constexpr int LDF = D + 1;
+// query rows of the dk/dv kernel's streamed tile: 64 where it fits
+template <typename T, int D>
+constexpr int kv_cc_bq() { return kv_cc_smem_bytes<T, D, 64>() <= MAX_SMEM ? 64 : 32; }
+
+// The dk/dv of one tile of BK keys, streaming query tiles of BQ rows;
+// STORE_DS also writes ds^T, rounded to T, to the fused pass's workspace.
+template <typename T, int D, int BQ, bool STORE_DS>
+__global__ void __launch_bounds__(F32_THREADS) flash_bwd_kv_cc_kernel(const BwdParams p) {
+    constexpr int LDF = cc_ldf<T, D>();
     constexpr int NJ = D / 16;
-    extern __shared__ __align__(16) float smem[];
-    float* Ks = smem;
-    float* Vs = Ks + 64 * LDF;
-    float* Qs = Vs + 64 * LDF;
-    float* dOs = Qs + 64 * LDF;
-    float* Pt = dOs + 64 * LDF;
-    float* dSt = Pt + BK * LDP;
-    float* lse_s = dSt + BK * LDP;
-    float* delta_s = lse_s + F32_BQ;
+    constexpr int NQ = BQ / 16;  // query columns a thread
+    constexpr int LDQ = BQ + 1;  // row stride of p^T and ds^T
+    extern __shared__ __align__(16) unsigned char cc_smem[];
+    T* Ks = reinterpret_cast<T*>(cc_smem);
+    T* Vs = Ks + BK * LDF;
+    T* Qs = Vs + BK * LDF;
+    T* dOs = Qs + BQ * LDF;
+    float* Pt = reinterpret_cast<float*>(dOs + BQ * LDF);
+    float* dSt = Pt + BK * LDQ;
+    float* lse_s = dSt + BK * LDQ;
+    float* delta_s = lse_s + BQ;
 
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
     const Tile tile = block_tile<false>(cdiv(p.m, BK), p.h);
     const int hi = tile.hi;
     const int bi = tile.bi;
-    const float* q = static_cast<const float*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-    const float* k = static_cast<const float*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-    const float* v = static_cast<const float*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-    const float* dout = static_cast<const float*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
-    float* dk = static_cast<float*>(p.dk) + bi * p.sdk[0] + hi * p.sdk[1];
-    float* dv = static_cast<float*>(p.dv) + bi * p.sdv[0] + hi * p.sdv[1];
+    const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+    const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+    const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+    const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+    T* dk = static_cast<T*>(p.dk) + bi * p.sdk[0] + hi * p.sdk[1];
+    T* dv = static_cast<T*>(p.dv) + bi * p.sdv[0] + hi * p.sdv[1];
     const long long row_base = ((long long)bi * p.h + hi) * p.n;
-    float* ds_t = STORE_DS ? ds_rows<float>(p, bi, hi) : nullptr;
+    T* ds_t = STORE_DS ? ds_rows<T>(p, bi, hi) : nullptr;
 
     const int k0 = tile.t * BK;
-    f32_load_rows<D>(Ks, k, p.sk[2], k0, p.m);
-    f32_load_rows<D>(Vs, v, p.sv[2], k0, p.m);
+    cc_load_rows<T, D, BK>(Ks, k, p.sk[2], k0, p.m);
+    cc_load_rows<T, D, BK>(Vs, v, p.sv[2], k0, p.m);
     float dk_acc[4][NJ], dv_acc[4][NJ];
     f32_zero<NJ>(dk_acc);
     f32_zero<NJ>(dv_acc);
-    for (int qt = first_q_tile(p, k0, F32_BQ); qt < cdiv(p.n, F32_BQ); ++qt) {
-        const int q0 = qt * F32_BQ;
-        f32_load_rows<D>(Qs, q, p.sq[2], q0, p.n);
-        f32_load_rows<D>(dOs, dout, p.sdo[2], q0, p.n);
-        load_row_stats(lse_s, delta_s, p.lse + row_base, p.delta + row_base, q0, p.n);
+    for (int qt = first_q_tile(p, k0, BQ); qt < cdiv(p.n, BQ); ++qt) {
+        const int q0 = qt * BQ;
+        cc_load_rows<T, D, BQ>(Qs, q, p.sq[2], q0, p.n);
+        cc_load_rows<T, D, BQ>(dOs, dout, p.sdo[2], q0, p.n);
+        load_row_stats<BQ>(lse_s, delta_s, p.lse + row_base, p.delta + row_base, q0, p.n);
         __syncthreads();
 
         // s^T[key][query] = k q^T and dp^T = v do^T
-        float s[4][4], dp[4][4];
-        f32_zero<4>(s);
-        f32_zero<4>(dp);
-        f32_mm<4>(s, Ks, LDF, 1, Qs, 1, LDF, D);
-        f32_mm<4>(dp, Vs, LDF, 1, dOs, 1, LDF, D);
+        float s[4][NQ], dp[4][NQ];
+        f32_zero<NQ>(s);
+        f32_zero<NQ>(dp);
+        cc_mm<NQ>(s, Ks, LDF, 1, Qs, 1, LDF, D);
+        cc_mm<NQ>(dp, Vs, LDF, 1, dOs, 1, LDF, D);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < NQ; ++j) {
                 const int key = ty + 16 * i;
                 const int col = tx + 16 * j;
                 float pv, dsv;
                 p_ds(p, visible(p, q0 + col, k0 + key), s[i][j], dp[i][j], lse_s[col],
                      delta_s[col], pv, dsv);
-                Pt[key * LDP + col] = pv;
-                dSt[key * LDP + col] = dsv;
+                Pt[key * LDQ + col] = round_to<T>(pv);
+                dSt[key * LDQ + col] = round_to<T>(dsv);
                 if (STORE_DS && k0 + key < p.m)
-                    ds_t[(long long)(k0 + key) * ds_ld(p.n) + q0 + col] = dsv;
+                    ds_t[(long long)(k0 + key) * ds_ld(p.n) + q0 + col] = Cvt<T>::from(dsv);
             }
         __syncthreads();
-        f32_mm<NJ>(dv_acc, Pt, LDP, 1, dOs, LDF, 1, F32_BQ);  // dv += p^T do
-        f32_mm<NJ>(dk_acc, dSt, LDP, 1, Qs, LDF, 1, F32_BQ);  // dk += ds^T q
+        cc_mm<NJ>(dv_acc, Pt, LDQ, 1, dOs, LDF, 1, BQ);  // dv += p^T do
+        cc_mm<NJ>(dk_acc, dSt, LDQ, 1, Qs, LDF, 1, BQ);  // dk += ds^T q
         __syncthreads();  // the next tile overwrites q, do, p^T and ds^T
     }
-    f32_store_rows<NJ>(dk, p.sdk[2], k0, p.m, dk_acc);
-    f32_store_rows<NJ>(dv, p.sdv[2], k0, p.m, dv_acc);
+    cc_store_rows<NJ>(dk, p.sdk[2], k0, p.m, dk_acc);
+    cc_store_rows<NJ>(dv, p.sdv[2], k0, p.m, dv_acc);
 }
 
-template <int D>
-constexpr size_t dq_f32_smem_bytes() {
-    // q, do, K, V tiles; ds; lse and delta
-    return ((size_t)4 * 64 * (D + 1) + (size_t)F32_BQ * LDP + 2 * F32_BQ) * sizeof(float);
+template <typename T, int D, int BN>
+constexpr size_t dq_cc_smem_bytes() {
+    // q, do tiles of F32_BQ rows and K, V tiles of BN keys (T); ds; lse and
+    // delta
+    return (size_t)(2 * F32_BQ + 2 * BN) * cc_ldf<T, D>() * sizeof(T) +
+           ((size_t)F32_BQ * (BN + 1) + 2 * F32_BQ) * sizeof(float);
 }
 
-// dq of one tile of 64 query rows; FROM_DS reads ds^T from the workspace
-// instead of recomputing it.
-template <int D, bool FROM_DS>
-__global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(const BwdParams p) {
-    constexpr int LDF = D + 1;
+// keys of the dq kernel's streamed tile: 64 where it fits
+template <typename T, int D>
+constexpr int dq_cc_bn() { return dq_cc_smem_bytes<T, D, 64>() <= MAX_SMEM ? 64 : 32; }
+
+// dq of one tile of F32_BQ query rows, streaming key tiles of BN; FROM_DS
+// reads ds^T from the workspace instead of recomputing it.
+template <typename T, int D, int BN, bool FROM_DS>
+__global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_cc_kernel(const BwdParams p) {
+    constexpr int LDF = cc_ldf<T, D>();
     constexpr int NJ = D / 16;
-    extern __shared__ __align__(16) float smem[];
-    float* Qs = smem;
-    float* dOs = Qs + 64 * LDF;
-    float* Ks = dOs + 64 * LDF;
-    float* Vs = Ks + 64 * LDF;
-    float* dSs = Vs + 64 * LDF;
-    float* lse_s = dSs + F32_BQ * LDP;
+    constexpr int NK = BN / 16;  // key columns a thread
+    constexpr int LDS = BN + 1;  // row stride of ds
+    extern __shared__ __align__(16) unsigned char cc_smem[];
+    T* Qs = reinterpret_cast<T*>(cc_smem);
+    T* dOs = Qs + F32_BQ * LDF;
+    T* Ks = dOs + F32_BQ * LDF;
+    T* Vs = Ks + BN * LDF;
+    float* dSs = reinterpret_cast<float*>(Vs + BN * LDF);
+    float* lse_s = dSs + F32_BQ * LDS;
     float* delta_s = lse_s + F32_BQ;
 
     const int tx = threadIdx.x % 16;
@@ -972,60 +1013,64 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(const Bwd
     const int q0 = tile.t * F32_BQ;
     const int hi = tile.hi;
     const int bi = tile.bi;
-    const float* q = static_cast<const float*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-    const float* k = static_cast<const float*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-    const float* v = static_cast<const float*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-    const float* dout = static_cast<const float*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
-    float* dq = static_cast<float*>(p.dq) + bi * p.sdq[0] + hi * p.sdq[1];
+    const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+    const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+    const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+    const T* dout = static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[1];
+    T* dq = static_cast<T*>(p.dq) + bi * p.sdq[0] + hi * p.sdq[1];
     const long long row_base = ((long long)bi * p.h + hi) * p.n;
-    const float* ds_t = FROM_DS ? ds_rows<float>(p, bi, hi) : nullptr;
+    const T* ds_t = FROM_DS ? ds_rows<T>(p, bi, hi) : nullptr;
 
     if (!FROM_DS) {
-        f32_load_rows<D>(Qs, q, p.sq[2], q0, p.n);
-        f32_load_rows<D>(dOs, dout, p.sdo[2], q0, p.n);
-        load_row_stats(lse_s, delta_s, p.lse + row_base, p.delta + row_base, q0, p.n);
+        cc_load_rows<T, D, F32_BQ>(Qs, q, p.sq[2], q0, p.n);
+        cc_load_rows<T, D, F32_BQ>(dOs, dout, p.sdo[2], q0, p.n);
+        load_row_stats<F32_BQ>(lse_s, delta_s, p.lse + row_base, p.delta + row_base, q0, p.n);
     }
     float dq_acc[4][NJ];
     f32_zero<NJ>(dq_acc);
-    const int kt_end = last_k_tile(p, q0, F32_BQ, BK);
+    const int kt_end = last_k_tile(p, q0, F32_BQ, BN);
     for (int kt = 0; kt < kt_end; ++kt) {
-        const int k0 = kt * BK;
-        f32_load_rows<D>(Ks, k, p.sk[2], k0, p.m);
+        const int k0 = kt * BN;
+        cc_load_rows<T, D, BN>(Ks, k, p.sk[2], k0, p.m);
         if (FROM_DS) {
             // ds[query r][key c] from ds^T; consecutive threads read
-            // consecutive queries of one key row
-            for (int idx = threadIdx.x; idx < BK * F32_BQ; idx += F32_THREADS) {
+            // consecutive queries of one key row (queries past n read 0:
+            // the workspace holds whole tiles of the dk/dv kernel's rows)
+            for (int idx = threadIdx.x; idx < BN * F32_BQ; idx += F32_THREADS) {
                 const int c = idx / F32_BQ;
                 const int r = idx % F32_BQ;
-                dSs[r * LDP + c] =
-                    k0 + c < p.m ? ds_t[(long long)(k0 + c) * ds_ld(p.n) + q0 + r] : 0.f;
+                dSs[r * LDS + c] =
+                    k0 + c < p.m && q0 + r < p.n
+                        ? Cvt<T>::to(ds_t[(long long)(k0 + c) * ds_ld(p.n) + q0 + r])
+                        : 0.f;
             }
             __syncthreads();
         } else {
-            f32_load_rows<D>(Vs, v, p.sv[2], k0, p.m);
+            cc_load_rows<T, D, BN>(Vs, v, p.sv[2], k0, p.m);
             __syncthreads();
             // s[query][key] = q k^T and dp = do v^T
-            float s[4][4], dp[4][4];
-            f32_zero<4>(s);
-            f32_zero<4>(dp);
-            f32_mm<4>(s, Qs, LDF, 1, Ks, 1, LDF, D);
-            f32_mm<4>(dp, dOs, LDF, 1, Vs, 1, LDF, D);
+            float s[4][NK], dp[4][NK];
+            f32_zero<NK>(s);
+            f32_zero<NK>(dp);
+            cc_mm<NK>(s, Qs, LDF, 1, Ks, 1, LDF, D);
+            cc_mm<NK>(dp, dOs, LDF, 1, Vs, 1, LDF, D);
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
+                for (int j = 0; j < NK; ++j) {
                     const int r = ty + 16 * i;
                     const int c = tx + 16 * j;
-                    float pv;
+                    float pv, dsv;
                     p_ds(p, visible(p, q0 + r, k0 + c), s[i][j], dp[i][j], lse_s[r],
-                         delta_s[r], pv, dSs[r * LDP + c]);
+                         delta_s[r], pv, dsv);
+                    dSs[r * LDS + c] = round_to<T>(dsv);
                 }
             __syncthreads();
         }
-        f32_mm<NJ>(dq_acc, dSs, LDP, 1, Ks, LDF, 1, BK);  // dq += ds k
+        cc_mm<NJ>(dq_acc, dSs, LDS, 1, Ks, LDF, 1, BN);  // dq += ds k
         __syncthreads();  // the next tile overwrites K, V and ds
     }
-    f32_store_rows<NJ>(dq, p.sdq[2], q0, p.n, dq_acc);
+    cc_store_rows<NJ>(dq, p.sdq[2], q0, p.n, dq_acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -1033,12 +1078,12 @@ __global__ void __launch_bounds__(F32_THREADS) flash_bwd_dq_f32_kernel(const Bwd
 enum Pass { FUSED_PASS, DQ_PASS, DKV_PASS };
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, const BwdParams& p,
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const BwdParams& p,
                    cudaStream_t stream) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, smem, stream>>>(p);
+    kernel<<<grid, F32_THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -1089,7 +1134,7 @@ cudaError_t launch_dq_tma(const BwdParams& p, int b, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     const auto kernel = flash_bwd_dq_tma_kernel<T, D, FROM_DS>;
     constexpr size_t smem = dq_tma_smem_bytes<D, FROM_DS>();
-    static_assert(smem <= 232448, "the dq kernel's shared memory exceeds a block's 227 KB");
+    static_assert(smem <= MAX_SMEM, "the dq kernel's shared memory exceeds a block's 227 KB");
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid = persistent_grid((cdiv(p.n, DQ_ROWS) + 1) / 2 * p.h * b);
@@ -1106,32 +1151,39 @@ cudaError_t launch_16bit(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
     return launch_dq_tma<T, D, true>(p, b, s);
 }
 
-template <int D>
-cudaError_t launch_f32(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
+template <typename T, int D>
+cudaError_t launch_cc(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
+    constexpr int BQ = kv_cc_bq<T, D>();
+    constexpr int BN = dq_cc_bn<T, D>();
+    constexpr size_t kv_smem = kv_cc_smem_bytes<T, D, BQ>();
+    constexpr size_t dq_smem = dq_cc_smem_bytes<T, D, BN>();
+    static_assert(kv_smem <= MAX_SMEM, "the CUDA-core dk/dv kernel's shared memory exceeds 227 KB");
+    static_assert(dq_smem <= MAX_SMEM, "the CUDA-core dq kernel's shared memory exceeds 227 KB");
     const dim3 kv_grid = tile_grid(cdiv(p.m, BK), p.h, b);
     const dim3 q_grid = tile_grid(cdiv(p.n, F32_BQ), p.h, b);
     if (pass == DKV_PASS)
-        return launch(flash_bwd_kv_f32_kernel<D, false>, kv_grid, F32_THREADS,
-                      kv_f32_smem_bytes<D>(), p, s);
+        return launch(flash_bwd_kv_cc_kernel<T, D, BQ, false>, kv_grid, kv_smem, p, s);
     if (pass == DQ_PASS)
-        return launch(flash_bwd_dq_f32_kernel<D, false>, q_grid, F32_THREADS,
-                      dq_f32_smem_bytes<D>(), p, s);
-    cudaError_t err = launch(flash_bwd_kv_f32_kernel<D, true>, kv_grid, F32_THREADS,
-                             kv_f32_smem_bytes<D>(), p, s);
+        return launch(flash_bwd_dq_cc_kernel<T, D, BN, false>, q_grid, dq_smem, p, s);
+    cudaError_t err = launch(flash_bwd_kv_cc_kernel<T, D, BQ, true>, kv_grid, kv_smem, p, s);
     if (err != cudaSuccess) return err;
-    return launch(flash_bwd_dq_f32_kernel<D, true>, q_grid, F32_THREADS,
-                  dq_f32_smem_bytes<D>(), p, s);
+    return launch(flash_bwd_dq_cc_kernel<T, D, BN, true>, q_grid, dq_smem, p, s);
 }
 
+// d = 64 and 128: the wgmma kernels for bf16 / fp16, the CUDA-core kernels
+// for f32; d = 192 and 256: the CUDA-core kernels for every type.
 template <int D>
 cudaError_t launch_d(const BwdParams& p, Pass pass, int dtype, int b, cudaStream_t s) {
+    constexpr bool WGMMA = D <= 128;
     switch (dtype) {
         case 0:
-            return launch_f32<D>(p, pass, b, s);
+            return launch_cc<float, D>(p, pass, b, s);
         case 1:
-            return launch_16bit<__nv_bfloat16, D>(p, pass, b, s);
+            if constexpr (WGMMA) return launch_16bit<__nv_bfloat16, D>(p, pass, b, s);
+            else return launch_cc<__nv_bfloat16, D>(p, pass, b, s);
         case 2:
-            return launch_16bit<__half, D>(p, pass, b, s);
+            if constexpr (WGMMA) return launch_16bit<__half, D>(p, pass, b, s);
+            else return launch_cc<__half, D>(p, pass, b, s);
         default:
             return cudaErrorInvalidValue;
     }
@@ -1170,6 +1222,8 @@ int run(Pass pass, const void* q, const void* k, const void* v, const void* dout
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (d == 64) return (int)launch_d<64>(p, pass, dtype, b, s);
     if (d == 128) return (int)launch_d<128>(p, pass, dtype, b, s);
+    if (d == 192) return (int)launch_d<192>(p, pass, dtype, b, s);
+    if (d == 256) return (int)launch_d<256>(p, pass, dtype, b, s);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -34,7 +34,7 @@
 //   128 rows deep.
 //
 // Two paths:
-// - bf16 / fp16 (flash_fwd_tma_kernel): warpgroup wgmma on shared memory
+// - bf16 / fp16 at d = 64 and 128 (flash_fwd_tma_kernel): warpgroup wgmma on shared memory
 //   that TMA fills. A producer warpgroup (one thread issuing the copies,
 //   40 registers) and two consumer warpgroups (64 query rows each, 232
 //   registers, moved over by setmaxnreg) share a ring of K/V tiles tracked
@@ -45,9 +45,13 @@
 //   query tiles whose causal work adds up to the same (TilePairs), and the
 //   producer copies the next tile's q and K/V while the consumers finish
 //   this one, so the start and end of a tile overlap other work.
-// - f32 (flash_fwd_f32_kernel): f32 FMAs on the CUDA cores, each thread on
-//   a 4x4 register tile of scores (float4 shared-memory reads, 2 loads per
-//   16 FMAs), so an f32 call keeps full f32 products.
+// - f32, and every type at d = 192 and 256 (flash_fwd_cc_kernel): f32 FMAs
+//   on the CUDA cores, each thread on a 4x4 register tile of scores (4-wide
+//   shared-memory reads, 2 loads per 16 FMAs), so an f32 call keeps full
+//   f32 products. 16-bit operands are staged as 16-bit and widened at use:
+//   at d = 256 the f32 layout takes 222,208 of 232,448 bytes, the 16-bit
+//   one 119,808. This path is the simple first kernel for the wide heads;
+//   it runs at CUDA-core rates, far below the tensor cores'.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_fwd.so flash_fwd.cu
@@ -374,30 +378,37 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMAs on the CUDA cores.
+// The CUDA-core kernel: f32 at every head dim, and bf16 / fp16 at d = 192 and
+// 256, where the wgmma kernel's q, K and V rings would not fit in shared
+// memory (it is instantiated at d = 64 and 128). Operands are staged in
+// shared memory as T (16-bit ones in half the bytes of f32) and widened to
+// f32 at use, so the products are the exact products of the native operands
+// and the sums f32, the contract of the wgmma kernel; p is rounded to T
+// before p @ v, as that kernel packs it.
 
 constexpr int F32_BM = 64;  // query rows per block
 constexpr int F32_BN = 64;  // keys per K/V tile
 constexpr int F32_THREADS = 256;  // 16 x 16: each thread owns 4 rows x 4 keys
-constexpr int LDT = 68;           // row stride of the transposed tiles (floats)
+constexpr int LDT = 68;           // row stride of the transposed tiles (elements)
 
-template <int D>
-constexpr size_t f32_smem_bytes() {
-    // Qt [D][LDT], Kt [D][LDT], Vs [F32_BN][D], Pt [F32_BN][LDT]
-    return ((size_t)2 * D * LDT + (size_t)F32_BN * D + (size_t)F32_BN * LDT) * sizeof(float);
+template <typename T, int D>
+constexpr size_t cc_smem_bytes() {
+    // Qt [D][LDT], Kt [D][LDT] and Vs [F32_BN][D] of T; Pt [F32_BN][LDT] f32
+    return ((size_t)2 * D * LDT + (size_t)F32_BN * D) * sizeof(T) +
+           (size_t)F32_BN * LDT * sizeof(float);
 }
 
 // Stage a [F32_BM, D] tile of x into shared memory, transposed
 // (dst[c * LDT + r]) or row-major (dst[r * D + c]). Rows at or past `limit`
 // are zero.
-template <int D, bool TRANSPOSE>
-__device__ __forceinline__ void f32_load_tile(float* dst, const float* x, long long row_stride,
-                                              int row0, int limit) {
+template <typename T, int D, bool TRANSPOSE>
+__device__ __forceinline__ void cc_load_tile(T* dst, const T* x, long long row_stride, int row0,
+                                             int limit) {
     for (int idx = threadIdx.x; idx < F32_BM * D; idx += F32_THREADS) {
         const int r = idx / D;
         const int c = idx % D;
         const int row = row0 + r;
-        const float val = row < limit ? x[(long long)row * row_stride + c] : 0.f;
+        const T val = row < limit ? x[(long long)row * row_stride + c] : Cvt<T>::from(0.f);
         if (TRANSPOSE) {
             dst[c * LDT + r] = val;
         } else {
@@ -406,13 +417,13 @@ __device__ __forceinline__ void f32_load_tile(float* dst, const float* x, long l
     }
 }
 
-template <int D>
-__global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdParams p) {
-    extern __shared__ __align__(16) float smem[];
-    float* Qt = smem;
-    float* Kt = Qt + D * LDT;
-    float* Vs = Kt + D * LDT;
-    float* Pt = Vs + F32_BN * D;
+template <typename T, int D>
+__global__ void __launch_bounds__(F32_THREADS) flash_fwd_cc_kernel(const FwdParams p) {
+    extern __shared__ __align__(16) unsigned char cc_smem[];
+    T* Qt = reinterpret_cast<T*>(cc_smem);
+    T* Kt = Qt + D * LDT;
+    T* Vs = Kt + D * LDT;
+    float* Pt = reinterpret_cast<float*>(Vs + F32_BN * D);
 
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
@@ -421,12 +432,12 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
     const int hi = tile.hi;
     const int bi = tile.bi;
 
-    const float* q = static_cast<const float*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
-    const float* k = static_cast<const float*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
-    const float* v = static_cast<const float*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
-    float* o = static_cast<float*>(p.o) + bi * p.so[0] + hi * p.so[1];
+    const T* q = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[1];
+    const T* k = static_cast<const T*>(p.k) + bi * p.sk[0] + hi * p.sk[1];
+    const T* v = static_cast<const T*>(p.v) + bi * p.sv[0] + hi * p.sv[1];
+    T* o = static_cast<T*>(p.o) + bi * p.so[0] + hi * p.so[1];
 
-    f32_load_tile<D, true>(Qt, q, p.sq[2], q0, p.n);
+    cc_load_tile<T, D, true>(Qt, q, p.sq[2], q0, p.n);
 
     constexpr int OC = D / 16;  // output columns per thread
     float acc[4][OC];
@@ -442,8 +453,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
     const int kt_end = kv_tiles<F32_BM, F32_BN>(p, q0);
     for (int kt = 0; kt < kt_end; ++kt) {
         const int kv0 = kt * F32_BN;
-        f32_load_tile<D, true>(Kt, k, p.sk[2], kv0, p.m);
-        f32_load_tile<D, false>(Vs, v, p.sv[2], kv0, p.m);
+        cc_load_tile<T, D, true>(Kt, k, p.sk[2], kv0, p.m);
+        cc_load_tile<T, D, false>(Vs, v, p.sv[2], kv0, p.m);
         __syncthreads();
 
         // s = q @ k^T for this thread's rows ty*4+i and keys tx*4+j
@@ -454,8 +465,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
             for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
         for (int kk = 0; kk < D; ++kk) {
-            const float4 a = *reinterpret_cast<const float4*>(&Qt[kk * LDT + ty * 4]);
-            const float4 b = *reinterpret_cast<const float4*>(&Kt[kk * LDT + tx * 4]);
+            const float4 a = load4(&Qt[kk * LDT + ty * 4]);
+            const float4 b = load4(&Kt[kk * LDT + tx * 4]);
             const float av[4] = {a.x, a.y, a.z, a.w};
             const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
@@ -493,10 +504,12 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
 #pragma unroll
             for (int j = 0; j < OC; ++j) acc[i][j] *= alpha;
         }
+        // p rounded to v's type for p @ v; l keeps the unrounded sum
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             *reinterpret_cast<float4*>(&Pt[(tx * 4 + j) * LDT + ty * 4]) =
-                make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+                make_float4(round_to<T>(s[0][j]), round_to<T>(s[1][j]), round_to<T>(s[2][j]),
+                            round_to<T>(s[3][j]));
         }
         __syncthreads();
 
@@ -507,7 +520,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
             const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
 #pragma unroll
             for (int jj = 0; jj < D / 64; ++jj) {
-                const float4 vv = *reinterpret_cast<const float4*>(&Vs[c * D + jj * 64 + tx * 4]);
+                const float4 vv = load4(&Vs[c * D + jj * 64 + tx * 4]);
                 const float vw[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
                 for (int i = 0; i < 4; ++i)
@@ -524,11 +537,12 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
         const int row = q0 + ty * 4 + i;
         if (row >= p.n) continue;
         const float l_safe = fmaxf(l_run[i], 1e-30f);
-        float* orow = o + (long long)row * p.so[2];
+        T* orow = o + (long long)row * p.so[2];
 #pragma unroll
         for (int jj = 0; jj < D / 64; ++jj)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) orow[jj * 64 + tx * 4 + j] = acc[i][jj * 4 + j] / l_safe;
+            for (int j = 0; j < 4; ++j)
+                orow[jj * 64 + tx * 4 + j] = Cvt<T>::from(acc[i][jj * 4 + j] / l_safe);
         if (tx == 0)
             p.lse[((long long)bi * p.h + hi) * p.n + row] = m_run[i] + logf(l_safe);
     }
@@ -536,13 +550,15 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const FwdPar
 
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, const FwdParams& p, int b,
-                   cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_cc(const FwdParams& p, int b, cudaStream_t stream) {
+    constexpr size_t smem = cc_smem_bytes<T, D>();
+    static_assert(smem <= MAX_SMEM, "the CUDA-core forward's shared memory exceeds 227 KB");
+    const auto kernel = flash_fwd_cc_kernel<T, D>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<tile_grid(cdiv(p.n, F32_BM), p.h, b), threads, smem, stream>>>(p);
+    kernel<<<tile_grid(cdiv(p.n, F32_BM), p.h, b), F32_THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -567,15 +583,20 @@ cudaError_t launch_tma(const FwdParams& p, int b, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// d = 64 and 128: the wgmma kernel for bf16 / fp16, the CUDA-core kernel for
+// f32; d = 192 and 256: the CUDA-core kernel for every type.
 template <int D>
 cudaError_t launch_d(const FwdParams& p, int dtype, int b, cudaStream_t stream) {
+    constexpr bool WGMMA = D <= 128;
     switch (dtype) {
         case 0:
-            return launch(flash_fwd_f32_kernel<D>, F32_THREADS, f32_smem_bytes<D>(), p, b, stream);
+            return launch_cc<float, D>(p, b, stream);
         case 1:
-            return launch_tma<__nv_bfloat16, D>(p, b, stream);
+            if constexpr (WGMMA) return launch_tma<__nv_bfloat16, D>(p, b, stream);
+            else return launch_cc<__nv_bfloat16, D>(p, b, stream);
         case 2:
-            return launch_tma<__half, D>(p, b, stream);
+            if constexpr (WGMMA) return launch_tma<__half, D>(p, b, stream);
+            else return launch_cc<__half, D>(p, b, stream);
         default:
             return cudaErrorInvalidValue;
     }
@@ -602,6 +623,8 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse, int dty
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (d == 64) return (int)launch_d<64>(p, dtype, b, s);
     if (d == 128) return (int)launch_d<128>(p, dtype, b, s);
+    if (d == 192) return (int)launch_d<192>(p, dtype, b, s);
+    if (d == 256) return (int)launch_d<256>(p, dtype, b, s);
     return (int)cudaErrorInvalidValue;
 }
 

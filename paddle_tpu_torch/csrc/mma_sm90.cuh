@@ -27,6 +27,51 @@ template <> struct MmaOp<__half> {
     }
 };
 
+// One value of T to f32 and back (round to nearest even). The CUDA-core
+// kernels stage their operands as T and widen them at use: a product of two
+// bf16 or fp16 values is exact in f32, so this is "native products, f32
+// sums", the contract of the tensor-core kernels.
+template <typename T> struct Cvt;
+template <> struct Cvt<float> {
+    __device__ __forceinline__ static float to(float x) { return x; }
+    __device__ __forceinline__ static float from(float x) { return x; }
+};
+template <> struct Cvt<__nv_bfloat16> {
+    __device__ __forceinline__ static float to(__nv_bfloat16 x) { return __bfloat162float(x); }
+    __device__ __forceinline__ static __nv_bfloat16 from(float x) { return __float2bfloat16_rn(x); }
+};
+template <> struct Cvt<__half> {
+    __device__ __forceinline__ static float to(__half x) { return __half2float(x); }
+    __device__ __forceinline__ static __half from(float x) { return __float2half_rn(x); }
+};
+
+// x rounded to T, as f32 (p and ds before the products they feed)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+    return Cvt<T>::to(Cvt<T>::from(x));
+}
+
+// Four consecutive values of T (16-byte aligned for f32, 8-byte for the
+// 16-bit types) widened to f32.
+__device__ __forceinline__ float4 load4(const float* ptr) {
+    return *reinterpret_cast<const float4*>(ptr);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* ptr) {
+    const uint2 u = *reinterpret_cast<const uint2*>(ptr);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const __half* ptr) {
+    const uint2 u = *reinterpret_cast<const uint2*>(ptr);
+    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// A block's shared memory at most (227 KB)
+constexpr size_t MAX_SMEM = 232448;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }

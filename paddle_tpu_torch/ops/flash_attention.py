@@ -46,7 +46,7 @@ from .blockwise_attention import blockwise_attention_bnhd
 _NEG_INF = -1e30
 # the kernel's template instantiations (csrc/flash_fwd.cu)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 
 # The JAX package's backward runs one fused kernel when one 512 x 512 block
 # covers the score matrix (`_bwd_impl` at the default blocks, _fit_block),

@@ -1,6 +1,8 @@
 """GPT decoder-only LM (counterpart of paddle_tpu/text/models/gpt.py): the
-no-cache forward, cached greedy or sampled `generate()`, and the training
-contract (`loss()`, the fused-loss forward, `flops_per_token`).
+no-cache forward, cached greedy or sampled `generate()`, the serving caches
+(`GPTSlotCache`, `GPTPagedCache`) the continuous-batching engines drive, and
+the training contract (`loss()`, the fused-loss forward,
+`flops_per_token`).
 
 Causal attention goes through nn.functional.scaled_dot_product_attention,
 which sends a sequence of 512 tokens or more to the flash kernels.
@@ -18,8 +20,8 @@ from ...framework.dtype import to_torch_dtype
 from ... import nn as pnn
 from ...nn import functional as F
 
-__all__ = ['GPTConfig', 'GPTStaticCache', 'GPTModel', 'GPTForCausalLM',
-           'load_paddle_tpu_state']
+__all__ = ['GPTConfig', 'GPTStaticCache', 'GPTSlotCache', 'GPTPagedCache',
+           'GPTModel', 'GPTForCausalLM', 'load_paddle_tpu_state']
 
 
 class GPTConfig:
@@ -94,6 +96,162 @@ class GPTStaticCache:
                               fresh=True)
 
 
+def _on_device(x, device):
+    """Per-row lengths or block tables as an int64 tensor on `device` (a
+    host array is copied over)."""
+    return torch.as_tensor(x, device=device).long()
+
+
+def _check_capacity(kind, lengths, n, capacity):
+    """Overflow check for lengths given as a host array. Lengths given as
+    a tensor are not read back: the serving engine hands tensors and
+    guards capacity at admission, as the JAX package's jitted path does
+    (its frozen rows may run past the capacity: their writes are clipped
+    to the slot or sent to the scratch page)."""
+    if isinstance(lengths, torch.Tensor):
+        return
+    top = int(np.max(np.asarray(lengths)))
+    if top + n > capacity:
+        raise ValueError('%s cache overflow: max row length %d + %d new '
+                         'tokens > capacity %d' % (kind, top, n, capacity))
+
+
+def _validity_mask(lengths, n, width):
+    """The additive validity mask [rows, 1, n, width] of a forward over
+    slot or paged caches: query i of row s sits at absolute position
+    lengths[s] + i and sees logical positions <= it (0), the rest at -1e9
+    (exp underflows to exact 0 in the f32 softmax)."""
+    qpos = lengths[:, None] + torch.arange(n, device=lengths.device)
+    kpos = torch.arange(width, device=lengths.device)
+    allow = qpos[:, :, None] >= kpos[None, None, :]
+    return torch.where(allow, 0.0, -1e9)[:, None].float()
+
+
+class SharedIndex:
+    """The index tensors of one forward over slot or paged caches: the
+    rows each layer writes this step's K/V to, the paged gather view and
+    the validity mask. They depend only on the lengths and block tables,
+    which every layer of a forward shares, so handed to every layer's
+    cache of one forward (the serving engines do so) they are built once
+    for all of them; a cache given none builds its own at each call."""
+
+    def __init__(self):
+        self._built = {}
+
+    def get(self, key, build):
+        out = self._built.get(key)
+        if out is None:
+            out = self._built[key] = build()
+        return out
+
+
+class GPTSlotCache:
+    """Slot-batched K/V cache for continuous batching (the serving engine):
+    per layer, [num_slots, max_len] rows of K and V and a per-slot valid
+    length. Each slot advances on its own, so a step takes the same shapes
+    whatever requests occupy which slots.
+
+    The buffers are stored [num_slots, H, max_len, Dh], so the masked
+    attention reads each slot's keys as a view; `k` and `v` give them in
+    the JAX package's [num_slots, max_len, H, Dh] layout (views, no copy).
+    Construct with buffers in the stored layout, or with `empty`.
+
+    Invariants (the engine owns them, as in the JAX package):
+      - attention writes this step's K/V at each slot's length in place
+        but does not advance `lengths`; the engine advances them after the
+        whole forward (padded prefill tails by the valid count);
+      - rows at or past a slot's length are garbage and never attended:
+        the validity mask admits positions <= the query's own;
+      - capacity is guarded at admission; writes are clipped to the
+        buffer, so a frozen slot's garbage write stays inside it.
+    `lengths` is an int tensor [num_slots] (the serving engine hands one on
+    the card per step) or a host array, which is checked for overflow;
+    `index` an optional SharedIndex of the forward the cache serves.
+    """
+
+    def __init__(self, k_buf, v_buf, lengths, index=None):
+        self.kt = k_buf
+        self.vt = v_buf
+        self.lengths = lengths
+        self.index = index
+
+    @property
+    def k(self):
+        return self.kt.transpose(1, 2)
+
+    @property
+    def v(self):
+        return self.vt.transpose(1, 2)
+
+    @staticmethod
+    def empty(num_slots, max_len, num_heads, head_dim, dtype='float32',
+              device='cuda'):
+        dev = device_mod.resolve(device)
+        shape = (num_slots, num_heads, max_len, head_dim)
+        dt = to_torch_dtype(dtype)
+        return GPTSlotCache(torch.zeros(shape, dtype=dt, device=dev),
+                            torch.zeros(shape, dtype=dt, device=dev),
+                            torch.zeros(num_slots, dtype=torch.long,
+                                        device=dev))
+
+
+class GPTPagedCache:
+    """Page-granular K/V cache for the paged serving engine: per layer, a
+    pool of num_pages pages of page_size rows, a block table [B,
+    max_blocks] of page ids per sequence and per-sequence valid lengths
+    [B]. Logical row j of sequence s lives in page
+    block_tables[s, j // page_size] at row j % page_size, so sequences
+    hold only the pages they need and may share leading pages (prefix
+    sharing).
+
+    The pools are stored [num_pages, H, page_size, Dh]; `k` and `v` give
+    the JAX package's [num_pages, page_size, H, Dh] layout as views. Each
+    forward gathers every sequence's logical rows straight into the [B, H,
+    L, Dh] layout the attention reads.
+
+    Invariants (the engine and PagedScheduler own them):
+      - block-table entry 0 is the scratch page, never handed to a real
+        block: writes from frozen rows land there or on the row's own
+        dead rows, both unreachable; shared pages are full, immutable
+        blocks below every writer's length;
+      - attention writes at each row's length without advancing
+        `lengths`; rows at or past a length are never attended;
+      - capacity is guarded at admission; a write past a row's logical
+        capacity lands on the scratch page.
+    `block_tables` and `lengths` are int tensors or host arrays (host
+    lengths are checked for overflow); `index` an optional SharedIndex of
+    the forward the cache serves.
+    """
+
+    def __init__(self, k_pool, v_pool, block_tables, lengths, index=None):
+        self.kt = k_pool
+        self.vt = v_pool
+        self.block_tables = block_tables
+        self.lengths = lengths
+        self.index = index
+
+    @property
+    def k(self):
+        return self.kt.transpose(1, 2)
+
+    @property
+    def v(self):
+        return self.vt.transpose(1, 2)
+
+    @staticmethod
+    def empty(num_pages, page_size, max_blocks, batch, num_heads, head_dim,
+              dtype='float32', device='cuda'):
+        dev = device_mod.resolve(device)
+        shape = (num_pages, num_heads, page_size, head_dim)
+        dt = to_torch_dtype(dtype)
+        return GPTPagedCache(torch.zeros(shape, dtype=dt, device=dev),
+                             torch.zeros(shape, dtype=dt, device=dev),
+                             torch.zeros((batch, max_blocks),
+                                         dtype=torch.long, device=dev),
+                             torch.zeros(batch, dtype=torch.long,
+                                         device=dev))
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config, device='cuda', generator=None):
         super().__init__()
@@ -116,15 +274,34 @@ class GPTAttention(nn.Module):
                 dropout_p=self.dropout if self.training else 0.0,
                 training=self.training)
             return self.out_proj(out.reshape(b, n, self.hidden_size))
-        if not isinstance(cache, GPTStaticCache):
-            raise TypeError('the port supports GPTStaticCache only, got %s'
-                            % type(cache).__name__)
+        if isinstance(cache, tuple):
+            # the growing cache: past (k, v) [B, t, H, Dh] in, the
+            # concatenated (k, v) out; bottom-right causal attention
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True,
+                dropout_p=self.dropout if self.training else 0.0,
+                training=self.training)
+            return self.out_proj(out.reshape(b, n, self.hidden_size)), (k, v)
         if self.training and torch.is_grad_enabled():
             # the buffer writes are in place: training through them would
             # lose the k/v gradients
             raise RuntimeError(
-                'GPTStaticCache is an inference-only decode path — '
-                'call model.eval() / torch.no_grad() / generate()')
+                '%s is an inference-only decode path — call model.eval() / '
+                'torch.no_grad() / generate()' % type(cache).__name__)
+        if isinstance(cache, GPTPagedCache):
+            out = self._paged(q, k, v, cache)
+        elif isinstance(cache, GPTSlotCache):
+            out = self._slot(q, k, v, cache)
+        elif isinstance(cache, GPTStaticCache):
+            out, cache = self._static(q, k, v, cache)
+        else:
+            raise TypeError('unknown cache type %s' % type(cache).__name__)
+        return self.out_proj(out.reshape(b, n, self.hidden_size)), cache
+
+    def _static(self, q, k, v, cache):
+        n = q.shape[1]
         max_len = cache.k.shape[1]
         t = cache.length
         if t + n > max_len:
@@ -138,20 +315,80 @@ class GPTAttention(nn.Module):
             # prefill on an untouched cache: plain causal attention over the
             # chunk itself (flash-eligible), not masked attention over the
             # max_len - n empty slots
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                 dropout_p=0.0)
-        else:
-            # validity mask over the fixed buffer: query row i (absolute
-            # position t + i) sees buffer slots j <= t + i
-            qpos = t + torch.arange(n, device=x.device)
-            kpos = torch.arange(max_len, device=x.device)
-            mask = torch.zeros((n, max_len), dtype=torch.float32,
-                               device=x.device)
-            mask.masked_fill_(qpos[:, None] < kpos[None, :], -1e9)
-            out = F.scaled_dot_product_attention(
-                q, cache.k, cache.v, attn_mask=mask[None, None],
-                is_causal=False, dropout_p=0.0)
-        return self.out_proj(out.reshape(b, n, self.hidden_size)), new_cache
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  dropout_p=0.0), new_cache
+        # validity mask over the fixed buffer: query row i (absolute
+        # position t + i) sees buffer slots j <= t + i
+        qpos = t + torch.arange(n, device=q.device)
+        kpos = torch.arange(max_len, device=q.device)
+        mask = torch.zeros((n, max_len), dtype=torch.float32, device=q.device)
+        mask.masked_fill_(qpos[:, None] < kpos[None, :], -1e9)
+        out = F.scaled_dot_product_attention(
+            q, cache.k, cache.v, attn_mask=mask[None, None], is_causal=False,
+            dropout_p=0.0)
+        return out, new_cache
+
+    def _slot(self, q, k, v, cache):
+        """Write at each slot's length, then masked attention over each
+        slot's whole buffer (read as a view of the [S, H, L, Dh] store)."""
+        s, n = q.shape[0], q.shape[1]
+        max_len = cache.kt.shape[2]
+        dev = q.device
+
+        def build():
+            _check_capacity('slot', cache.lengths, n, max_len)
+            t = _on_device(cache.lengths, dev)
+            pos = (t[:, None] + torch.arange(n, device=dev)).clamp_(
+                max=max_len - 1)                                   # [S, n]
+            rows = torch.arange(s, device=dev)[:, None, None]
+            heads = torch.arange(self.num_heads, device=dev)[None, None, :]
+            return ((rows, heads, pos[:, :, None]),
+                    _validity_mask(t, n, max_len))               # [S,1,n,L]
+
+        idx, mask = (cache.index or SharedIndex()).get(
+            ('slot', s, n, max_len), build)
+        cache.kt[idx] = k.to(cache.kt.dtype)
+        cache.vt[idx] = v.to(cache.vt.dtype)
+        return F.scaled_dot_product_attention(
+            q, cache.k, cache.v, attn_mask=mask, is_causal=False,
+            dropout_p=0.0)
+
+    def _paged(self, q, k, v, cache):
+        """One scatter of this step's K/V through the block tables
+        (positions past a row's logical capacity go to the scratch page),
+        then each row's logical view gathered into [B, H, L, Dh] and the
+        slot path's masked attention."""
+        b, n = q.shape[0], q.shape[1]
+        page = cache.kt.shape[2]
+        dev = q.device
+
+        def build():
+            bt = _on_device(cache.block_tables, dev)              # [B, nb]
+            cap = bt.shape[1] * page             # logical capacity of a row
+            _check_capacity('paged', cache.lengths, n, cap)
+            t = _on_device(cache.lengths, dev)
+            heads = torch.arange(self.num_heads, device=dev)
+            pos = t[:, None] + torch.arange(n, device=dev)        # [B, n]
+            # a position past the row's capacity (a frozen row, or the
+            # tail of a verify pass) writes to the scratch page
+            pages = torch.gather(bt, 1, pos.clamp(max=cap - 1) // page)
+            pages.masked_fill_(pos >= cap, 0)
+            write = (pages[:, :, None], heads[None, None, :],
+                     (pos % page)[:, :, None])
+            logical = torch.arange(cap, device=dev)
+            view = (bt[:, logical // page][:, None, :],
+                    heads[None, :, None], (logical % page)[None, None, :])
+            return write, view, _validity_mask(t, n, cap)        # [B,1,n,L]
+
+        write, view, mask = (cache.index or SharedIndex()).get(
+            ('paged', b, n, page), build)
+        cache.kt[write] = k.to(cache.kt.dtype)
+        cache.vt[write] = v.to(cache.vt.dtype)
+        kg = cache.kt[view]                                    # [B, H, L, Dh]
+        vg = cache.vt[view]
+        return F.scaled_dot_product_attention(
+            q, kg.transpose(1, 2), vg.transpose(1, 2), attn_mask=mask,
+            is_causal=False, dropout_p=0.0)
 
 
 class GPTMLP(nn.Module):
@@ -193,8 +430,12 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
-    def __init__(self, config, device='cuda', generator=None):
+    """The decoder stack. `GPTModel(config)` or `GPTModel(**config_kwargs)`,
+    as in the JAX package."""
+
+    def __init__(self, config=None, device='cuda', generator=None, **kwargs):
         super().__init__()
+        config = config or GPTConfig(**kwargs)
         if config.num_experts:
             raise NotImplementedError(
                 'MoE blocks (num_experts > 0) are not ported yet; they come '
@@ -215,12 +456,35 @@ class GPTModel(nn.Module):
                                 for _ in range(config.num_layers)])
         self.ln_f = _norm(config, device)
 
-    def forward(self, input_ids, caches=None):
+    def forward(self, input_ids, position_ids=None, caches=None):
+        """Final hidden states, or with caches (hidden, new caches).
+        Positions default as in the JAX package: each row continues from
+        its own length for slot and paged caches, from the cached length
+        for the static cache (and the past keys' length for the (k, v)
+        tuple cache, where the JAX package needs them passed), else
+        0..n-1."""
         n = input_ids.shape[1]
-        # decode: positions continue from the cached length
-        start = caches[0].length if caches is not None else 0
-        position_ids = torch.arange(start, start + n,
-                                    device=input_ids.device)[None, :]
+        dev = input_ids.device
+        if position_ids is None:
+            c0 = caches[0] if caches is not None else None
+            if isinstance(c0, (GPTSlotCache, GPTPagedCache)):
+                # clamped: a frozen row's positions may run past the table
+                # (its rows are garbage the mask never admits), where the
+                # JAX package's gather clamps them
+                position_ids = (_on_device(c0.lengths, dev)[:, None] +
+                                torch.arange(n, device=dev)[None, :]).clamp_(
+                    max=self.config.max_position_embeddings - 1)
+            else:
+                if isinstance(c0, GPTStaticCache):
+                    start = c0.length
+                elif isinstance(c0, tuple):
+                    start = c0[0].shape[1]
+                else:
+                    start = 0
+                position_ids = torch.arange(start, start + n,
+                                            device=dev)[None, :]
+        else:
+            position_ids = torch.as_tensor(position_ids, device=dev).long()
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         if caches is not None:
             new_caches = []
@@ -235,12 +499,14 @@ class GPTModel(nn.Module):
 
 class GPTForCausalLM(nn.Module):
     """GPT with a language-model head, tied to the token embedding unless
-    config.tie_word_embeddings is False. Weights are drawn from a CPU
-    generator seeded with `seed` and moved to `device`, so one seed gives
-    one model on every device."""
+    config.tie_word_embeddings is False. `GPTForCausalLM(config)` or
+    `GPTForCausalLM(**config_kwargs)`, as in the JAX package. Weights are
+    drawn from a CPU generator seeded with `seed` and moved to `device`, so
+    one seed gives one model on every device."""
 
-    def __init__(self, config, device='cuda', seed=0):
+    def __init__(self, config=None, device='cuda', seed=0, **kwargs):
         super().__init__()
+        config = config or GPTConfig(**kwargs)
         dev = device_mod.resolve(device)
         self.config = config
         gen = random_mod.seed(seed)
@@ -254,14 +520,15 @@ class GPTForCausalLM(nn.Module):
             return F.linear(hidden, self.gpt.wte.weight.t())
         return self.lm_head(hidden)
 
-    def forward(self, input_ids, caches=None):
+    def forward(self, input_ids, position_ids=None, caches=None):
         """Logits, or with caches (logits, new caches). In training with
         config.fused_loss the no-cache forward returns the final hidden
         state instead: loss() then fuses the head matmul with the CE."""
         if caches is not None:
-            hidden, new_caches = self.gpt(input_ids, caches=caches)
+            hidden, new_caches = self.gpt(input_ids, position_ids,
+                                          caches=caches)
             return self._logits(hidden), new_caches
-        hidden = self.gpt(input_ids)
+        hidden = self.gpt(input_ids, position_ids)
         if self.config.fused_loss and self.training:
             return hidden
         return self._logits(hidden)
@@ -301,14 +568,15 @@ class GPTForCausalLM(nn.Module):
         per step. Greedy by default; do_sample=True draws from
         softmax(logits / temperature) restricted to top_k (0 = the whole
         vocabulary), from a torch.Generator seeded with `seed`. Returns the
-        prompt followed by the new tokens, [B, n0 + max_new_tokens]."""
+        prompt followed by the new tokens, [B, n0 + max_new_tokens], int32
+        as in the JAX package."""
         was_training = self.training
         self.eval()
         try:
             dev = self.gpt.wte.weight.device
             ids = torch.as_tensor(input_ids, device=dev).long()
             if max_new_tokens <= 0:
-                return ids
+                return ids.int()
             b, n0 = ids.shape
             max_len = n0 + max_new_tokens
             if max_len > self.config.max_position_embeddings:
@@ -340,7 +608,7 @@ class GPTForCausalLM(nn.Module):
             for _ in range(max_new_tokens - 1):
                 hidden, caches = self.gpt(out[-1], caches=caches)
                 out.append(pick(hidden)[:, None])
-            return torch.cat(out, dim=1)
+            return torch.cat(out, dim=1).int()
         finally:
             if was_training:
                 self.train()

@@ -155,12 +155,23 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         'm.startswith("jax.") or m == "paddle_tpu" or '
         'm.startswith("paddle_tpu."))\n'
         'assert not bad, bad\n'
-        'print("ok")\n')
+        'print(" ".join(sorted(m for m in sys.modules '
+        'if m.startswith("paddle_tpu_torch."))))\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == 'ok'
+    # the walk reached the serving and monitor modules of slice 4
+    imported = set(res.stdout.split())
+    for mod in SLICE4_MODULES:
+        assert 'paddle_tpu_torch.' + mod in imported, mod
+
+
+SLICE4_MODULES = ('serving', 'serving.engine', 'serving.paged_engine',
+                  'serving.kv_cache', 'serving.scheduler', 'serving.metrics',
+                  'monitor', 'monitor.registry', 'monitor.tracing',
+                  'monitor.events', 'monitor.telemetry', 'monitor.perf',
+                  'monitor.perf.timeline')
 
 
 def _port_files():
@@ -187,4 +198,75 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
                 if top in ('jax', 'jaxlib', 'paddle_tpu'):
                     offenders.append('%s: %s' % (path, name))
     assert len(_port_files()) > 10
+    scanned = {os.path.relpath(f, REPO) for f in _port_files()}
+    for mod in SLICE4_MODULES:
+        path = os.path.join('paddle_tpu_torch', *mod.split('.'))
+        assert path + '.py' in scanned or \
+            os.path.join(path, '__init__.py') in scanned, mod
     assert not offenders, offenders
+
+
+# ---- the JAX package's signatures ---------------------------------------
+
+
+def test_explicit_position_ids_match_jax(pair):
+    jm, tm, _ = pair
+    ids = _ids(2, 12, seed=6)
+    pos = np.array([np.arange(7, 19), np.arange(30, 42)])
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids), torch.from_numpy(pos)).numpy()
+    want = np.asarray(jm(paddle.to_tensor(ids),
+                         paddle.to_tensor(pos)).numpy())
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    # positions change the logits
+    with torch.no_grad():
+        plain = tm(torch.from_numpy(ids)).numpy()
+    assert not np.allclose(got, plain)
+
+
+def test_tuple_cache_matches_jax(pair):
+    """The growing (k, v) cache: a 9-token prefill from an empty past, then
+    3 more tokens, with explicit positions (which the JAX package needs
+    here); each returns the concatenated (k, v)."""
+    jm, tm, _ = pair
+    ids = _ids(2, 12, seed=7)
+    c = SMALL['hidden_size'] // SMALL['num_heads']
+    empty = np.zeros((2, 0, SMALL['num_heads'], c), np.float32)
+    jc = [(paddle.to_tensor(empty), paddle.to_tensor(empty))
+          for _ in range(SMALL['num_layers'])]
+    tc = [(torch.from_numpy(empty), torch.from_numpy(empty))
+          for _ in range(SMALL['num_layers'])]
+    for lo, hi in ((0, 9), (9, 12)):
+        pos = np.arange(lo, hi)[None].repeat(2, 0)
+        j_logits, jc = jm(paddle.to_tensor(ids[:, lo:hi]),
+                          paddle.to_tensor(pos), caches=jc)
+        with torch.no_grad():
+            t_logits, tc = tm(torch.from_numpy(ids[:, lo:hi]),
+                              torch.from_numpy(pos), caches=tc)
+        np.testing.assert_allclose(t_logits.numpy(),
+                                   np.asarray(j_logits.numpy()),
+                                   rtol=1e-4, atol=1e-4)
+        for (tk, tv), (jk, jv) in zip(tc, jc):
+            assert tuple(tk.shape) == (2, hi, SMALL['num_heads'], c)
+            np.testing.assert_allclose(tk.numpy(), np.asarray(jk.numpy()),
+                                       rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(tv.numpy(), np.asarray(jv.numpy()),
+                                       rtol=1e-4, atol=1e-4)
+    # without positions the tuple cache continues from the past's length
+    with torch.no_grad():
+        again, _ = tm(torch.from_numpy(ids[:, 9:12]),
+                      caches=[(k[:, :9], v[:, :9]) for k, v in tc])
+    np.testing.assert_allclose(again.numpy(), t_logits.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_keyword_constructor_and_int32_generate():
+    tm = tgpt.GPTForCausalLM(device='cpu', seed=3, **SMALL)
+    assert tm.config.vocab_size == SMALL['vocab_size']
+    assert tm.config.num_layers == len(tm.gpt.h) == SMALL['num_layers']
+    body = tgpt.GPTModel(device='cpu', **SMALL)
+    assert body.config.hidden_size == SMALL['hidden_size']
+    ids = _ids(1, 5, seed=8)
+    out = tm.eval().generate(ids, max_new_tokens=3)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (1, 8)
+    assert tm.generate(ids, max_new_tokens=0).dtype == torch.int32

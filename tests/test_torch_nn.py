@@ -229,3 +229,95 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         tdevice.resolve()
     assert tdevice.resolve('cpu') == torch.device('cpu')
+
+
+# ---- _sdpa_ref recomputes its scores in the backward --------------------
+
+
+def _sdpa_inputs(seed=0, b=2, n=24, h=3, d=8):
+    return [torch.from_numpy(_rand(b, n, h, d, seed=seed + i))
+            .requires_grad_(True) for i in range(3)]
+
+
+def _saved_shapes(fn):
+    shapes = []
+
+    def pack(t):
+        shapes.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, shapes
+
+
+@pytest.mark.parametrize('dropout_p', [0.0, 0.2])
+def test_sdpa_ref_keeps_no_scores_for_the_backward(dropout_p):
+    """The JAX package wraps _sdpa_ref in jax.checkpoint; the port's keeps
+    only q, k, v (and the generator state with dropout) for its backward,
+    no [B, H, N, N] tensor. The plain body, for contrast, keeps several."""
+    from paddle_tpu_torch.nn.functional import attention as tattn
+    q, k, v = _sdpa_inputs()
+    scores = {(2, 3, 24, 24), (6, 24, 24)}
+    _, kept = _saved_shapes(lambda: t_sdpa_ref(
+        q, k, v, None, True, 0.3, dropout_p,
+        torch.Generator().manual_seed(4)))
+    assert not scores & set(kept), kept
+    assert sum(1 for s in kept if s == (2, 24, 3, 8)) == 3
+    _, plain = _saved_shapes(lambda: tattn._sdpa_body(
+        q, k, v, None, True, 0.3, dropout_p,
+        torch.Generator().manual_seed(4).get_state(), []))
+    assert scores & set(plain)
+
+
+def test_sdpa_ref_recompute_gives_the_same_gradients():
+    """Dropout on, one generator: the gradients through the recompute equal
+    those of the plain body, which keeps its mask (so the recompute drew
+    the same mask)."""
+    from paddle_tpu_torch.nn.functional import attention as tattn
+    mask = torch.from_numpy(_rand(1, 1, 24, 24, seed=9))
+    grads = []
+    for recompute in (True, False):
+        q, k, v = _sdpa_inputs(seed=1)
+        gen = torch.Generator().manual_seed(11)
+        if recompute:
+            out = t_sdpa_ref(q, k, v, mask, True, 0.3, 0.25, gen)
+        else:
+            out = tattn._sdpa_body(q, k, v, mask, True, 0.3, 0.25,
+                                   gen.get_state(), [])
+        out.backward(torch.from_numpy(_rand(2, 24, 3, 8, seed=7)))
+        grads.append([out.detach()] + [t.grad for t in (q, k, v)])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_sdpa_ref_dropout_draws_from_the_callers_generator():
+    """The mask is the one a draw from the caller's generator gives, and
+    the generator advances as that one draw advances it."""
+    q, k, v = (t.detach() for t in _sdpa_inputs(seed=2))
+    gen = torch.Generator().manual_seed(5)
+    out = t_sdpa_ref(q, k, v, None, False, 0.3, 0.5, gen)
+    twin = torch.Generator().manual_seed(5)
+    p = torch.softmax(torch.matmul(q.transpose(1, 2),
+                                   k.transpose(1, 2).transpose(-1, -2))
+                      * 0.3, dim=-1)
+    want = torch.matmul(TF.dropout(p, 0.5, generator=twin),
+                        v.transpose(1, 2)).transpose(1, 2)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(gen.get_state(), twin.get_state())
+
+
+def test_sdpa_ref_without_grad_is_not_recomputed(monkeypatch):
+    from paddle_tpu_torch.nn.functional import attention as tattn
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('checkpoint called')
+
+    monkeypatch.setattr(tattn, 'checkpoint', refuse)
+    q, k, v = _sdpa_inputs(seed=3)
+    with torch.no_grad():
+        t_sdpa_ref(q, k, v, None, True, 0.3)
+    t_sdpa_ref(*(t.detach() for t in (q, k, v)), None, True, 0.3)
+    with pytest.raises(AssertionError, match='checkpoint called'):
+        t_sdpa_ref(q, k, v, None, True, 0.3)
