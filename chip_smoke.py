@@ -57,7 +57,23 @@ Phases, each printed as it finishes; any failure exits non-zero:
                warm-up and 6 timed steps, 12 launches a step of each long
                kernel and none of the standard ones, falling loss, a
                profile, and the same step on the standard route.
-(Phases 9-11 run after phase 8 and before phases 5-7 and 12 in main().)
+ 13. slice 5, f32 - gateway parity: GPT-2 small, 10 prompts of 3-300
+               tokens + 16 new, greedy, through a ServingGateway of 2
+               replicas (2 slots x 352 each): sync slot and sync paged
+               pools, a seeded arrival schedule with replica 1
+               partitioned mid-burst (failovers equal to its in-flight
+               count), the threaded drive; each token-identical to one
+               slot engine on the card, no flash launch.
+ 14. slice 5, bf16 - the JAX package's QoS rung (bench_extra.py) at its
+               on-TPU configuration and full width: 2 replicas x 8 slots,
+               48 requests replayed open-loop (premium + bg, bg's rate
+               doubling mid-trace), bg token-bucket limited; premium never
+               shed, every shed handle has its 'rejected' wide event;
+               TTFT, shed rate, tokens/s, each replica's burst split,
+               peak memory; the gateway's /metrics and /readyz scraped;
+               then the same replay on 1 replica.
+(Phases 9-11 and 13-14 run after phase 8 and before phases 5-7 and 12 in
+main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
@@ -1301,6 +1317,317 @@ def engine_throughput_phase():
     torch.cuda.empty_cache()
 
 
+# the gateway parity workload: 10 prompts of 3-300 tokens, 16 new, greedy
+GATEWAY_PROMPT_LENS = (3, 170, 41, 300, 9, 122, 64, 250, 17, 88)
+GATEWAY_NEW = 16
+
+
+def gateway_parity_phase():
+    """Slice 5, f32: the ServingGateway over 2 replicas against one slot
+    engine's tokens (the oracle), GPT-2 small at full width and depth: a
+    sync gateway of slot engines and one of paged engines, a seeded
+    arrival schedule with replica 1 partitioned mid-burst (the failover
+    count must equal its in-flight count at the partition), and the
+    threaded drive. No flash kernel may launch."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedContinuousBatchingEngine,
+                                          ServingGateway)
+    from paddle_tpu_torch.testing import chaos
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    cfg = GPTConfig.gpt2_small()
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
+    gen = torch.Generator().manual_seed(SEED + 6)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=gen).tolist()
+               for n in GATEWAY_PROMPT_LENS]
+    new = GATEWAY_NEW
+    kw = dict(max_len=352, prefill_chunk=32, decode_block=4)
+
+    def slot():
+        return ContinuousBatchingEngine(model, num_slots=2, **kw)
+
+    def paged():
+        return PagedContinuousBatchingEngine(model, num_seqs=2, page_size=16,
+                                             **kw)
+
+    want = slot().generate(prompts, max_new_tokens=new)
+
+    def check(label, got):
+        bad = [i for i, (w, g) in enumerate(zip(want, got)) if w != g]
+        _check(not bad, '%s gateway diverges from the engine on prompts '
+               '%s' % (label, bad))
+
+    def gateway(factory):
+        return ServingGateway(factory, replicas=2, registry=MetricRegistry())
+
+    _reset_counts(fa)
+    runs = {}
+    for label, factory in (('sync slot', slot), ('sync paged', paged)):
+        gw = gateway(factory)
+        check(label, gw.generate(prompts, max_new_tokens=new))
+        runs[label] = [gw.registry.get('gateway_route_total').labels(
+            str(i)).value() for i in range(2)]
+        _check(all(runs[label]), '%s: a replica took no request: %s'
+               % (label, runs[label]))
+
+    # tests/test_serving_gateway.py's exact oracle: a seeded Poisson
+    # schedule quantised to gateway steps, replica 1 partitioned when
+    # request 5 arrives
+    gw = gateway(slot)
+    gaps = torch.empty(len(prompts), dtype=torch.float64).exponential_(
+        generator=torch.Generator().manual_seed(5))
+    arrival_step = (gaps.cumsum(0) / 1.5).floor().long().tolist()
+    kill_at = len(prompts) // 2
+    reqs, expected, fault, ctx = [], None, None, None
+    try:
+        i = k = 0
+        while i < len(prompts) or any(not r.done for r in reqs):
+            while i < len(prompts) and arrival_step[i] <= k:
+                if i == kill_at:
+                    ctx = chaos.partition(gw.pool[1].endpoint)
+                    fault = ctx.__enter__()
+                    expected = len([g for g in gw.pool[1].assigned
+                                    if len(g.tokens) < new])
+                reqs.append(gw.submit(prompts[i], max_new_tokens=new))
+                i += 1
+            gw.step()
+            k += 1
+    finally:
+        if ctx is not None:
+            ctx.__exit__(None, None, None)
+    failovers = gw.registry.get('gateway_failover_total').value()
+    _check(expected is not None and expected > 0,
+           'the partition caught no request in flight')
+    _check(all(r.done for r in reqs), 'a request did not complete')
+    check('partitioned', [r.tokens for r in reqs])
+    _check(failovers == expected and fault.fired >= 1,
+           'failovers %d, the partitioned replica had %s in flight'
+           % (failovers, expected))
+    _check(len(gw.failover_log) == 1 and gw.failover_log[0]['replica'] == 1,
+           'failover log %s' % gw.failover_log)
+    _check(chaos.active_faults() == 0, 'a chaos fault leaked')
+
+    gw = gateway(slot).start()
+    try:
+        reqs = [gw.submit(p, max_new_tokens=new) for p in prompts]
+        _check(all(r.wait(300) for r in reqs), 'a threaded request timed out')
+    finally:
+        gw.shutdown()
+    check('threaded', [r.tokens for r in reqs])
+    launches = _launches(fa)
+    _check(launches == _want(1), 'the gateway launched a flash kernel: %s'
+           % launches)
+    print('gateway f32 parity: GPT-2 small, %d prompts of %d-%d tokens, %d '
+          'new, greedy, 2 replicas x 2 slots: sync slot (routed %s), sync '
+          'paged (routed %s), partition of replica 1 (%d in flight -> %d '
+          'failovers, %d chaos drops) and threaded drive token-identical to '
+          'one engine on the card; flash launches %s; %.1f s' % (
+              len(prompts), min(GATEWAY_PROMPT_LENS),
+              max(GATEWAY_PROMPT_LENS), new, runs['sync slot'],
+              runs['sync paged'], expected, failovers, fault.fired,
+              sum(launches.values()), time.time() - t0), flush=True)
+    del model, gw
+    torch.cuda.empty_cache()
+
+
+def _qos_trace(vocab):
+    """bench_extra.py's QoS rung traffic at its on-TPU configuration: 32
+    requests, Poisson arrivals with a mean gap of 20 ms, a 32/64/96/128
+    prompt ladder, premium and bg round robin, and a bg-only trace of 16
+    overlaid from the midpoint (bg's arrival rate doubles)."""
+    import numpy as np
+    from paddle_tpu_torch.capacity.workload import Trace, WorkloadSpec
+
+    def spec(n, tenants):
+        return WorkloadSpec(
+            requests=n, seed=0, vocab_size=vocab,
+            arrival={'process': 'poisson', 'mean_gap_s': 0.02},
+            lengths={'dist': 'ladder', 'lens': [32, 64, 96, 128]},
+            output={'dist': 'fixed', 'len': 64},
+            tenants={'mode': 'round_robin',
+                     'tenants': [{'name': t} for t in tenants]})
+    main, burst = spec(32, ('premium', 'bg')), spec(16, ('bg',))
+    a, b = main.generate(), burst.generate()
+    t_mid = float(a.arrival[-1]) * 0.5
+    bg_id = a.tenant_names.index('bg')
+    arr = np.concatenate([a.arrival, b.arrival + t_mid])
+    order = np.argsort(arr, kind='stable')
+    trace = Trace(
+        arr[order], np.concatenate([a.prompt_len, b.prompt_len])[order],
+        np.concatenate([a.new_tokens, b.new_tokens])[order],
+        np.concatenate([a.tenant_id,
+                        np.full(len(b), bg_id, np.int64)])[order],
+        a.tenant_names, np.full(len(order), -1, np.int64),
+        np.zeros(len(order), np.int64),
+        meta={'vocab_size': vocab, 'spec': {'seed': 0}})
+    return trace, main.hash, burst.hash, t_mid
+
+
+def _qos_run(model, trace, replicas):
+    """One warm-up and one replay of the QoS trace through a started
+    gateway; (gateway, replay result, the run's wide events)."""
+    from paddle_tpu_torch.capacity import QosPolicy, TenantClass, replay
+    from paddle_tpu_torch.monitor.events import (RequestLog,
+                                                 set_default_request_log)
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          ServingGateway)
+
+    def factory():
+        return ContinuousBatchingEngine(model, num_slots=8, max_len=256,
+                                        prefill_chunk=32, decode_block=8)
+    policy = QosPolicy(classes=[
+        TenantClass('premium', priority=1),
+        TenantClass('bg', rate=30.0, burst=8, priority=0)])
+    log = RequestLog(capacity=4 * len(trace))
+    prev = set_default_request_log(log)
+    try:
+        gw = ServingGateway(factory, replicas=replicas, admission=policy,
+                            registry=MetricRegistry())
+        gw.generate(trace.prompts()[:2], max_new_tokens=2, tenant='warmup')
+        gw.start()
+        try:
+            res = replay(gw, trace, max_new_tokens=64, timeout=600)
+        except BaseException:
+            gw.shutdown()
+            raise
+    finally:
+        set_default_request_log(prev)
+    return gw, res, [e for e in log.events() if e['tenant'] != 'warmup']
+
+
+def _burst_split(gw):
+    """Each replica's decode-burst p50 from its StepTimeline, split into
+    host dispatch and the wait for the card (the window includes the
+    warm-up's bursts)."""
+    out = []
+    for rep in gw.pool:
+        tl = rep.engine.timeline
+        out.append('replica %d: %.2f ms (host dispatch %.2f, wait for the '
+                   'card %.2f), %d bursts' % (
+                       rep.index, tl.percentile(50) * 1e3,
+                       tl.percentile(50, 'host_dispatch') * 1e3,
+                       tl.percentile(50, 'device_block') * 1e3, tl.steps))
+    return '; '.join(out)
+
+
+def gateway_qos_phase():
+    """Slice 5, bf16: bench_extra.py's QoS rung at its on-TPU configuration
+    and full width (vocab 30528, 768 x 12 x 12), 2 replicas of 8 slots:
+    premium's completed ratio must be 1.0 while bg is shed, every shed
+    handle has its 'rejected' wide event, no flash kernel launches; then
+    the same replay on 1 replica, and a scrape of the gateway's
+    MetricsServer."""
+    import re
+    import urllib.error
+    import urllib.request
+    from paddle_tpu_torch.monitor import MetricsServer
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    t0 = time.time()
+    cfg = GPTConfig(vocab_size=30528, hidden_size=768, num_layers=12,
+                    num_heads=12, max_position_embeddings=1024, dropout=0.0)
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval().bfloat16()
+    trace, spec_hash, burst_hash, t_mid = _qos_trace(cfg.vocab_size)
+    tenants = trace.tenants()
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa)
+    gw, res, events = _qos_run(model, trace, replicas=2)
+    launches = _launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    server = MetricsServer(registry=gw.registry,
+                           readiness=lambda: any(r.ready() for r in gw.pool))
+    with server:
+        with urllib.request.urlopen(server.url + '/metrics',
+                                    timeout=10) as r:
+            body = r.read().decode()
+        with urllib.request.urlopen(server.url + '/metrics.json',
+                                    timeout=10) as r:
+            snapshot = json.loads(r.read().decode())
+        with urllib.request.urlopen(server.url + '/readyz', timeout=10) as r:
+            ready_code = r.status
+        gw.shutdown()
+        try:
+            urllib.request.urlopen(server.url + '/readyz', timeout=10)
+            drained_code = 200
+        except urllib.error.HTTPError as e:
+            drained_code = e.code
+    premium = [h for h, t in zip(res.handles, tenants) if t == 'premium']
+    shed = sum(1 for h in res.handles if h.error is not None)
+    prem_ratio = sum(1 for h in premium if h.done and h.error is None) \
+        / float(len(premium))
+    _check(prem_ratio == 1.0, 'premium completed ratio %.4f != 1.0 under '
+           'the bg burst' % prem_ratio)
+    rejected = sum(1 for e in events if e['outcome'] == 'rejected')
+    _check(rejected == shed, 'rejected wide events (%d) != shed handles (%d)'
+           % (rejected, shed))
+    _check(launches == _want(1), 'the gateway launched a flash kernel: %s'
+           % launches)
+    for family in ('gateway_requests_total', 'gateway_ttft_seconds',
+                   'qos_admitted_total', 'qos_rejected_total',
+                   'qos_token_bucket_level', 'qos_ttft_seconds',
+                   'tenant_requests_total', 'tenant_ttft_seconds'):
+        _check('# TYPE %s ' % family in body, '/metrics lacks %s' % family)
+    # the label order a scraper reads, with or without a shed sample
+    _check(snapshot['qos_rejected_total']['labels'] == ['reason', 'tenant'],
+           'qos_rejected_total labels %s'
+           % snapshot['qos_rejected_total']['labels'])
+    rejected_lines = re.findall(
+        r'^qos_rejected_total\{reason="(\w+)",tenant="(\w+)"\} (\S+)$',
+        body, re.M)
+    _check(sum(float(n) for _, _, n in rejected_lines) == shed,
+           '/metrics qos_rejected_total samples %s, shed %d'
+           % (rejected_lines, shed))
+    _check(ready_code == 200 and drained_code == 503,
+           '/readyz answered %d while serving and %d drained'
+           % (ready_code, drained_code))
+    prem_ttft = [(e['first_token_t'] - e['arrival_t']) * 1e3 for e in events
+                 if e['tenant'] == 'premium'
+                 and e['first_token_t'] is not None]
+    bursts = _burst_split(gw)
+    print('gateway bf16 QoS: %d requests (premium + bg round robin, bg '
+          'doubling at %.3f s; specs %s + %s), 2 replicas x 8 slots x 256, '
+          'chunk 32, burst 8, 64 new: premium completed ratio %.1f, premium '
+          'TTFT p50 %.1f ms p99 %.1f ms, shed rate %.4f (%d of %d, reasons '
+          '%s), %.0f tokens/s (%d tokens in %.2f s, max submit lag %.1f ms); '
+          'decode burst p50 %s; peak memory %.2f GiB; flash launches %s; '
+          'scrape %d bytes, /readyz %d then %d drained' % (
+              len(trace), t_mid, spec_hash, burst_hash, prem_ratio,
+              _pct(prem_ttft, 50), _pct(prem_ttft, 99), shed / len(trace),
+              shed, len(trace), sorted({r for r, _, _ in rejected_lines}),
+              res.tokens_per_sec, res.tokens, res.wall_s,
+              res.max_lag_s * 1e3, bursts, peak / 2 ** 30,
+              sum(launches.values()), len(body), ready_code, drained_code),
+          flush=True)
+    del gw
+
+    _reset_counts(fa)
+    gw1, res1, events1 = _qos_run(model, trace, replicas=1)
+    gw1.shutdown()
+    launches = _launches(fa)
+    _check(launches == _want(1), 'the 1-replica gateway launched a flash '
+           'kernel: %s' % launches)
+    shed1 = sum(1 for h in res1.handles if h.error is not None)
+    prem1 = [(e['first_token_t'] - e['arrival_t']) * 1e3 for e in events1
+             if e['tenant'] == 'premium' and e['first_token_t'] is not None]
+    print('gateway bf16 QoS, 1 replica: %.0f tokens/s (%d tokens in %.2f s), '
+          'max submit lag %.1f ms, shed %d, premium TTFT p50 %.1f ms p99 %.1f '
+          'ms, decode burst p50 %s; whole phase %.1f s'
+          % (res1.tokens_per_sec, res1.tokens, res1.wall_s,
+             res1.max_lag_s * 1e3, shed1, _pct(prem1, 50), _pct(prem1, 99),
+             _burst_split(gw1), time.time() - t0), flush=True)
+    del gw1, model
+    torch.cuda.empty_cache()
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -1349,6 +1676,8 @@ def main():
     generate_launches = slice_phases()
     engine_parity_phase()
     engine_throughput_phase()
+    gateway_parity_phase()
+    gateway_qos_phase()
     train_f32_phase()
     train = train_main_phase(sku)
     second = train_seq1024_phase()

@@ -15,8 +15,11 @@ to the request's spans in the tracer's ring (tracing.py).
 - the schema is single-source: REQUEST_EVENT_FIELDS below is the only
   place field names are declared, and emission validates against it.
 
-The reference's JSONL sink and dryrun event lines feed its gateway and
-report tools, which the port does not have yet.
+`parse_event_lines` reads the reference's dryrun event lines
+(`request_event(N)[tag]: {json}`) back into events, which is how the
+workload loader (capacity/workload.py) turns a capture into a trace. The
+reference's JSONL sink and the line writer feed its report tools, which
+the port does not have yet.
 
 Tenant labels are BOUNDED by construction: TenantLabeler interns the
 first `cap` distinct tenants it sees and folds everything else into a
@@ -24,6 +27,8 @@ fixed set of hashed ``overflow_<n>`` buckets, so per-tenant metric
 families can never explode cardinality no matter what callers send.
 """
 import collections
+import json
+import re
 import threading
 import zlib
 
@@ -32,7 +37,7 @@ from .telemetry import record_request_event_schema
 
 __all__ = ['REQUEST_EVENT_FIELDS', 'FIELD_NAMES', 'RequestLog',
            'TenantLabeler', 'ModelLabeler', 'default_request_log',
-           'set_default_request_log']
+           'set_default_request_log', 'parse_event_lines', 'EVENT_LINE_RE']
 
 # The canonical wide-event schema: (field, help), the reference's own,
 # so one request's record reads the same from either package.
@@ -63,6 +68,10 @@ REQUEST_EVENT_FIELDS = (
 
 FIELD_NAMES = tuple(name for name, _ in REQUEST_EVENT_FIELDS)
 _FIELD_SET = frozenset(FIELD_NAMES)
+
+# parseable dryrun surface of the reference: `request_event(N)[tag]: {json}`
+EVENT_LINE_RE = re.compile(r'request_event\((?P<n>\d+)\)'
+                           r'\[(?P<tag>[^\]]*)\]:\s*(?P<json>\{.*\})\s*$')
 
 class RequestLog:
     """Bounded ring of wide request events.
@@ -109,10 +118,19 @@ class RequestLog:
             self._m_emitted.inc()
         return event
 
-    def events(self):
-        """Snapshot of the ring, oldest first."""
+    def events(self, since_ts=None):
+        """Snapshot of the ring (oldest first). ``since_ts`` keeps the
+        events that arrived at or after it, in the log's own clock (the
+        gateway's monotonic timestamps) — how the capacity replay slices
+        one run out of a longer recording."""
         with self._lock:
-            return list(self._ring)
+            out = list(self._ring)
+        if since_ts is not None:
+            since_ts = float(since_ts)
+            out = [e for e in out
+                   if e['arrival_t'] is not None
+                   and e['arrival_t'] >= since_ts]
+        return out
 
     @property
     def dropped(self):
@@ -189,3 +207,18 @@ def set_default_request_log(log):
     with _default_lock:
         prev, _default = _default, log
         return prev
+
+
+def parse_event_lines(text):
+    """[(tag, event dict)] from captured driver output (tolerates
+    interleaved non-event lines)."""
+    out = []
+    for line in (text or '').splitlines():
+        m = EVENT_LINE_RE.search(line)
+        if not m:
+            continue
+        try:
+            out.append((m.group('tag'), json.loads(m.group('json'))))
+        except ValueError:
+            continue
+    return out

@@ -1,6 +1,5 @@
-"""(Counterpart of paddle_tpu/monitor/registry.py, copied without the
-views its exporters and federation read: it needs nothing but the
-standard library.)
+"""(Counterpart of paddle_tpu/monitor/registry.py, copied without
+`unregister`: it needs nothing but the standard library.)
 
 Thread-safe metric registry (reference: paddle/fluid/platform/monitor.h
 StatRegistry + STAT_ADD, grown into the three Prometheus metric kinds).
@@ -132,6 +131,27 @@ class _HistogramChild:
         with self._lock:
             return self._count, self._sum
 
+    def snapshot(self):
+        with self._lock:
+            return {'count': self._count, 'sum': self._sum,
+                    'buckets': list(self._counts),
+                    'exemplars': dict(self._exemplars)}
+
+    def cumulative(self):
+        """Mergeable fixed-boundary view: Prometheus `le` semantics,
+        one cumulative count per upper bound with +Inf last, so
+        cumulative[-1] == count always. The `_bucket` exposition lines
+        print exactly these numbers."""
+        with self._lock:
+            counts = list(self._counts)
+            total, s = self._count, self._sum
+        cum, acc = [], 0
+        for n in counts:
+            acc += n
+            cum.append(acc)
+        return {'bounds': list(self._bounds) + [float('inf')],
+                'cumulative': cum, 'count': total, 'sum': s}
+
 
 class _Family:
     """One metric family: a name, a type, label names, and children."""
@@ -172,10 +192,16 @@ class _Family:
 
     # unlabeled convenience: fam.inc() == fam.labels().inc()
     def __getattr__(self, attr):
-        if attr in ('inc', 'dec', 'set', 'observe', 'value') \
-                and not self.labelnames:
+        if attr in ('inc', 'dec', 'set', 'observe', 'value',
+                    'cumulative') and not self.labelnames:
             return getattr(self._children[()], attr)
         raise AttributeError(attr)
+
+    def samples(self):
+        """[(label_values_tuple, child)] — a consistent point-in-time
+        listing for exporters."""
+        with self._lock:
+            return sorted(self._children.items())
 
 
 class Counter(_Family):
@@ -258,6 +284,11 @@ class MetricRegistry:
                                    buckets=buckets)
 
     # -- introspection -------------------------------------------------------
+    def collect(self):
+        """Families sorted by name (stable exporter order)."""
+        with self._lock:
+            return [self._families[n] for n in sorted(self._families)]
+
     def get(self, name):
         with self._lock:
             return self._families.get(name)

@@ -1,18 +1,20 @@
 """Metric-family schemas of the serving path (counterpart of
 paddle_tpu/monitor/telemetry.py): the `record_*_schema` functions that the
-port's serving metrics, request log and step timeline register through,
-each with the reference's names for the families the port drives. The
-dryrun snapshot lines, the schema baseline gate and the families of
-subsystems the port does not have (the compile watchdog, the cost model,
-the gateway's admission layer, the request log's file sink) are not
-ported.
+port's serving metrics, request log, step timeline, gateway, circuit
+breakers and trace replay register through, each with the reference's
+family names, label names and label order. The dryrun snapshot lines, the
+schema baseline gate and the families of subsystems the port does not
+have (the compile watchdog, the cost model, the request log's file sink)
+are not ported.
 """
 __all__ = ['record_serving_schema', 'record_serving_request_schema',
            'record_perf_schema', 'record_request_event_schema',
            'record_tenant_schema', 'record_qos_schema',
-           'SERVING_PAGED_FAMILIES', 'PERF_FAMILIES',
-           'SERVING_REQUEST_FAMILIES', 'REQUEST_EVENT_FAMILIES',
-           'TENANT_FAMILIES', 'QOS_FAMILIES']
+           'record_gateway_schema', 'record_rpc_schema',
+           'record_capacity_schema', 'SERVING_PAGED_FAMILIES',
+           'PERF_FAMILIES', 'SERVING_REQUEST_FAMILIES',
+           'REQUEST_EVENT_FAMILIES', 'TENANT_FAMILIES', 'QOS_FAMILIES',
+           'GATEWAY_FAMILIES', 'RPC_FAMILIES', 'CAPACITY_FAMILIES']
 
 
 # the paged-serving families: (kind, name, help) with no labels, so
@@ -160,20 +162,155 @@ def record_tenant_schema(registry):
     return out
 
 
-# the QoS families the engines drive: preempt / resume traffic per
-# tenant (the reference's admission-layer members are the gateway's).
-# Label budget: tenant is bounded by TenantLabeler as in TENANT_FAMILIES.
+# the QoS enforcement families: the gateway's admission layer drives
+# admitted / rejected / bucket level / per-priority TTFT, the engines
+# drive preempt / resume. Label budgets: tenant is bounded by
+# TenantLabeler as in TENANT_FAMILIES; reason is capacity.qos
+# REJECT_REASONS (4 values); priority is the small set of configured
+# tenant-class priorities. Label names are declared sorted.
 QOS_FAMILIES = (
+    ('counter', 'qos_admitted_total',
+     'requests passed by the admission layer per tenant', ('tenant',)),
+    ('counter', 'qos_rejected_total',
+     'requests shed by the admission layer per reason and tenant',
+     ('reason', 'tenant')),
     ('counter', 'qos_preempted_total',
      'KV-page preemptions of low-priority residents per tenant',
      ('tenant',)),
     ('counter', 'qos_resumed_total',
      'previously preempted requests re-admitted per tenant', ('tenant',)),
+    ('gauge', 'qos_token_bucket_level',
+     'remaining token-bucket credit per tenant at the last admission '
+     'decision', ('tenant',)),
+    ('histogram', 'qos_ttft_seconds',
+     'time to first token per priority class (premium vs background)',
+     ('priority',)),
 )
 
 
 def record_qos_schema(registry):
-    """Register the QoS families on `registry` and return
-    {name: family}. Used by ServingMetrics at construction."""
-    return {name: getattr(registry, kind)(name, doc, labels)
-            for kind, name, doc, labels in QOS_FAMILIES}
+    """Register the QoS enforcement families on `registry` and return
+    {name: family}. Used by the gateway and by ServingMetrics at
+    construction."""
+    from .registry import exponential_buckets
+    out = {}
+    for kind, name, doc, labels in QOS_FAMILIES:
+        kw = {}
+        if kind == 'histogram':
+            # same ladder as the unlabeled TTFT families
+            kw['buckets'] = exponential_buckets(0.002, 2.0, 16)
+        out[name] = getattr(registry, kind)(name, doc, labels, **kw)
+    return out
+
+
+# the gateway families (serving/gateway/gateway.py). Label budgets:
+# replica is bounded by the pool size, direction is {up, down}.
+GATEWAY_FAMILIES = (
+    ('counter', 'gateway_requests_total',
+     'requests accepted at the gateway front door', ()),
+    ('counter', 'gateway_requests_completed_total',
+     'requests fully delivered to the caller', ()),
+    ('counter', 'gateway_tokens_total',
+     'tokens delivered to callers across all replicas', ()),
+    ('counter', 'gateway_route_total',
+     'routing decisions per replica', ('replica',)),
+    ('counter', 'gateway_retries_total',
+     'submissions retried on another replica after a transport error',
+     ()),
+    ('counter', 'gateway_failover_total',
+     'in-flight requests re-admitted after a replica loss', ()),
+    ('counter', 'gateway_scale_events_total',
+     'autoscaler actions taken', ('direction',)),
+    ('gauge', 'gateway_replicas',
+     'replicas currently alive (ready or draining)', ()),
+    ('gauge', 'gateway_replica_state',
+     'per-replica state (0=ready 1=draining 2=dead 3=stopped)',
+     ('replica',)),
+    ('gauge', 'gateway_queue_depth',
+     'requests parked at the gateway awaiting a routable replica', ()),
+    ('gauge', 'gateway_slo_burn_rate',
+     'fraction of windowed TTFT samples over the SLO', ()),
+    ('histogram', 'gateway_ttft_seconds',
+     'time from gateway submission to first delivered token', ()),
+)
+
+
+def record_gateway_schema(registry):
+    """Register the gateway metric families on `registry` and return
+    {name: family}. Used by ServingGateway at construction."""
+    from .registry import exponential_buckets
+    out = {}
+    for kind, name, doc, labels in GATEWAY_FAMILIES:
+        kw = {}
+        if kind == 'histogram':
+            kw['buckets'] = exponential_buckets(0.002, 2.0, 16)
+        out[name] = getattr(registry, kind)(name, doc, labels, **kw)
+    return out
+
+
+# the RPC resilience families (distributed/resilience.py). Label
+# budgets: endpoint is the bounded replica/server set; `to` is the three
+# breaker states.
+RPC_FAMILIES = (
+    ('counter', 'rpc_attempts_total',
+     'RPC attempts begun (first tries + retries)', ('endpoint',)),
+    ('counter', 'rpc_attempt_failures_total',
+     'retryable transport failures (each feeds the circuit breaker)',
+     ('endpoint',)),
+    ('counter', 'rpc_backoff_seconds_total',
+     'seconds slept between retries', ('endpoint',)),
+    ('counter', 'rpc_deadline_expired_total',
+     'calls that died on their deadline', ('endpoint',)),
+    ('counter', 'rpc_circuit_open_total',
+     'calls fast-failed by an open breaker', ('endpoint',)),
+    ('counter', 'rpc_breaker_transitions_total',
+     'circuit-breaker state transitions', ('endpoint', 'to')),
+    ('gauge', 'rpc_breaker_state',
+     'current breaker state: 0 closed, 1 open, 2 half-open',
+     ('endpoint',)),
+)
+
+
+def record_rpc_schema(registry):
+    """Register the RPC resilience families on `registry` and return
+    {name: family}."""
+    out = {}
+    for kind, name, doc, labels in RPC_FAMILIES:
+        out[name] = getattr(registry, kind)(name, doc, labels)
+    return out
+
+
+# the capacity-planning families (capacity/): trace replay against the
+# real gateway plus the fleet simulator's (the simulator is not ported;
+# its families keep the reference's table whole). Unlabeled —
+# per-request and per-tenant detail lives in the wide events the runs
+# emit, never in labels.
+CAPACITY_FAMILIES = (
+    ('counter', 'capacity_requests_replayed_total',
+     'trace requests submitted by the open-loop replay harness'),
+    ('counter', 'capacity_replay_runs_total',
+     'completed open-loop trace replays'),
+    ('histogram', 'capacity_replay_lag_seconds',
+     'worst submit-behind-schedule lag per replay run'),
+    ('counter', 'sim_requests_total',
+     'requests pushed through the discrete-event fleet simulator'),
+    ('counter', 'sim_runs_total',
+     'completed fleet-simulator runs'),
+    ('gauge', 'sim_last_p99_ttft_seconds',
+     'p99 simulated TTFT of the most recent simulator run'),
+)
+
+
+def record_capacity_schema(registry):
+    """Register the capacity-planning families on `registry` and return
+    {name: family}. Used by capacity.replay when handed a registry."""
+    from .registry import exponential_buckets
+    out = {}
+    for kind, name, doc in CAPACITY_FAMILIES:
+        kw = {}
+        if kind == 'histogram':
+            # replay lag spans scheduler jitter (~ms) to a saturated
+            # submitter falling a full trace behind (~minutes)
+            kw['buckets'] = exponential_buckets(0.001, 2.0, 18)
+        out[name] = getattr(registry, kind)(name, doc, **kw)
+    return out

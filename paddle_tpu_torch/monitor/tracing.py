@@ -7,11 +7,14 @@ TIME WENT for one request. The slot and paged engines emit
 queued→admit→prefill→decode→retire spans with prefix-cache-hit and
 spec-accept events; TTFT / inter-token histogram observations and the
 wide request event (events.py) carry the request span's trace_id, and
-every finished span lands in the tracer's bounded ring (``spans()``).
+every finished span lands in the tracer's bounded ring (``spans()``),
+which the metrics server's /debug/traces serves, as Chrome-trace JSON
+too (``spans_to_chrome``). Chaos faults annotate the span in flight
+(``note_fault``).
 
-The reference's cross-process propagation, flight-recorder dumps,
-Chrome-trace export and tail-based retention serve the RPC layer and the
-gateway, which the port does not have yet.
+The ring plays the part of the reference's flight recorder, without its
+dumps to disk. The reference's cross-process propagation and tail-based
+retention serve the RPC fabric, which the port does not have yet.
 
 A disabled tracer's ``start_span`` is one attribute load + branch
 returning the shared ``NULL_SPAN``: no allocation, no clock read, no
@@ -19,6 +22,8 @@ contextvar touch.
 """
 import collections
 import contextvars
+import json
+import os
 import random
 import threading
 import time
@@ -26,7 +31,8 @@ import time
 from .registry import default_registry
 
 __all__ = ['Span', 'Tracer', 'NULL_SPAN', 'default_tracer',
-           'set_default_tracer', 'register_metrics', 'TRACING_FAMILIES']
+           'set_default_tracer', 'register_metrics', 'TRACING_FAMILIES',
+           'spans_to_chrome', 'current_span', 'note_fault']
 
 # the tracer's own health families (unlabeled counters)
 TRACING_FAMILIES = (
@@ -194,7 +200,9 @@ class Tracer:
         self._m_started = fams['trace_spans_started_total']
         self._m_finished = fams['trace_spans_finished_total']
         self._m_dropped = fams['trace_spans_dropped_total']
-        self._ring = collections.deque(maxlen=int(capacity))
+        self.capacity = int(capacity)
+        self._ring = collections.deque(maxlen=self.capacity)
+        self._dropped = 0
         self._lock = threading.Lock()
 
     def enable(self):
@@ -236,13 +244,68 @@ class Tracer:
         with self._lock:
             return list(self._ring)
 
+    @property
+    def dropped(self):
+        """Finished spans evicted from the ring since construction."""
+        with self._lock:
+            return self._dropped
+
+    def to_chrome(self, process_name=None):
+        return spans_to_chrome(self.spans(), process_name=process_name)
+
+    def export_chrome(self, path, process_name=None):
+        """Write the ring in Chrome-trace format (Perfetto-loadable)."""
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, 'w') as fh:
+            json.dump(self.to_chrome(process_name=process_name), fh)
+        return path
+
     def _on_finish(self, span):
         self._m_finished.inc()
         d = span.to_dict()
         with self._lock:
             if len(self._ring) == self._ring.maxlen:
+                self._dropped += 1
                 self._m_dropped.inc()
             self._ring.append(d)
+
+
+def spans_to_chrome(spans, pid=None, process_name=None):
+    """Span dicts -> Chrome-trace JSON dict ({'traceEvents': [...]}).
+
+    Spans become 'X' complete events (ts/dur in microseconds — epoch-
+    based, so traces from different processes align without offset
+    bookkeeping), span events become 'i' instants, and a process_name
+    metadata record labels the lane."""
+    pid = os.getpid() if pid is None else int(pid)
+    events = [{'ph': 'M', 'name': 'process_name', 'pid': pid, 'tid': 0,
+               'args': {'name': process_name
+                        or 'paddle_tpu host %d' % pid}}]
+    for s in spans:
+        tid = s.get('tid') or 0
+        start = float(s.get('start') or 0.0)
+        end = float(s.get('end') or start)
+        args = dict(s.get('tags') or {})
+        args['trace_id'] = s.get('trace_id')
+        args['span_id'] = s.get('span_id')
+        if s.get('parent_id'):
+            args['parent_id'] = s['parent_id']
+        if s.get('status') not in (None, 'ok'):
+            args['status'] = s['status']
+            if s.get('error'):
+                args['error'] = s['error']
+        events.append({'ph': 'X', 'cat': 'span',
+                       'name': s.get('name') or '?', 'pid': pid,
+                       'tid': tid, 'ts': start * 1e6,
+                       'dur': max(end - start, 0.0) * 1e6, 'args': args})
+        for ev in s.get('events') or ():
+            events.append({'ph': 'i', 's': 't', 'cat': 'span',
+                           'name': ev.get('name') or 'event', 'pid': pid,
+                           'tid': tid,
+                           'ts': float(ev.get('ts') or start) * 1e6,
+                           'args': dict(ev.get('args') or {})})
+    return {'traceEvents': events, 'displayTimeUnit': 'ms'}
 
 
 _default = Tracer()
@@ -263,3 +326,18 @@ def set_default_tracer(tracer):
     with _default_lock:
         prev, _default = _default, tracer
         return prev
+
+
+def current_span():
+    """Module-level convenience for the calling context's span."""
+    return _current.get()
+
+
+def note_fault(point, endpoint):
+    """Chaos hook (testing/chaos.py): annotate the current span with the
+    injected fault. No-op when tracing is disabled."""
+    if not _default.enabled:
+        return
+    sp = _current.get()
+    if sp is not None:
+        sp.add_event('chaos.fault', point=point, endpoint=endpoint)

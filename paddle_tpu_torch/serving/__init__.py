@@ -21,10 +21,18 @@ Two engines share that skeleton:
 kv_cache.py owns slot and page bookkeeping, scheduler.py the request queue
 and admission/prefill policy, engine.py and paged_engine.py the steps
 (chunked prefill, decode burst, spec verify) and the thread-safe front
-door, metrics.py tokens/s and latency percentiles. The gateway, model
-registry and serving fabric are not ported yet.
+door, metrics.py tokens/s and latency percentiles.
+
+gateway/ fronts a pool of engine replicas: `ServingGateway` with QoS
+admission (`QosPolicy`, `TenantClass`), least-loaded / round-robin /
+model-affinity routing, failover of a lost replica's requests, drain and
+`AutoscalePolicy`. fabric/ holds the replica contract it composes. The
+model registry (`gateway.rollout()`), the socket replicas and worker
+processes of the fabric are not ported yet.
 """
 from .engine import ContinuousBatchingEngine
+from .gateway import (AutoscalePolicy, GatewayRequest, ModelAffinityRouter,
+                      QosPolicy, ServingGateway, TenantClass)
 from .kv_cache import (PageAllocator, PrefixCache, SlotAllocator,
                        build_paged_pools, build_slot_caches)
 from .metrics import ServingMetrics, percentile
@@ -35,4 +43,6 @@ __all__ = ['ContinuousBatchingEngine', 'PagedContinuousBatchingEngine',
            'SlotAllocator', 'PageAllocator', 'PrefixCache',
            'NGramProposer', 'build_slot_caches', 'build_paged_pools',
            'ServingMetrics', 'percentile', 'Request', 'Scheduler',
-           'PagedScheduler']
+           'PagedScheduler', 'ServingGateway', 'GatewayRequest',
+           'AutoscalePolicy', 'QosPolicy', 'TenantClass',
+           'ModelAffinityRouter']

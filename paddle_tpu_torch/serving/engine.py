@@ -242,6 +242,18 @@ class _EngineBase:
                 return
             yield tok
 
+    def rebind_perf(self, registry):
+        """Move the serving metrics and the step timeline onto
+        `registry` (the gateway replica pattern: engine metrics live on a
+        private per-replica registry so the serving gauges the router
+        reads stay per-replica honest). Call before traffic: the fresh
+        metrics start empty."""
+        with self._lock:
+            self.metrics = ServingMetrics(registry=registry)
+            self.timeline = StepTimeline(registry=registry,
+                                         tracer=self._tracer)
+        return self
+
     @property
     def trace_counts(self):
         raise NotImplementedError(
