@@ -72,7 +72,30 @@ Phases, each printed as it finishes; any failure exits non-zero:
                TTFT, shed rate, tokens/s, each replica's burst split,
                peak memory; the gateway's /metrics and /readyz scraped;
                then the same replay on 1 replica.
-(Phases 9-11 and 13-14 run after phase 8 and before phases 5-7 and 12 in
+ 15. slice 6, f32 - the fabric: the gpt-bench preset (the rungs' on-TPU
+               configuration, vocab 30528, 768 x 12 x 12, slot engine 8 x
+               256) published as v1 (seeded) and v2 (another seed) into a
+               ModelRegistry and served by an ArtifactServer; 2 worker
+               processes on the card pull v1 by fingerprint into a
+               ModelHost; a gateway over their SocketReplicas: 10 prompts
+               of 3-241 tokens + 16 new token-identical to one in-process
+               slot engine; rollout() to v2 mid-burst (zero loss, v1 tokens
+               before the flip and v2 after, cache_hits / misses and
+               load_s); worker 0 SIGKILLed at request 5 of a seeded
+               schedule (failovers equal to its in-flight count, v2
+               tokens); a pull with a wrong fingerprint refused.
+ 16. slice 6, bf16 - (a) phase 14's QoS trace, policy and replay through 2
+               worker processes of the gpt-bench preset in bf16, beside
+               phase 14's in-process 2- and 1-replica tokens/s; each
+               worker's burst split from its /metrics.json; the cold
+               bring-up. (b) bench_extra.py's multi-model rung at its
+               on-TPU configuration: 3 models + the head model's v2, 2
+               in-process ModelHost replicas, 32 zipf-mixed requests,
+               rollout() at request 16; completed ratio 1.0, the wide
+               events' model mix, no compile-cache miss, and a pager whose
+               bytes stay under its budget with the LRU oracle's
+               evictions.
+(Phases 9-11 and 13-16 run after phase 8 and before phases 5-7 and 12 in
 main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
@@ -1469,28 +1492,30 @@ def _qos_trace(vocab):
     return trace, main.hash, burst.hash, t_mid
 
 
-def _qos_run(model, trace, replicas):
-    """One warm-up and one replay of the QoS trace through a started
-    gateway; (gateway, replay result, the run's wide events)."""
-    from paddle_tpu_torch.capacity import QosPolicy, TenantClass, replay
-    from paddle_tpu_torch.monitor.events import (RequestLog,
-                                                 set_default_request_log)
-    from paddle_tpu_torch.monitor.registry import MetricRegistry
-    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
-                                          ServingGateway)
-
-    def factory():
-        return ContinuousBatchingEngine(model, num_slots=8, max_len=256,
-                                        prefill_chunk=32, decode_block=8)
-    policy = QosPolicy(classes=[
+def _qos_policy():
+    """The QoS rung's admission policy: premium never rate-limited, bg a
+    token bucket of 30 requests/s with a burst of 8."""
+    from paddle_tpu_torch.capacity import QosPolicy, TenantClass
+    return QosPolicy(classes=[
         TenantClass('premium', priority=1),
         TenantClass('bg', rate=30.0, burst=8, priority=0)])
+
+
+def _qos_replay(make_gateway, trace):
+    """One warm-up and one replay of the QoS trace through a started
+    gateway from make_gateway(policy); (gateway, replay result, the run's
+    wide events, the warm-up's seconds)."""
+    from paddle_tpu_torch.capacity import replay
+    from paddle_tpu_torch.monitor.events import (RequestLog,
+                                                 set_default_request_log)
+
     log = RequestLog(capacity=4 * len(trace))
     prev = set_default_request_log(log)
     try:
-        gw = ServingGateway(factory, replicas=replicas, admission=policy,
-                            registry=MetricRegistry())
+        gw = make_gateway(_qos_policy())
+        t0 = time.time()
         gw.generate(trace.prompts()[:2], max_new_tokens=2, tenant='warmup')
+        t_warm = time.time() - t0
         gw.start()
         try:
             res = replay(gw, trace, max_new_tokens=64, timeout=600)
@@ -1499,7 +1524,25 @@ def _qos_run(model, trace, replicas):
             raise
     finally:
         set_default_request_log(prev)
-    return gw, res, [e for e in log.events() if e['tenant'] != 'warmup']
+    events = [e for e in log.events() if e['tenant'] != 'warmup']
+    return gw, res, events, t_warm
+
+
+def _qos_run(model, trace, replicas):
+    """The QoS replay through in-process replicas of `model`; (gateway,
+    replay result, the run's wide events)."""
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          ServingGateway)
+
+    def factory():
+        return ContinuousBatchingEngine(model, num_slots=8, max_len=256,
+                                        prefill_chunk=32, decode_block=8)
+    gw, res, events, _ = _qos_replay(
+        lambda policy: ServingGateway(factory, replicas=replicas,
+                                      admission=policy,
+                                      registry=MetricRegistry()), trace)
+    return gw, res, events
 
 
 def _burst_split(gw):
@@ -1626,6 +1669,461 @@ def gateway_qos_phase():
              _burst_split(gw1), time.time() - t0), flush=True)
     del gw1, model
     torch.cuda.empty_cache()
+    return {'2 replicas': res.tokens_per_sec, '1 replica': res1.tokens_per_sec}
+
+
+# the fabric parity workload: phase 13's prompts, the two longest cut to
+# fit the preset's 256-row slots beside 16 new tokens
+FABRIC_PROMPT_LENS = (3, 170, 41, 241, 9, 122, 64, 230, 17, 88)
+FABRIC_PRESET = 'gpt-bench'
+
+
+def _spawn_workers(kwargs_list, timeout=300):
+    """Worker processes started together (their bring-ups overlap);
+    every started one is killed if any fails."""
+    import threading
+    from paddle_tpu_torch.serving.fabric import spawn_worker
+
+    handles = [None] * len(kwargs_list)
+    errors = []
+
+    def run(i):
+        try:
+            handles[i] = spawn_worker(timeout=timeout, **kwargs_list[i])
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(kwargs_list))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for h in handles:
+            if h is not None:
+                h.cleanup()
+        raise errors[0]
+    return handles
+
+
+def _fabric_gateway(handles, **kw):
+    """A gateway over one SocketReplica per worker process."""
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+    from paddle_tpu_torch.serving import ServingGateway
+    from paddle_tpu_torch.serving.fabric import SocketReplica
+
+    gw = ServingGateway(None, replicas=0, registry=MetricRegistry(), **kw)
+    for h in handles:
+        gw.adopt_replica(SocketReplica(h.endpoint, metrics_url=h.metrics_url,
+                                       poll_interval=0.002).connect())
+    return gw
+
+
+def fabric_parity_phase():
+    """Slice 6, f32: two worker processes (ModelHost on the card) pull the
+    full-width preset's seeded weights as v1 from an ArtifactServer by
+    fingerprint; a gateway over their SocketReplicas must match one
+    in-process slot engine's tokens; rollout() to a differently seeded v2
+    mid-burst loses nothing and serves v2 after the flip; a SIGKILLed
+    worker's in-flight requests fail over with v2's tokens; a pull with a
+    wrong fingerprint raises ArtifactVerifyError. The in-process
+    references launch no flash kernel."""
+    import argparse
+    import os
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.framework import io_save
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import ModelRegistry
+    from paddle_tpu_torch.serving.fabric import (ArtifactServer,
+                                                 ArtifactVerifyError,
+                                                 build_engine, preset,
+                                                 publish_preset)
+    from paddle_tpu_torch.serving.fabric import worker as fworker
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix='chip_smoke_fabric_')
+    handles, art, gw = [], None, None
+    try:
+        reg = ModelRegistry(root=os.path.join(root, 'registry'))
+        e1 = publish_preset(reg, FABRIC_PRESET, version='v1', device='cpu')
+        cfg = GPTConfig(**preset(FABRIC_PRESET)['model'])
+        e2 = reg.publish(FABRIC_PRESET, 'v2', GPTForCausalLM(
+            cfg, device='cpu', seed=SEED + 15).state_dict(),
+            meta={'preset': FABRIC_PRESET})
+        t_publish = time.time() - t0
+        art = ArtifactServer(reg).start()
+        t1 = time.time()
+        handles = _spawn_workers([dict(
+            artifacts=art.endpoint, cache=os.path.join(root, 'w%d' % i),
+            model=FABRIC_PRESET, version='v1', fingerprint=e1.fingerprint)
+            for i in range(2)])
+        t_bound = time.time() - t1
+
+        gen = torch.Generator().manual_seed(SEED + 6)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                 generator=gen).tolist()
+                   for n in FABRIC_PROMPT_LENS]
+        new = GATEWAY_NEW
+        _reset_counts(fa)
+        want = {}
+        for entry in (e1, e2):
+            eng = build_engine(FABRIC_PRESET,
+                               state_dict=io_save.load(entry.path))
+            want[entry.version] = eng.generate(prompts, max_new_tokens=new)
+            del eng
+        launches = _launches(fa)
+        _check(launches == _want(1), 'the reference engines launched a '
+               'flash kernel: %s' % launches)
+        _check(want['v1'] != want['v2'], 'v1 and v2 gave the same tokens')
+        torch.cuda.empty_cache()
+
+        def check(label, got, ref):
+            bad = [i for i, (w, g) in enumerate(zip(ref, got)) if w != g]
+            _check(len(got) == len(ref) and not bad,
+                   '%s: the fabric diverges from the engine on prompts %s'
+                   % (label, bad))
+
+        gw = _fabric_gateway(handles)
+        t2 = time.time()
+        check('parity', gw.generate(prompts, max_new_tokens=new),
+              want['v1'])
+        t_first = time.time() - t2
+        routed = [int(gw.registry.get('gateway_route_total').labels(
+            str(i)).value()) for i in range(2)]
+        _check(all(routed), 'a worker took no request: %s' % routed)
+
+        # rollout mid-burst: the first half is in flight at the flip
+        before = [gw.submit(p, max_new_tokens=new) for p in prompts[:5]]
+        in_flight = sum(1 for r in before if not r.done)
+        t3 = time.time()
+        summary = gw.rollout(FABRIC_PRESET, 'v2')
+        t_rollout = time.time() - t3
+        after = [gw.submit(p, max_new_tokens=new) for p in prompts[5:]]
+        gw.run()
+        _check(in_flight > 0, 'no request was in flight at the flip')
+        _check(all(r.done and r.error is None for r in before + after),
+               'the rollout lost a request')
+        check('before the flip', [r.tokens for r in before], want['v1'][:5])
+        check('after the flip', [r.tokens for r in after], want['v2'][5:])
+        _check(summary['from_version'] == 'v1' and
+               summary['to_version'] == 'v2' and
+               summary['replicas'] == [0, 1], 'rollout summary %s' % summary)
+
+        # chaos: phase 13's seeded schedule, worker 0 SIGKILLed when
+        # request 5 arrives; its in-flight requests must fail over
+        gaps = torch.empty(len(prompts), dtype=torch.float64).exponential_(
+            generator=torch.Generator().manual_seed(5))
+        arrival_step = (gaps.cumsum(0) / 1.5).floor().long().tolist()
+        kill_at = len(prompts) // 2
+        reqs, expected = [], None
+        i = k = 0
+        while i < len(prompts) or any(not r.done for r in reqs):
+            while i < len(prompts) and arrival_step[i] <= k:
+                if i == kill_at:
+                    expected = len([g for g in gw.pool[0].assigned
+                                    if len(g.tokens) < new])
+                    handles[0].kill()
+                    handles[0].wait(30)
+                reqs.append(gw.submit(prompts[i], max_new_tokens=new))
+                i += 1
+            gw.step()
+            k += 1
+        failovers = int(gw.registry.get('gateway_failover_total').value())
+        _check(expected is not None and expected > 0,
+               'the SIGKILL caught no request in flight')
+        _check(all(r.done and r.error is None for r in reqs),
+               'a request did not complete after the SIGKILL')
+        check('SIGKILL', [r.tokens for r in reqs], want['v2'])
+        _check(failovers == expected, 'failovers %d, the killed worker had '
+               '%d in flight' % (failovers, expected))
+        crossed = [r.replica_history for r in reqs
+                   if len(r.replica_history) > 1]
+        _check(len(crossed) == failovers and
+               all(h == [0, 1] for h in crossed),
+               'failed-over histories %s' % crossed)
+
+        # a pull whose content identity is not the expected one
+        t4 = time.time()
+        try:
+            fworker._build_engine_from_args(argparse.Namespace(
+                artifacts=art.endpoint, cache=os.path.join(root, 'wrong'),
+                model=FABRIC_PRESET, version='v1', fingerprint='0' * 16,
+                preset=None, device='cuda', dtype=None))
+            refused = None
+        except ArtifactVerifyError as e:
+            refused = e
+        _check(refused is not None, 'a pull with a wrong fingerprint was '
+               'accepted')
+        t_refuse = time.time() - t4
+        print('fabric f32 (slice 6): %s preset (f32 artifacts of %.0f MB), '
+              '2 worker processes on the card pulling v1 by fingerprint '
+              '(publish %.1f s, both bound in %.1f s, first generate with '
+              'the lazy loads %.1f s); %d prompts of %d-%d tokens + %d new '
+              'token-identical to one slot engine (routed %s); rollout to '
+              'v2 with %d of 5 in flight at the flip: zero loss, v1 tokens '
+              'before and v2 after, cache_hits %d cache_misses %d, load_s '
+              '%.2f (both workers), rollout %.2f s; SIGKILL of worker 0: %d '
+              'in flight -> %d failovers, completed ratio 1.0, v2 tokens; '
+              'wrong fingerprint refused (%s, %.1f s); reference flash '
+              'launches %d; %.1f s'
+              % (FABRIC_PRESET, e1.nbytes / 2 ** 20, t_publish, t_bound, t_first, len(prompts),
+                 min(FABRIC_PROMPT_LENS), max(FABRIC_PROMPT_LENS), new,
+                 routed, in_flight, summary['cache_hits'],
+                 summary['cache_misses'], summary['load_s'], t_rollout,
+                 expected, failovers, type(refused).__name__, t_refuse,
+                 sum(launches.values()), time.time() - t0), flush=True)
+    finally:
+        if gw is not None:
+            gw.shutdown(timeout=30)
+        for h in handles:
+            h.cleanup()
+        if art is not None:
+            art.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _worker_bursts(handle):
+    """A worker process's decode-burst split from its /metrics.json: the
+    StepTimeline's perf_step_phase_seconds per phase, as the mean (sum /
+    count, exact) and the median read from the histogram's buckets
+    (interpolated within the bucket it falls in)."""
+    import urllib.request
+    with urllib.request.urlopen(handle.metrics_url + '/metrics.json',
+                                timeout=10) as r:
+        snap = json.loads(r.read().decode())
+    out = {}
+    for sample in snap['perf_step_phase_seconds']['samples']:
+        phase = sample['labels']['phase']
+        n = sample['count']
+        if not n:
+            continue
+        seen, lo, p50 = 0, 0.0, None
+        # per-bucket counts, keyed by upper bound (JSON sorts the keys)
+        for hi, c in sorted((float(le), c)
+                            for le, c in sample['buckets'].items()):
+            if p50 is None and c and seen + c >= n / 2.0:
+                p50 = lo + (hi - lo) * (n / 2.0 - seen) / c \
+                    if hi != float('inf') else lo
+            seen += c
+            lo = hi
+        out[phase] = (n, sample['sum'] / n * 1e3, p50 * 1e3)
+    return out
+
+
+def fabric_qos_phase(inproc):
+    """Slice 6, bf16: phase 14's QoS trace, policy and replay through 2
+    worker processes, each the full-width preset in bf16 on the card
+    (seeded weights): premium's completed ratio must be 1.0 and every
+    shed handle has its 'rejected' wide event. Printed beside phase 14's
+    in-process 2- and 1-replica tokens/s from this run."""
+    from paddle_tpu_torch.serving.fabric import preset
+
+    t0 = time.time()
+    vocab = preset(FABRIC_PRESET)['model']['vocab_size']
+    trace, _, _, t_mid = _qos_trace(vocab)
+    tenants = trace.tenants()
+    handles = _spawn_workers([dict(preset=FABRIC_PRESET,
+                                   dtype='bfloat16')] * 2)
+    t_bound = time.time() - t0
+    try:
+        gw, res, events, t_warm = _qos_replay(
+            lambda policy: _fabric_gateway(handles, admission=policy),
+            trace)
+        gw.shutdown(timeout=60)
+        bursts = [_worker_bursts(h) for h in handles]
+    finally:
+        for h in handles:
+            h.cleanup()
+    premium = [h for h, t in zip(res.handles, tenants) if t == 'premium']
+    shed = sum(1 for h in res.handles if h.error is not None)
+    prem_ratio = sum(1 for h in premium if h.done and h.error is None) \
+        / float(len(premium))
+    _check(prem_ratio == 1.0, 'fabric premium completed ratio %.4f != 1.0'
+           % prem_ratio)
+    rejected = sum(1 for e in events if e['outcome'] == 'rejected')
+    _check(rejected == shed, 'fabric rejected wide events (%d) != shed '
+           'handles (%d)' % (rejected, shed))
+    _check(res.completed + shed == len(trace), 'fabric replay: %d completed '
+           '+ %d shed of %d' % (res.completed, shed, len(trace)))
+    prem_ttft = [(e['first_token_t'] - e['arrival_t']) * 1e3 for e in events
+                 if e['tenant'] == 'premium'
+                 and e['first_token_t'] is not None]
+    split = '; '.join(
+        'worker %d: %d bursts, host dispatch mean %.2f ms p50 %.2f, wait for '
+        'the card mean %.2f ms p50 %.2f' % (
+            i, b['host_dispatch'][0], b['host_dispatch'][1],
+            b['host_dispatch'][2], b['device_block'][1],
+            b['device_block'][2])
+        for i, b in enumerate(bursts))
+    print('fabric bf16 QoS (slice 6): %d requests (bg doubling at %.3f s), '
+          '2 worker processes x 8 slots x 256 (%s preset, bf16), chunk 32, '
+          'burst 8, 64 new: premium completed ratio %.1f, premium TTFT p50 '
+          '%.1f ms p99 %.1f ms, shed rate %.4f (%d of %d), %.0f tokens/s '
+          '(%d tokens in %.2f s, max submit lag %.1f ms); in-process in '
+          'this run: 2 replicas %.0f tokens/s, 1 replica %.0f tokens/s; '
+          'cold bring-up %.1f s (both workers bound %.1f s + first tokens '
+          '%.1f s); decode bursts %s; %.1f s'
+          % (len(trace), t_mid, FABRIC_PRESET, prem_ratio,
+             _pct(prem_ttft, 50), _pct(prem_ttft, 99), shed / len(trace),
+             shed, len(trace), res.tokens_per_sec, res.tokens, res.wall_s,
+             res.max_lag_s * 1e3, inproc['2 replicas'], inproc['1 replica'],
+             t_bound + t_warm, t_bound, t_warm, split, time.time() - t0),
+          flush=True)
+
+
+def multimodel_phase():
+    """Slice 6, bf16: bench_extra.py's multi-model rung at its on-TPU
+    configuration (3 models and the head model's v2, vocab 30528, 768 x
+    12 x 12, 2 in-process ModelHost replicas of 8 slots x 256, chunk 32,
+    burst 8, 32 zipf-mixed Poisson requests with a mean gap of 20 ms,
+    rollout() of the head model at the midpoint): completed ratio 1.0,
+    per-model wide events equal to the workload's mix, no compile-cache
+    miss, and a budgeted pager whose resident bytes never pass the budget
+    and whose evictions equal the LRU oracle. No flash kernel launches."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.capacity.replay import replay
+    from paddle_tpu_torch.capacity.workload import WorkloadSpec
+    from paddle_tpu_torch.framework import io_save
+    from paddle_tpu_torch.monitor.events import (RequestLog,
+                                                 set_default_request_log)
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          ModelAffinityRouter, ModelHost,
+                                          ModelRegistry, ServingGateway)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    t0 = time.time()
+    cfg = GPTConfig(vocab_size=30528, hidden_size=768, num_layers=12,
+                    num_heads=12, max_position_embeddings=1024, dropout=0.0)
+    lens, mnt, n_req = (32, 64, 96, 128), 64, 32
+    max_len, chunk, block, num_slots = 256, 32, 8, 8
+    mean_gap, n_models, swap_at = 0.02, 3, 16
+    head = 'model_000'
+    root = tempfile.mkdtemp(prefix='chip_smoke_registry_')
+    try:
+        reg = ModelRegistry(root=root)
+        for i in range(n_models):
+            reg.publish('model_%03d' % i, 'v1', GPTForCausalLM(
+                cfg, device='cpu', seed=100 + i).state_dict())
+        reg.publish(head, 'v2', GPTForCausalLM(
+            cfg, device='cpu', seed=200).state_dict())
+        nbytes = reg.entry(head, 'v1').nbytes
+        t_publish = time.time() - t0
+
+        def engine_for(entry):
+            m = GPTForCausalLM(cfg, device='cuda')
+            m.load_state_dict(io_save.load(entry.path))
+            m.bfloat16().eval()
+            return ContinuousBatchingEngine(
+                m, num_slots=num_slots, max_len=max_len,
+                prefill_chunk=chunk, decode_block=block)
+
+        spec = WorkloadSpec(
+            requests=n_req, seed=0, vocab_size=cfg.vocab_size,
+            arrival={'process': 'poisson', 'mean_gap_s': mean_gap},
+            lengths={'dist': 'ladder', 'lens': list(lens)},
+            output={'dist': 'fixed', 'len': mnt},
+            models={'mode': 'zipf', 'count': n_models})
+        trace = spec.generate()
+
+        def host_factory():
+            # every model plus the rollout's incoming version co-resident
+            return ModelHost(reg, engine_for,
+                             byte_budget=(n_models + 2) * nbytes,
+                             max_len=max_len)
+
+        log = RequestLog(capacity=4 * n_req)
+        prev_log = set_default_request_log(log)
+        _reset_counts(fa)
+        try:
+            gw = ServingGateway(host_factory, replicas=2,
+                                registry=MetricRegistry(),
+                                router=ModelAffinityRouter())
+            t1 = time.time()
+            gw.generate(trace.prompts()[:2], max_new_tokens=2, model=head,
+                        tenant='warmup')
+            t_cold = time.time() - t1
+            gw.start()
+            rollout = {}
+
+            def swap(i):
+                if i == swap_at:
+                    rollout.update(gw.rollout(head, 'v2'))
+            try:
+                res = replay(gw, trace, max_new_tokens=mnt, timeout=600,
+                             before_submit=swap)
+            finally:
+                gw.shutdown(timeout=60)
+            events = [e for e in log.events() if e['tenant'] != 'warmup']
+        finally:
+            set_default_request_log(prev_log)
+        launches = _launches(fa)
+        _check(launches == _want(1), 'the multi-model rung launched a flash '
+               'kernel: %s' % launches)
+        _check(res.completed_ratio == 1.0, 'the rollout lost requests: '
+               'completed ratio %.4f' % res.completed_ratio)
+        _check(rollout.get('to_version') == 'v2', 'the mid-burst rollout '
+               'did not run: %s' % rollout)
+        _check(int(rollout.get('cache_misses') or 0) == 0,
+               'the warm bring-up compiled: %s' % rollout)
+        mix = {}
+        for e in events:
+            mix[e['model']] = mix.get(e['model'], 0) + 1
+        _check(mix == trace.model_mix(), 'wide-event attribution %s != the '
+               "trace's model mix %s" % (mix, trace.model_mix()))
+
+        # the weight-paging proof: a budget that holds 2 of the 3 models
+        t2 = time.time()
+        pager = ModelHost(reg, engine_for,
+                          byte_budget=2 * nbytes + nbytes // 2)
+        oracle, evicted, peak = [], [], 0
+        for i in list(range(n_models)) * 2:
+            key = ('model_%03d' % i, 'v1')
+            pager.load(*key)
+            if key in oracle:
+                oracle.remove(key)
+            while len(oracle) >= 2:
+                evicted.append(oracle.pop(0))
+            oracle.append(key)
+            _check(pager.resident_bytes <= pager.byte_budget,
+                   'resident bytes %d over the budget %d'
+                   % (pager.resident_bytes, pager.byte_budget))
+            peak = max(peak, pager.resident_bytes)
+        names = ['model_%03d' % i for i in range(n_models)]
+        evictions = {m: int(pager._m_evictions.labels(m).value())
+                     for m in names}
+        want = {m: sum(1 for k in evicted if k[0] == m) for m in names}
+        _check(evictions == want, 'evictions %s != the LRU oracle %s'
+               % (evictions, want))
+        pager.shutdown()
+        t_pager = time.time() - t2
+        print('multi-model rung (slice 6): %d models + %s v2 (bf16, %.0f MB '
+              'f32 artifacts each, publish %.1f s), 2 in-process ModelHost '
+              'replicas x %d slots x %d, chunk %d, burst %d, %d zipf-mixed '
+              'requests (mix %s), %d new, rollout of %s at request %d: '
+              'completed ratio %.1f, %.0f tokens/s (%d tokens in %.2f s, max '
+              'submit lag %.1f ms), cold first generate %.2f s, rollout '
+              'load_s %.2f (both replicas), cache_hits %d cache_misses %d; '
+              'pager (budget 2.5 artifacts): peak resident %.0f MB of %.0f, '
+              'evictions %s = the LRU oracle (%.1f s); flash launches %d; '
+              '%.1f s'
+              % (n_models, head, nbytes / 2 ** 20, t_publish, num_slots,
+                 max_len, chunk, block, n_req, trace.model_mix(), mnt, head,
+                 swap_at, res.completed_ratio, res.tokens_per_sec,
+                 res.tokens, res.wall_s, res.max_lag_s * 1e3, t_cold,
+                 rollout['load_s'], rollout['cache_hits'],
+                 rollout['cache_misses'], peak / 2 ** 20,
+                 pager.byte_budget / 2 ** 20, evictions, t_pager,
+                 sum(launches.values()), time.time() - t0), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def _pct(xs, q):
@@ -1677,7 +2175,10 @@ def main():
     engine_parity_phase()
     engine_throughput_phase()
     gateway_parity_phase()
-    gateway_qos_phase()
+    inproc_qos = gateway_qos_phase()
+    fabric_parity_phase()
+    fabric_qos_phase(inproc_qos)
+    multimodel_phase()
     train_f32_phase()
     train = train_main_phase(sku)
     second = train_seq1024_phase()

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` has a plain C interface. It is compiled by `nvcc` for
 sm_90a into `_build/lib<name>-<hash>.so` at first use, from the sources in
 this package only, and loaded with ctypes. The hash covers the source, the
 shared headers (`csrc/*.cuh`) and the flags, so an edited source builds
-anew and an unchanged one is reused.
+anew and an unchanged one is reused. Each lookup counts as a compile-cache
+hit (library up to date) or miss (an nvcc run) in framework/compile_cache.py.
 Nothing here runs at import time.
 """
 import ctypes
@@ -14,9 +15,13 @@ import shutil
 import subprocess
 import tempfile
 
+from .framework import compile_cache
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
-BUILD_DIR = os.path.join(_HERE, '_build')
+DEFAULT_BUILD_DIR = os.path.join(_HERE, '_build')
+# the persistent compile cache (framework/compile_cache.py can move it)
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -56,6 +61,7 @@ def _start(name):
     """Start nvcc for csrc/<name>.cu unless its library is built; returns
     (process or None, temporary output, final path)."""
     src, lib = _target(name)
+    compile_cache.note(hit=os.path.exists(lib))
     if os.path.exists(lib):
         return None, None, lib
     os.makedirs(BUILD_DIR, exist_ok=True)

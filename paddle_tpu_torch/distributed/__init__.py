@@ -1,4 +1,5 @@
-"""Distributed pieces of the port. So far only the part of the RPC
-resilience layer that the serving gateway uses (resilience.py); the
-collectives, fleet, pipeline and parameter-server modules are not
-ported."""
+"""Distributed pieces of the port: the RPC resilience layer
+(resilience.py: retry policy, deadlines, circuit breakers, the framed
+`ResilientChannel`) and the parameter server's wire codec (ps/wire.py).
+The collectives, fleet, pipeline and the parameter server's tables and
+services are not ported."""

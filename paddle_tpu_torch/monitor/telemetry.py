@@ -1,7 +1,7 @@
 """Metric-family schemas of the serving path (counterpart of
 paddle_tpu/monitor/telemetry.py): the `record_*_schema` functions that the
 port's serving metrics, request log, step timeline, gateway, circuit
-breakers and trace replay register through, each with the reference's
+breakers and RPC channels, model hosts and trace replay register through, each with the reference's
 family names, label names and label order. The dryrun snapshot lines, the
 schema baseline gate and the families of subsystems the port does not
 have (the compile watchdog, the cost model, the request log's file sink)
@@ -11,10 +11,12 @@ __all__ = ['record_serving_schema', 'record_serving_request_schema',
            'record_perf_schema', 'record_request_event_schema',
            'record_tenant_schema', 'record_qos_schema',
            'record_gateway_schema', 'record_rpc_schema',
+           'record_client_op_schema', 'record_registry_schema',
            'record_capacity_schema', 'SERVING_PAGED_FAMILIES',
            'PERF_FAMILIES', 'SERVING_REQUEST_FAMILIES',
            'REQUEST_EVENT_FAMILIES', 'TENANT_FAMILIES', 'QOS_FAMILIES',
-           'GATEWAY_FAMILIES', 'RPC_FAMILIES', 'CAPACITY_FAMILIES']
+           'GATEWAY_FAMILIES', 'RPC_FAMILIES', 'CLIENT_OP_FAMILIES',
+           'REGISTRY_FAMILIES', 'CAPACITY_FAMILIES']
 
 
 # the paged-serving families: (kind, name, help) with no labels, so
@@ -277,6 +279,77 @@ def record_rpc_schema(registry):
     out = {}
     for kind, name, doc, labels in RPC_FAMILIES:
         out[name] = getattr(registry, kind)(name, doc, labels)
+    return out
+
+
+# the per-op client counters of the two socket services. Label budget:
+# op is each service's closed OP_SEMANTICS vocabulary.
+CLIENT_OP_FAMILIES = (
+    ('counter', 'ps_client_calls_total',
+     'embedding-service client RPCs by op', ('op',)),
+    ('counter', 'ps_client_call_errors_total',
+     'embedding-service client RPCs that raised', ('op',)),
+    ('counter', 'graph_client_calls_total',
+     'graph-service client RPCs by op', ('op',)),
+    ('counter', 'graph_client_call_errors_total',
+     'graph-service client RPCs that raised', ('op',)),
+)
+
+
+def record_client_op_schema(registry):
+    """Register the service-client per-op counters on `registry` and
+    return {name: family}."""
+    out = {}
+    for kind, name, doc, labels in CLIENT_OP_FAMILIES:
+        out[name] = getattr(registry, kind)(name, doc, labels)
+    return out
+
+
+# the multi-model serving registry/weight-paging families
+# (serving/registry/). Single-source rule: ModelHost registers
+# through record_registry_schema. Label
+# budget (docs/observability.md): `model` is bounded by ModelLabeler —
+# the TenantLabeler discipline applied to model names, so a caller
+# spraying model ids can never explode cardinality.
+REGISTRY_FAMILIES = (
+    ('gauge', 'registry_resident_bytes',
+     'artifact bytes of models currently paged in on this host', ()),
+    ('gauge', 'registry_models_resident',
+     'model versions currently resident on this host', ()),
+    ('counter', 'registry_loads_total',
+     'model loads (weight page-ins) per model', ('model',)),
+    ('counter', 'registry_evictions_total',
+     'model evictions (weight page-outs) per model', ('model',)),
+    ('counter', 'registry_evictions_deferred_total',
+     'evictions deferred because in-flight requests still referenced '
+     'the weights', ()),
+    ('histogram', 'registry_load_seconds',
+     'wall seconds to bring a model resident (artifact load + engine '
+     'build, warmup included when performed)', ()),
+    ('counter', 'registry_warm_load_cache_hits_total',
+     'persistent-compile-cache hits observed during warm model '
+     'bring-ups (rollout warmups)', ()),
+    ('counter', 'registry_warm_load_cache_misses_total',
+     'persistent-compile-cache misses observed during warm model '
+     'bring-ups (a rollout that recompiled)', ()),
+    ('counter', 'registry_rollouts_total',
+     'version rollouts completed per model', ('model',)),
+)
+
+
+def record_registry_schema(registry):
+    """Register the model-registry/weight-paging families on `registry`
+    and return {name: family}. Used by ModelHost at construction."""
+    from .registry import exponential_buckets
+    out = {}
+    for kind, name, doc, labels in REGISTRY_FAMILIES:
+        kw = {}
+        if kind == 'histogram':
+            # spans a stub-engine reload (~ms) through a cold multi-GB
+            # artifact load + compile (~minutes)
+            kw['buckets'] = exponential_buckets(0.001, 2.0, 18)
+        out[name] = getattr(registry, kind)(name, doc, labels, **kw) \
+            if labels else getattr(registry, kind)(name, doc, **kw)
     return out
 
 

@@ -12,9 +12,16 @@ which the metrics server's /debug/traces serves, as Chrome-trace JSON
 too (``spans_to_chrome``). Chaos faults annotate the span in flight
 (``note_fault``).
 
+Cross-process propagation: an RPC client (distributed/resilience.py's
+ResilientChannel) injects each attempt span's context into its message
+under ``TRACE_KEY``; a server (the fabric's worker and artifact server)
+pops it with ``Tracer.server_span`` and continues the trace, so one
+trace_id walks gateway route -> rpc.call -> rpc.attempt -> the worker's
+handler span across the process boundary.
+
 The ring plays the part of the reference's flight recorder, without its
-dumps to disk. The reference's cross-process propagation and tail-based
-retention serve the RPC fabric, which the port does not have yet.
+dumps to disk. Not ported: the reference's tail-based retention
+(force-keeping a failed-over request's trace), listed in ROADMAP.
 
 A disabled tracer's ``start_span`` is one attribute load + branch
 returning the shared ``NULL_SPAN``: no allocation, no clock read, no
@@ -32,7 +39,10 @@ from .registry import default_registry
 
 __all__ = ['Span', 'Tracer', 'NULL_SPAN', 'default_tracer',
            'set_default_tracer', 'register_metrics', 'TRACING_FAMILIES',
-           'spans_to_chrome', 'current_span', 'note_fault']
+           'spans_to_chrome', 'current_span', 'note_fault', 'TRACE_KEY']
+
+# the message-dict key an RPC client injects its span context under
+TRACE_KEY = '_trace'
 
 # the tracer's own health families (unlabeled counters)
 TRACING_FAMILIES = (
@@ -145,6 +155,10 @@ class Span:
         self.error = repr(exc)
         return self
 
+    def ctx(self):
+        """The wire form: what a client injects under TRACE_KEY."""
+        return {'trace_id': self.trace_id, 'span_id': self.span_id}
+
     def finish(self):
         if self.end is not None:
             return
@@ -217,10 +231,12 @@ class Tracer:
         """The calling thread/context's innermost entered span."""
         return _current.get()
 
-    def start_span(self, name, parent=None, tags=None, root=False):
-        """Begin a span. Parent resolution: explicit `parent` span > the
-        contextvar current span > a fresh root. `root=True` always opens
-        a NEW trace (the engines' per-request serving.request span). The
+    def start_span(self, name, parent=None, tags=None, root=False,
+                   ctx=None):
+        """Begin a span. Parent resolution: explicit `ctx` (a remote
+        caller's ``Span.ctx()``) > explicit `parent` span > the contextvar
+        current span > a fresh root. `root=True` always opens a NEW trace
+        (the engines' per-request serving.request span). The
         returned span is NOT current until entered (``with``) —
         lifecycle spans held across calls (a serving request) just
         ``finish()`` manually."""
@@ -228,6 +244,9 @@ class Tracer:
             return NULL_SPAN
         if root:
             trace_id, parent_id = _new_id(128), None
+        elif ctx is not None:
+            trace_id = str(ctx.get('trace_id') or _new_id(128))
+            parent_id = ctx.get('span_id')
         elif parent:
             trace_id, parent_id = parent.trace_id, parent.span_id
         else:
@@ -238,6 +257,20 @@ class Tracer:
                 trace_id, parent_id = _new_id(128), None
         self._m_started.inc()
         return Span(self, name, trace_id, parent_id, tags)
+
+    def server_span(self, msg, prefix):
+        """Server-side continuation: pop TRACE_KEY from an incoming
+        message dict and open a span parented on the remote caller.
+        ALWAYS pops (even disabled / untraced) so op handlers never see
+        transport metadata; returns NULL_SPAN when there is nothing to
+        continue."""
+        ctx = msg.pop(TRACE_KEY, None) if isinstance(msg, dict) else None
+        if not self.enabled or not isinstance(ctx, dict):
+            return NULL_SPAN
+        name = prefix
+        if isinstance(msg, dict) and 'op' in msg:
+            name = '%s.%s' % (prefix, msg['op'])
+        return self.start_span(name, ctx=ctx)
 
     def spans(self):
         """Oldest-first copy of the finished-span ring (span dicts)."""

@@ -25,18 +25,24 @@ door, metrics.py tokens/s and latency percentiles.
 
 gateway/ fronts a pool of engine replicas: `ServingGateway` with QoS
 admission (`QosPolicy`, `TenantClass`), least-loaded / round-robin /
-model-affinity routing, failover of a lost replica's requests, drain and
-`AutoscalePolicy`. fabric/ holds the replica contract it composes. The
-model registry (`gateway.rollout()`), the socket replicas and worker
-processes of the fabric are not ported yet.
+model-affinity / prefix-affinity routing, failover of a lost replica's
+requests, drain, `AutoscalePolicy` and the zero-loss `rollout()` of a
+model version. registry/ holds `ModelRegistry` (versions, fingerprints,
+the serving pointer) and `ModelHost` (weight paging under a byte budget).
+fabric/ puts replicas in worker processes behind sockets (`ReplicaWorker`,
+`SocketReplica`, the JSON wire protocol, artifact distribution, the
+prefix directory, the preset zoo).
 """
 from .engine import ContinuousBatchingEngine
+from .fabric import (PrefixAffinityRouter, ReplicaWorker, SocketReplica,
+                     spawn_worker)
 from .gateway import (AutoscalePolicy, GatewayRequest, ModelAffinityRouter,
                       QosPolicy, ServingGateway, TenantClass)
 from .kv_cache import (PageAllocator, PrefixCache, SlotAllocator,
                        build_paged_pools, build_slot_caches)
 from .metrics import ServingMetrics, percentile
 from .paged_engine import NGramProposer, PagedContinuousBatchingEngine
+from .registry import ModelHost, ModelRegistry, RegistryEntry
 from .scheduler import PagedScheduler, Request, Scheduler
 
 __all__ = ['ContinuousBatchingEngine', 'PagedContinuousBatchingEngine',
@@ -45,4 +51,6 @@ __all__ = ['ContinuousBatchingEngine', 'PagedContinuousBatchingEngine',
            'ServingMetrics', 'percentile', 'Request', 'Scheduler',
            'PagedScheduler', 'ServingGateway', 'GatewayRequest',
            'AutoscalePolicy', 'QosPolicy', 'TenantClass',
-           'ModelAffinityRouter']
+           'ModelAffinityRouter', 'ModelRegistry', 'RegistryEntry',
+           'ModelHost', 'SocketReplica', 'ReplicaWorker',
+           'PrefixAffinityRouter', 'spawn_worker']

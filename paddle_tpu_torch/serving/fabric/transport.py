@@ -1,11 +1,11 @@
 """ReplicaTransport: the gateway's replica contract, made explicit
-(counterpart of paddle_tpu/serving/fabric/transport.py, copied whole).
+(counterpart of paddle_tpu/serving/fabric/transport.py).
 
 The gateway composes replicas through a small surface — submit new
 work, step in-flight work, observe load, walk the lifecycle ladder.
-This base class states it so a replica living in another PROCESS (the
-reference's fabric/socket_replica.py, not ported yet) is
-interchangeable with one living in this one (gateway/replica.py).
+This base class states it so a replica living in another PROCESS
+(fabric/socket_replica.py) is interchangeable with one living in this
+one (gateway/replica.py).
 
 The contract, by group:
 
@@ -31,9 +31,10 @@ driver (provided here)
 
 scrape (default here, socket transports override)
     scrape_kwargs() -> kwargs for a fleet collector's add_target:
-    in-proc replicas hand over their registry object; metrics_server()
-    -> a MetricsServer over the replica's registry whose /readyz follows
-    the drain state.
+    in-proc replicas hand over their registry object, socket replicas
+    their worker's /metrics.json url; metrics_server() -> a
+    MetricsServer over the replica's registry whose /readyz follows the
+    drain state.
 """
 import threading
 
@@ -77,30 +78,36 @@ class ReplicaTransport:
         self._cv = threading.Condition()
         self._thread = None
 
+    def _abstract(self, method):
+        raise NotImplementedError(
+            '%s does not implement %s(): a transport subclass must; '
+            'InprocReplica (gateway/replica.py) and SocketReplica '
+            '(fabric/socket_replica.py) do' % (type(self).__name__, method))
+
     # ---- transport (subclass responsibility) --------------------------
 
     def submit(self, prompt, **sampling):
-        raise NotImplementedError
+        self._abstract('submit')
 
     def step(self):
-        raise NotImplementedError
+        self._abstract('step')
 
     def has_pending(self):
         """Unfinished work the driver should keep stepping for."""
-        raise NotImplementedError
+        self._abstract('has_pending')
 
     # ---- observability (subclass responsibility) ----------------------
 
     def queue_depth(self):
-        raise NotImplementedError
+        self._abstract('queue_depth')
 
     def occupancy(self):
-        raise NotImplementedError
+        self._abstract('occupancy')
 
     def load(self):
         """Router ranking key: queued requests + occupied slots, both
         in request units."""
-        raise NotImplementedError
+        self._abstract('load')
 
     def scrape_kwargs(self):
         """How gateway.attach_fleet registers this replica with the

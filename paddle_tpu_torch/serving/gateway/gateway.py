@@ -48,14 +48,11 @@ callback. Model code runs only inside an engine's step(), which enters
 torch.no_grad itself: grad mode is thread-local, and a driver thread
 starts with it on.
 
-Not ported, each raising NotImplementedError: `rollout()` waits for the
-model registry (serving/registry/hosting.py) and a compile cache;
-`attach_fleet()` waits for monitor/federation.py, and with it the
-reference's `burn_source` (a fleet-wide burn fed to autoscale_tick).
-The reference's request-aware routing hooks (`candidates_for_request`,
-`note_placement`) wait for the fabric's PrefixAffinityRouter, and its
-tail-based trace retention (force-keeping a failed-over request's
-trace) for the tracer's retention with the RPC fabric.
+Not ported (ROADMAP Queue 1): `attach_fleet()` raises
+NotImplementedError until monitor/federation.py lands, and with it the
+reference's `burn_source` (a fleet-wide burn fed to autoscale_tick); the
+reference's tail-based trace retention (force-keeping a failed-over
+request's trace) waits for the tracer's retention.
 """
 import collections
 import itertools
@@ -134,8 +131,8 @@ class ServingGateway:
                  clock=None):
         if engine_factory is None:
             # fabric mode: the pool is populated by adopt_replica()
-            # (replicas built elsewhere), so there is nothing to build
-            # locally
+            # (e.g. SocketReplicas proxying worker processes), so there
+            # is nothing to build locally
             if replicas:
                 raise ValueError('engine_factory=None requires replicas=0 '
                                  '(populate the pool via adopt_replica)')
@@ -305,7 +302,11 @@ class ServingGateway:
         so one walk both fails over the dead replica's in-flight work
         and still places gw if anyone is left."""
         model = gw.sampling.get('model')
-        if model is not None and hasattr(self.router, 'candidates_for'):
+        if hasattr(self.router, 'candidates_for_request'):
+            # request-aware routing (e.g. fabric.PrefixAffinityRouter):
+            # the router sees the PROMPT, which candidates() never does
+            candidates = self.router.candidates_for_request(self.pool, gw)
+        elif model is not None and hasattr(self.router, 'candidates_for'):
             candidates = self.router.candidates_for(self.pool, model)
         else:
             candidates = self.router.candidates(self.pool)
@@ -327,6 +328,12 @@ class ServingGateway:
                 gw._eng_req = eng_req
                 gw.replica_history.append(rep.index)
                 self._m_route.labels(str(rep.index)).inc()
+                note = getattr(self.router, 'note_placement', None)
+                if note is not None:
+                    # feed the prefix directory on EVERY placement,
+                    # failover re-placements included — the hint table
+                    # tracks where the tokens actually went
+                    note(gw.prompt, rep.index)
                 span.set_tag('replica', rep.index)
                 rep.wake()
                 return True
@@ -431,13 +438,60 @@ class ServingGateway:
     # ---- hot-swap -----------------------------------------------------
 
     def rollout(self, model, new_version):
-        """Zero-downtime version swap for `model` across the pool. Not
-        ported: it needs the model registry's hosts
-        (serving/registry/hosting.py) and a compile cache to warm from."""
-        raise NotImplementedError(
-            'ServingGateway.rollout() is not ported: it waits for '
-            'serving/registry/hosting.py (ModelHost, ModelRegistry) and '
-            'the compile cache')
+        """Zero-downtime version swap for `model` across the pool.
+
+        Three phases, ordered so no request is ever lost:
+
+        1. **Warm.** Every routable multi-model replica (its engine is a
+           registry.ModelHost) loads + pins the new version NEXT TO the
+           old one — a warm bring-up that must hit the compile cache
+           (same program shapes, new weights; in the port a cache miss is
+           a kernel build, and the engines build none). In-flight requests
+           on the old version keep their weights: they hold refcounts.
+        2. **Flip.** Each distinct ModelRegistry's serving pointer moves
+           to `new_version` atomically — from this instant every new
+           submit(model=...) resolves to the new version.
+        3. **Drain.** The old version is unpinned and evicted ONCE its
+           refcount drops to zero (deferred eviction — the
+           drain-never-kill discipline applied to weights instead of
+           replicas). Nothing is cancelled.
+
+        Returns a summary dict; `cache_hits`/`cache_misses` are the
+        compile-cache delta across all warm loads (a correct rollout
+        warms entirely from cache). Raises ValueError when no replica
+        hosts models (the pool is single-model) or the version is
+        unknown."""
+        with self._lock:
+            hosts = [r for r in self.pool if r.routable()
+                     and hasattr(r.engine, 'prepare_rollout')]
+        if not hosts:
+            raise ValueError('no routable replica hosts models — '
+                             'rollout needs ModelHost-backed replicas')
+        with self._tracer.start_span(
+                'gateway.rollout',
+                tags={'model': model, 'version': new_version,
+                      'replicas': len(hosts)}):
+            registries = []
+            for r in hosts:
+                reg = r.engine.registry
+                if all(reg is not g for g in registries):
+                    registries.append(reg)
+            old = registries[0].serving_version(model)
+            infos = [r.engine.prepare_rollout(model, new_version)
+                     for r in hosts]
+            for reg in registries:
+                reg.set_serving(model, new_version)
+            for r in hosts:
+                r.engine.finish_rollout(model, old)
+        return {
+            'model': model,
+            'from_version': old,
+            'to_version': new_version,
+            'replicas': [r.index for r in hosts],
+            'cache_hits': sum(i.get('cache_hits', 0) for i in infos),
+            'cache_misses': sum(i.get('cache_misses', 0) for i in infos),
+            'load_s': sum(i.get('load_s', 0.0) for i in infos),
+        }
 
     # ---- delivery -----------------------------------------------------
 
@@ -669,9 +723,10 @@ class ServingGateway:
     # ---- pool management ----------------------------------------------
 
     def adopt_replica(self, rep):
-        """Add an externally built ReplicaTransport to the pool. The
+        """Add an externally built ReplicaTransport (e.g. a fabric
+        SocketReplica proxying a worker process) to the pool. The
         gateway assigns the pool index; everything downstream —
-        routing, failover, QoS — treats it exactly like a
+        routing, failover, QoS, rollout — treats it exactly like a
         factory-built replica."""
         with self._lock:
             rep.index = len(self.pool)

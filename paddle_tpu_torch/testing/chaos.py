@@ -1,5 +1,5 @@
 """Fault-injection harness for failure-path tests (counterpart of
-paddle_tpu/testing/chaos.py, cut to the hook-point injectors).
+paddle_tpu/testing/chaos.py).
 
 The resilience layer (distributed/resilience.py) exposes hook points —
 'connect', 'send', 'recv', each fired with the endpoint string — and this
@@ -12,18 +12,24 @@ failing test can never leak a fault into the next one.
 Faults compose (nested context managers fire in install order) and can be
 scoped to an endpoint substring, a hook point, and a max fire count.
 
-`kill_server`, `crash_io_save` and `truncate_file` wait for the serving
-fabric's servers and the checkpoint writer (`io_save`), which the port
-does not have yet.
+Beyond the hook points: `kill_server` hard-kills a socket server (the
+fabric's ReplicaWorker or ArtifactServer) like a SIGKILLed pod,
+`crash_io_save` kills the checkpoint writer (framework/io_save.py) at a
+named point of its atomic write, and `truncate_file` tears a file on
+disk.
 """
 import contextlib
+import os
+import socket
 import threading
 
 from ..distributed import resilience
+from ..framework import io_save as _io_save
 from ..monitor import tracing as _tracing
 
 __all__ = ['inject', 'drop_connections', 'delay_connections', 'partition',
-           'fail_after', 'active_faults']
+           'fail_after', 'active_faults', 'kill_server', 'WriterKilled',
+           'crash_io_save', 'truncate_file']
 
 
 def active_faults():
@@ -128,3 +134,77 @@ def fail_after(n, endpoint=None, point='send', exc=ConnectionResetError):
                 raise exc('chaos: %s to %s failed after %d ops'
                           % (p, ep, n))
     return inject(hook)
+
+
+def kill_server(server):
+    """Hard-kill a socket server (anything holding a socketserver in
+    `_srv`, as the fabric's ReplicaWorker and ArtifactServer do): stop
+    the listener AND sever every established connection, like a
+    SIGKILLed pod. In-flight
+    client calls see a reset; later calls see refused connections (until
+    something rebinds the port)."""
+    srv = getattr(server, '_srv', server)
+    try:
+        srv.shutdown()
+    except Exception:
+        pass
+    for conn in list(getattr(srv, 'live_connections', ())):
+        try:
+            conn.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            conn.close()
+        except OSError:
+            pass
+    try:
+        srv.server_close()
+    except Exception:
+        pass
+
+
+class WriterKilled(BaseException):
+    """Raised by crash_io_save to simulate a writer dying mid-save.
+
+    Deliberately NOT an Exception: a preempted pod doesn't run except
+    handlers, and deriving from BaseException keeps broad `except
+    Exception` recovery paths in the code under test from swallowing the
+    simulated death."""
+
+
+def crash_io_save(point, path_substr=None, times=1):
+    """Kill the io_save atomic writer at a named point for the scope.
+
+    point: 'pre_rename' (payload still in the temp file — the target
+    path is untouched) or 'pre_manifest' (payload renamed into place,
+    manifest sidecar missing/stale). path_substr scopes the crash to
+    matching destination paths; times bounds how many saves die.
+    Returns a context manager yielding the fault (inspect `.fired`).
+    """
+    def action(p, target):
+        raise WriterKilled('chaos: writer killed at %s of %s'
+                           % (p, target))
+    fault = _Fault(action, _as_points(point), path_substr, times)
+
+    @contextlib.contextmanager
+    def _scope():
+        _io_save._FAULT_HOOKS.append(fault)
+        try:
+            yield fault
+        finally:
+            try:
+                _io_save._FAULT_HOOKS.remove(fault)
+            except ValueError:
+                pass
+    return _scope()
+
+
+def truncate_file(path, keep_bytes=None, drop_bytes=16):
+    """Truncate a file in place (a preempted writer / torn disk write).
+    keep_bytes wins if given; otherwise the final drop_bytes are cut."""
+    size = os.path.getsize(path)
+    if keep_bytes is None:
+        keep_bytes = max(size - drop_bytes, 0)
+    with open(path, 'r+b') as f:
+        f.truncate(keep_bytes)
+    return keep_bytes

@@ -580,12 +580,14 @@ def test_gateway_matches_jax_gateway(pair, prompts):
         assert port_run['metrics'][name] == jax_run['metrics'][name], name
 
 
-# ---- not ported -------------------------------------------------------
+# ---- rollout without hosts; fleet not ported --------------------------
 
 
 def test_rollout_and_attach_fleet_name_their_modules(model):
+    # rollout() is ported (tests/test_torch_registry.py); over plain
+    # engines, as the JAX gateway does, it refuses to run
     gw = _gw(model, replicas=1)
-    with pytest.raises(NotImplementedError, match='serving/registry'):
+    with pytest.raises(ValueError, match='ModelHost-backed'):
         gw.rollout('m', 'v2')
     with pytest.raises(NotImplementedError, match='monitor/federation'):
         gw.attach_fleet(object())

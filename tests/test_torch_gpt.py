@@ -161,9 +161,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # the walk reached the serving and monitor modules of slice 4
+    # the walk reached the serving and monitor modules of slice 4 and the
+    # registry and fabric modules of slice 6
     imported = set(res.stdout.split())
-    for mod in SLICE4_MODULES:
+    for mod in SLICE4_MODULES + SLICE6_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -172,6 +173,13 @@ SLICE4_MODULES = ('serving', 'serving.engine', 'serving.paged_engine',
                   'monitor', 'monitor.registry', 'monitor.tracing',
                   'monitor.events', 'monitor.telemetry', 'monitor.perf',
                   'monitor.perf.timeline')
+SLICE6_MODULES = ('framework.io_save', 'framework.compile_cache',
+                  'distributed.ps.wire', 'distributed.resilience',
+                  'testing.chaos', 'serving.registry',
+                  'serving.registry.registry', 'serving.registry.hosting',
+                  'serving.fabric.protocol', 'serving.fabric.presets',
+                  'serving.fabric.worker', 'serving.fabric.socket_replica',
+                  'serving.fabric.artifacts', 'serving.fabric.directory')
 
 
 def _port_files():
@@ -199,7 +207,7 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
                     offenders.append('%s: %s' % (path, name))
     assert len(_port_files()) > 10
     scanned = {os.path.relpath(f, REPO) for f in _port_files()}
-    for mod in SLICE4_MODULES:
+    for mod in SLICE4_MODULES + SLICE6_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod

@@ -8,10 +8,19 @@ package's, on the CPU.
   clamps and expires on the same clock.
 - The chaos injectors fire at their hook points with exact counts, and
   scope to their endpoint and points.
+- ResilientChannel and call_once walk the JAX channel's retry, deadline
+  and breaker sequence against one loopback server under the same chaos
+  hooks, with the same outcomes and rpc_* samples; the attempt spans'
+  context reaches the server's handler span (TRACE_KEY, server_span).
+- kill_server, crash_io_save and truncate_file (the rest of chaos.py) are
+  covered with the fabric's servers and io_save in test_torch_fabric.py
+  and test_torch_io_save.py.
 """
 import errno
 import random
 import socket
+import socketserver
+import threading
 import time
 
 import numpy as np
@@ -19,10 +28,13 @@ import pytest
 
 from paddle_tpu.distributed import resilience as jres
 from paddle_tpu.monitor import default_registry as jdefault_registry
+from paddle_tpu.serving.fabric import protocol as jprotocol
+from paddle_tpu.testing import chaos as jchaos
 from paddle_tpu_torch.distributed import resilience as tres
 from paddle_tpu_torch.monitor import default_registry as tdefault_registry
 from paddle_tpu_torch.monitor import tracing as ttracing
 from paddle_tpu_torch.monitor.registry import MetricRegistry
+from paddle_tpu_torch.serving.fabric import protocol as tprotocol
 from paddle_tpu_torch.testing import chaos
 
 
@@ -215,3 +227,143 @@ def test_fault_annotates_the_current_span():
     (done,) = tracer.spans()
     assert [(e['name'], e['args']) for e in done['events']] == [
         ('chaos.fault', {'point': 'send', 'endpoint': 'ep'})]
+
+
+# ---- the channel against one loopback server ----------------------------
+
+
+class _EchoHandler(socketserver.BaseRequestHandler):
+    """Answers each frame in the codec it came in: the fabric's JSON
+    (a payload starting with '{') or the PS wire format (call_once's)."""
+
+    def handle(self):
+        from paddle_tpu_torch.distributed.ps import wire
+        while True:
+            try:
+                hdr = self.request.recv(8, socket.MSG_WAITALL)
+                if len(hdr) < 8:
+                    return
+                n = int.from_bytes(hdr, 'big')
+                buf = self.request.recv(n, socket.MSG_WAITALL)
+            except (ConnectionError, OSError):
+                return
+            codec = tprotocol.JSON_CODEC if buf[:1] == b'{' \
+                else (wire.encode, wire.decode)
+            msg = codec[1](buf)
+            traced = ttracing.TRACE_KEY in msg
+            with self.server.tracer.server_span(msg, 'echo'):
+                tres._send_frame(self.request, {
+                    'ok': True, 'n': msg.get('n'), 'traced': traced,
+                    'clean': ttracing.TRACE_KEY not in msg}, codec)
+
+
+class _EchoServer(socketserver.ThreadingTCPServer):
+    daemon_threads = True
+    allow_reuse_address = True
+
+
+@pytest.fixture
+def echo_server():
+    srv = _EchoServer(('127.0.0.1', 0), _EchoHandler)
+    srv.tracer = ttracing.Tracer(registry=MetricRegistry())
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    yield srv, '127.0.0.1:%d' % srv.server_address[1]
+    srv.shutdown()
+    srv.server_close()
+
+
+def _channel_walk(res, chaos_mod, codec, registry, endpoint):
+    """One scripted walk of a channel: clean call, retried drops, a
+    non-idempotent drop, a refused oversized frame, an expired deadline,
+    failures up to an open breaker, and call_once. Returns each step's
+    outcome and the endpoint's rpc_* samples after it."""
+    policy = res.RetryPolicy(max_attempts=3, base_delay=0.001, jitter=0)
+    ch = res.ResilientChannel(
+        endpoint, retry_policy=policy, codec=codec, max_frame=4096,
+        breaker=res.CircuitBreaker(failure_threshold=4, reset_timeout=60.0))
+    names = ('rpc_attempts_total', 'rpc_attempt_failures_total',
+             'rpc_backoff_seconds_total', 'rpc_deadline_expired_total',
+             'rpc_circuit_open_total')
+    out = []
+
+    def step(label, fn):
+        try:
+            got = fn()
+            got = (got['ok'], got['n'], got['clean'])
+        except Exception as e:     # noqa: BLE001 — the type is the result
+            got = type(e).__name__
+        out.append((label, got, ch.breaker.state,
+                    [round(registry.get(n).labels(endpoint).value(), 6)
+                     for n in names]))
+
+    step('clean', lambda: ch.call({'op': 'echo', 'n': 1}))
+    with chaos_mod.drop_connections(endpoint=endpoint, point='send',
+                                    times=2):
+        step('two drops', lambda: ch.call({'op': 'echo', 'n': 2}))
+    with chaos_mod.drop_connections(endpoint=endpoint, point='recv',
+                                    times=1):
+        step('non-idempotent', lambda: ch.call({'op': 'echo', 'n': 3},
+                                               idempotent=False))
+    step('oversized', lambda: ch.call({'op': 'echo', 'blob': 'x' * 5000}))
+    step('expired', lambda: ch.call({'op': 'echo', 'n': 4},
+                                    deadline=res.Deadline(-1.0)))
+    with chaos_mod.drop_connections(endpoint=endpoint, point='connect'):
+        step('all dropped', lambda: ch.call({'op': 'echo', 'n': 5}))
+        step('breaker open', lambda: ch.call({'op': 'echo', 'n': 6}))
+    ch.close()
+    try:
+        once = res.call_once(endpoint, {'op': 'echo', 'n': 7})
+        out.append(('call_once', once['n'], once['clean']))
+    except Exception as e:         # noqa: BLE001
+        out.append(('call_once', type(e).__name__))
+    return out
+
+
+def test_resilient_channel_walk_matches_jax(echo_server):
+    _, endpoint = echo_server
+    from paddle_tpu.distributed import resilience as jres_
+    jwalk = _channel_walk(jres_, jchaos, jprotocol.JSON_CODEC,
+                          jdefault_registry(), endpoint)
+    twalk = _channel_walk(tres, chaos, tprotocol.JSON_CODEC,
+                          tdefault_registry(), endpoint)
+    assert twalk == jwalk
+    outcomes = [x[1] for x in twalk]
+    assert outcomes[:3] == [(True, 1, True), (True, 2, True),
+                            'RetryableError']
+    assert outcomes[3:7] == ['FrameTooLargeError', 'DeadlineExceeded',
+                             'RetryableError', 'CircuitOpenError']
+    assert twalk[-1] == ('call_once', 7, True)
+    assert chaos.active_faults() == 0
+
+
+def test_channel_attempt_spans_reach_the_server_span(echo_server):
+    srv, endpoint = echo_server
+    tracer = ttracing.Tracer(registry=MetricRegistry())
+    prev = ttracing.set_default_tracer(tracer)
+    try:
+        ch = tres.ResilientChannel(
+            endpoint, codec=tprotocol.JSON_CODEC,
+            retry_policy=tres.RetryPolicy(max_attempts=4, base_delay=0.001,
+                                          jitter=0))
+        with chaos.drop_connections(endpoint=endpoint, point='send',
+                                    times=2):
+            reply = ch.call({'op': 'pull', 'n': 9})
+        ch.close()
+    finally:
+        ttracing.set_default_tracer(prev)
+    assert reply == {'ok': True, 'n': 9, 'traced': True, 'clean': True}
+    spans = tracer.spans()
+    (call,) = [sp for sp in spans if sp['name'] == 'rpc.call']
+    attempts = [sp for sp in spans if sp['name'] == 'rpc.attempt']
+    assert len(attempts) == 3
+    assert all(a['parent_id'] == call['span_id'] and
+               a['trace_id'] == call['trace_id'] for a in attempts)
+    assert [a['status'] for a in attempts] == ['error', 'error', 'ok']
+    deadline = time.monotonic() + 5
+    while not srv.tracer.spans() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    (handler,) = srv.tracer.spans()
+    assert handler['name'] == 'echo.pull'
+    assert handler['trace_id'] == call['trace_id']
+    assert handler['parent_id'] == attempts[-1]['span_id']
