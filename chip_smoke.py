@@ -95,14 +95,33 @@ Phases, each printed as it finishes; any failure exits non-zero:
                events' model mix, no compile-cache miss, and a pager whose
                bytes stay under its budget with the LRU oracle's
                evictions.
-(Phases 9-11 and 13-16 run after phase 8 and before phases 5-7 and 12 in
-main().)
+ 17. slice 7, training as users configure it - GPT-3 small's optimiser
+               settings on the bench's model (AdamW 0.9 / 0.95, weight decay
+               0.1 off biases and norms, clip 1.0, warm-up into cosine),
+               under the flash strict mode: (a) f32 with remat and k_steps
+               2 on the bench GPT cut to 2 layers (batch 2 x 512), 3
+               updates, against the CPU; (b) full width with f32 master
+               parameters and bf16 AMP, 2 warm-up + 10 timed steps, median
+               step, MFU and peak memory beside phase 6's; (c) the same
+               with whole-step remat and with per-block recompute (24
+               forward launches a step); (d) fp16 AMP with loss scaling
+               from 2^32: skipped steps (scale halved, parameters and step
+               count kept), then training through the fp16 kernels; (e)
+               the eager loop: auto_cast O1 bf16 (attention in the f32
+               kernels) and O2 fp16 with a GradScaler. The kernel phases
+               time the forward and fused backward at the training shape
+               in fp16 and f32 too.
+(Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12 and 17
+in main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
 """
+import collections
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -246,6 +265,8 @@ def _flash_bound_ms(b, h, n, m, d, dtype, causal, sku):
 # the serving path's shape, the second the training path's
 PREFILL_SHAPE = (8, 12, 768, 768, 64, torch.bfloat16, True, True)
 TRAIN_SHAPE = (32, 12, 512, 512, 64, torch.bfloat16, True, True)
+TRAIN_SHAPE_F16 = (32, 12, 512, 512, 64, torch.float16, True, True)
+TRAIN_SHAPE_F32 = (32, 12, 512, 512, 64, torch.float32, True, True)
 KERNEL_SHAPES = [
     PREFILL_SHAPE,
     TRAIN_SHAPE,
@@ -260,6 +281,10 @@ KERNEL_SHAPES = [
     (1, 2, 700, 700, 64, torch.float32, True, False),
     (1, 2, 700, 700, 64, torch.bfloat16, True, False),
     (1, 3, 300, 700, 128, torch.float16, False, False),
+    # the training shape in the other operand types: slice 7's fp16 AMP
+    # (loss scaling) and auto_cast O1, which runs attention in f32
+    TRAIN_SHAPE_F16,
+    TRAIN_SHAPE_F32,
 ]
 
 # Tolerances of the kernel against its plain version. Both sum the same
@@ -375,6 +400,8 @@ BWD_SHAPES = [
     (1, 2, 700, 700, 64, torch.bfloat16, True, False),
     (1, 2, 700, 700, 128, torch.float32, False, False),
     (2, 8, 640, 1152, 64, torch.bfloat16, False, False),
+    TRAIN_SHAPE_F16,
+    TRAIN_SHAPE_F32,
 ]
 
 # Tolerances of the backward kernels against their plain version, as a
@@ -723,12 +750,85 @@ def train_f32_phase():
     torch.cuda.empty_cache()
 
 
+def _stage_memory(step, ids, labels):
+    """One more step of `step` (no remat) read by stage: the device memory
+    resident at its start, and for the forward, the loss with the backward,
+    and the update, the peak within the stage and what stays resident at
+    its end, in GiB."""
+    gib = 2.0 ** 30
+    out = {}
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        out[stage] = (torch.cuda.max_memory_allocated() / gib,
+                      torch.cuda.memory_allocated() / gib)
+        torch.cuda.reset_peak_memory_stats()
+
+    loss_and_grads = step._loss_and_grads
+
+    def staged(*args):
+        result = loss_and_grads(*args)
+        mark('loss+backward')
+        return result
+
+    hook = step.model.register_forward_hook(lambda *_: mark('forward'))
+    step._loss_and_grads = staged
+    try:
+        torch.cuda.synchronize()
+        out['start'] = torch.cuda.memory_allocated() / gib
+        torch.cuda.reset_peak_memory_stats()
+        step(ids, labels)
+        mark('update')
+    finally:
+        hook.remove()
+        del step._loss_and_grads
+    return out
+
+
+def _stage_text(stages):
+    return 'start %.2f, %s' % (stages['start'], ', '.join(
+        '%s peak %.2f (end %.2f)' % ((k,) + stages[k])
+        for k in ('forward', 'loss+backward', 'update')))
+
+
+def _collect_garbage():
+    """Free the cyclic garbage earlier phases left: (GiB of device memory
+    allocated before, after, the CUDA tensors' GiB among the garbage, and
+    the most common types of the garbage objects)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        storages = {}
+        for obj in gc.garbage:
+            if torch.is_tensor(obj) and obj.is_cuda:
+                st = obj.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        kinds = collections.Counter(type(o).__name__ for o in gc.garbage)
+    finally:
+        gc.set_debug(0)
+        del gc.garbage[:]
+    gc.collect()
+    torch.cuda.synchronize()
+    return (before / 2 ** 30, torch.cuda.memory_allocated() / 2 ** 30,
+            sum(storages.values()) / 2 ** 30, kinds.most_common(6))
+
+
 def train_main_phase(sku):
     """The main path: the bench's training step on the card."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.text.models.gpt import GPTConfig
 
     cfg = GPTConfig(**BENCH_CFG)
+    # the peak below is this step's own: the serving phases before it
+    # leave device tensors in reference cycles that no collection has
+    # reached yet
+    before, after, garbage, kinds = _collect_garbage()
+    print('train bf16: device memory allocated %.2f GiB before a garbage '
+          'collection, %.2f after (%.2f GiB of CUDA tensors among the '
+          'garbage; most common garbage types %s)'
+          % (before, after, garbage, kinds), flush=True)
     model, step, ids, labels = _train_setup(
         cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
     losses = [step(ids, labels).item() for _ in range(2)]  # warm-up
@@ -776,6 +876,9 @@ def train_main_phase(sku):
           % (wall, dev, dev / wall,
              '; '.join('%s %.2f ms x%d' % t for t in top),
              '; '.join('%s %.2f ms x%d' % t for t in ops)), flush=True)
+    stages = _stage_memory(step, ids, labels)
+    print('memory by stage, train bf16 (GiB): %s' % _stage_text(stages),
+          flush=True)
 
     # The fused/two-pass threshold (512) is the TPU's tuning. For its
     # re-measurement on this card: the same step with the two-pass
@@ -798,7 +901,8 @@ def train_main_phase(sku):
           % (sorted(two_pass_ms)[2], median), flush=True)
     del model, step
     torch.cuda.empty_cache()
-    return {'launches': launches, 'steps': steps, 'median_ms': median}
+    return {'launches': launches, 'steps': steps, 'median_ms': median,
+            'peak': peak, 'busy': dev / wall, 'stages': stages}
 
 
 def train_seq1024_phase():
@@ -832,6 +936,394 @@ def train_seq1024_phase():
     del model, step
     torch.cuda.empty_cache()
     return {'launches': launches, 'steps': steps}
+
+
+# ---- slice 7: training as users configure it --------------------------------
+
+# GPT-3 small's optimiser (Brown et al. 2020, Appendix B) on the bench's
+# model: AdamW (0.9, 0.95), eps 1e-8, weight decay 0.1 off biases and norms,
+# global-norm clip 1.0, a linear warm-up into a cosine decay to a tenth
+RECIPE_LR = 6e-4
+RECIPE_WARMUP = 2
+
+
+def _recipe_decays(name):
+    return name.endswith('.weight') and '.ln_' not in name and \
+        not name.startswith('gpt.ln_f')
+
+
+def _recipe_optimizer(model, total_updates):
+    from paddle_tpu_torch import nn, optimizer
+
+    sched = optimizer.lr.LinearWarmup(
+        optimizer.lr.CosineAnnealingDecay(
+            RECIPE_LR, max(total_updates - RECIPE_WARMUP, 1),
+            eta_min=RECIPE_LR / 10), RECIPE_WARMUP, 0.0, RECIPE_LR)
+    opt = optimizer.AdamW(sched, beta1=0.9, beta2=0.95, epsilon=1e-8,
+                          weight_decay=0.1,
+                          apply_decay_param_fun=_recipe_decays,
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0),
+                          parameters=model.named_parameters())
+    return opt, sched
+
+
+def _recipe_setup(cfg, device, seed, batch, seq, total_updates, **step_kw):
+    """The bench's GPT with f32 parameters, the recipe's optimizer and a
+    TrainStep with `step_kw`; a fixed seeded batch."""
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, device=device, seed=seed)
+    opt, sched = _recipe_optimizer(model, total_updates)
+    step = TrainStep(model, model.loss, opt, **step_kw)
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+    return model, step, sched, ids.to(device), labels.to(device)
+
+
+def recipe_parity_phase():
+    """17a: the recipe in f32 with remat and k_steps=2, 3 updates, on the
+    card and on the CPU plain path from the same weights."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(**dict(BENCH_CFG, num_layers=2))
+    t0 = time.time()
+    kw = dict(remat=True, k_steps=2)
+    model, step, sched, ids, labels = _recipe_setup(
+        cfg, 'cuda', SEED, 2, TRAIN_SEQ, 3, **kw)
+    cpu, cpu_step, cpu_sched, _, _ = _recipe_setup(
+        cfg, 'cpu', SEED + 1, 2, TRAIN_SEQ, 3, **kw)
+    cpu.load_state_dict(model.state_dict())
+    micro = 6
+    _reset_counts(fa)
+    losses = []
+    for i in range(micro):
+        losses.append(step(ids, labels).item())
+        if i % 2:
+            sched.step()
+    torch.cuda.synchronize()
+    launches = _launches(fa)
+    cpu_losses = []
+    for i in range(micro):
+        cpu_losses.append(cpu_step(ids.cpu(), labels.cpu()).item())
+        if i % 2:
+            cpu_sched.step()
+    _check(launches == _want(micro, flash_fwd=4, flash_bwd_fused=2),
+           'recipe f32 launches %s over %d micro-steps, want 4 forward '
+           '(remat: 2 a layer) and 2 fused backward each' % (launches, micro))
+    _check(step.optimizer._step_count == 3 == cpu_step.optimizer._step_count,
+           'recipe f32: %d updates, want 3' % step.optimizer._step_count)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    _check(rel <= 1e-5, 'recipe f32 losses %s vs CPU %s' % (losses,
+                                                            cpu_losses))
+    # as phase 5: within 2 lr an update of the CPU, nearly all within f32
+    # rounding
+    worst, close, total = 0.0, 0, 0
+    cpu_state = cpu.state_dict()
+    for name, p in model.state_dict().items():
+        diff = (p.cpu() - cpu_state[name]).abs()
+        worst = max(worst, diff.max().item())
+        close += int((diff <= 1e-6 + 1e-4 * cpu_state[name].abs()).sum())
+        total += diff.numel()
+    _check(worst <= 2 * RECIPE_LR * 3 + 1e-6,
+           'recipe f32 params differ by %.3g > 2 lr an update' % worst)
+    _check(close >= 0.999 * total,
+           'recipe f32 params: only %d of %d close to the CPU' % (close,
+                                                                  total))
+    print('slice 7 (a) recipe f32 parity: 2 layers, batch 2 x %d, remat, '
+          'k_steps 2, %d micro-steps / 3 updates, losses %s vs CPU %s '
+          '(max rel %.3g, tol 1e-5), params max abs diff %.3g (tol 2 lr an '
+          'update), %d of %d within 1e-6 + 1e-4 |p|, launches %s, %.1f s'
+          % (TRAIN_SEQ, micro, ['%.6f' % x for x in losses],
+             ['%.6f' % x for x in cpu_losses], rel, worst, close, total,
+             launches, time.time() - t0), flush=True)
+    del model, step, cpu, cpu_step
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'steps': micro}
+
+
+def _timed_steps(step, sched, ids, labels, warmup, steps):
+    """(losses, step ms, peak bytes) of warm-up + timed steps, the
+    scheduler stepped after each."""
+    losses = []
+    for _ in range(warmup):
+        losses.append(step(ids, labels).item())
+        sched.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        sched.step()
+    return losses, step_ms, torch.cuda.max_memory_allocated()
+
+
+def recipe_train_phase(sku, main):
+    """17b-c: the recipe at full width with bf16 AMP (f32 master
+    parameters); then with whole-step remat and with per-block recompute."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    layers = BENCH_CFG['num_layers']
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {}
+    for label, cfg_kw, step_kw, warmup, steps in (
+            ('recipe', {}, {}, 2, 10),
+            ('remat', {}, {'remat': True}, 1, 5),
+            ('recompute', {'recompute': True}, {}, 1, 5)):
+        cfg = GPTConfig(**dict(BENCH_CFG, **cfg_kw))
+        model, step, sched, ids, labels = _recipe_setup(
+            cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, warmup + steps,
+            amp_dtype='bfloat16', **step_kw)
+        seen = set()
+        undo = _kernel_dtypes(fa, seen)
+        _reset_counts(fa)
+        try:
+            losses, step_ms, peak = _timed_steps(step, sched, ids, labels,
+                                                 warmup, steps)
+        finally:
+            undo()
+        launches = _launches(fa)
+        _check(seen == {('flash_fwd', 'bfloat16'),
+                        ('flash_bwd_fused', 'bfloat16')},
+               '%s attention kernels launched %s, want the bf16 ones'
+               % (label, sorted(seen)))
+        fwd = 2 * layers if label != 'recipe' else layers
+        _check(launches == _want(warmup + steps, flash_fwd=fwd,
+                                 flash_bwd_fused=layers),
+               '%s launches %s over %d steps, want %d forward and %d fused '
+               'backward a step' % (label, launches, warmup + steps, fwd,
+                                    layers))
+        _check(all(math.isfinite(x) for x in losses), label + ' finite')
+        _check(losses[-1] < losses[1],
+               '%s loss %.4f not below the first trained step %.4f'
+               % (label, losses[-1], losses[1]))
+        median = sorted(step_ms)[steps // 2]
+        flops_tok = model.flops_per_token(TRAIN_SEQ)
+        mfu = flops_tok * tokens / (median / 1e3) / sku[2]['bfloat16']
+        print('slice 7 (%s) %s: f32 master, bf16 AMP, AdamW + warm-up/'
+              'cosine + clip 1.0, batch %d x %d, median step %.2f ms (min '
+              '%.2f, max %.2f), %.0f tokens/s, MFU %.4f, peak memory %.2f '
+              'GiB; phase 6 (bf16 parameters, no recipe): %.2f ms, %.2f '
+              'GiB; launches over %d steps %s; losses %s'
+              % ('b' if label == 'recipe' else 'c', label, TRAIN_BATCH,
+                 TRAIN_SEQ, median, min(step_ms), max(step_ms),
+                 tokens / median * 1e3, mfu, peak / 2 ** 30,
+                 main['median_ms'], main['peak'] / 2 ** 30, warmup + steps,
+                 launches, ['%.4f' % x for x in losses]), flush=True)
+        out[label] = {'median_ms': median, 'mfu': mfu, 'peak': peak,
+                      'launches': launches, 'steps': warmup + steps}
+        if label == 'recipe':
+            wall, dev, top, ops = _profile(lambda: step(ids, labels))
+            print('profile recipe step: wall %.2f ms, device kernels %.2f '
+                  'ms, busy share %.3f (phase 6 in this run: %.3f); top '
+                  'kernels: %s; top aten ops: %s'
+                  % (wall, dev, dev / wall, main['busy'],
+                     '; '.join('%s %.2f ms x%d' % t for t in top),
+                     '; '.join('%s %.2f ms x%d' % t for t in ops)),
+                  flush=True)
+            stages = _stage_memory(step, ids, labels)
+            print('memory by stage, recipe (GiB): %s; phase 6: %s'
+                  % (_stage_text(stages), _stage_text(main['stages'])),
+                  flush=True)
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+FP16_INIT_SCALE = 2.0 ** 32
+
+
+def recipe_fp16_phase():
+    """17d: the recipe with fp16 AMP and dynamic loss scaling from 2^32.
+    The fp16 loss's own cotangent (the scale) overflows fp16 from 2^16 up,
+    so the first steps skip: the scale halves, the parameters and the step
+    count stay; then the steps train, through the fp16 kernels."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    cfg = GPTConfig(**BENCH_CFG)
+    layers = cfg.num_layers
+    steps = 24
+    model, step, sched, ids, labels = _recipe_setup(
+        cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, steps,
+        amp_dtype='float16', init_loss_scaling=FP16_INIT_SCALE)
+    probe = model.gpt.h[0].attn.qkv_proj.weight
+    seen = set()
+    undo = _kernel_dtypes(fa, seen)
+    _reset_counts(fa)
+    trace = []
+    t0 = time.time()
+    try:
+        for _ in range(steps):
+            before = probe.detach().clone()
+            count = step.optimizer._step_count
+            loss = step(ids, labels).item()
+            skipped = step.optimizer._step_count == count
+            if skipped:
+                _check(torch.equal(probe, before), 'a skipped step moved a '
+                       'parameter')
+            else:
+                sched.step()
+            trace.append((step.loss_scale, skipped, loss))
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    launches = _launches(fa)
+    _check(seen == {('flash_fwd', 'float16'),
+                    ('flash_bwd_fused', 'float16')},
+           'fp16 attention kernels launched %s, want the fp16 ones'
+           % sorted(seen))
+    _check(launches == _want(steps, flash_fwd=layers,
+                             flash_bwd_fused=layers),
+           'fp16 launches %s over %d steps, want %d forward and %d fused '
+           'backward a step' % (launches, steps, layers, layers))
+    skips = sum(1 for _, s, _ in trace if s)
+    _check(trace[0][1] and trace[0][0] == FP16_INIT_SCALE / 2,
+           'the first fp16 step at 2^32 did not skip and halve the scale')
+    _check(all(s for _, s, _ in trace[:skips]) and skips < steps - 3,
+           'fp16: skipped steps %d of %d, want a run of skips then '
+           'training' % (skips, steps))
+    trained = [l for _, s, l in trace if not s]
+    _check(all(math.isfinite(x) for x in trained) and
+           trained[-1] < trained[0],
+           'fp16 trained losses %s not falling' % trained)
+    _check(step.optimizer._step_count == steps - skips,
+           'fp16 step count %d, want %d' % (step.optimizer._step_count,
+                                            steps - skips))
+    print('slice 7 (d) fp16 AMP + loss scaling from 2^32: %d of %d steps '
+          'skipped (scale halved each, parameters and step count kept), '
+          'scale now 2^%d, %d updates, losses of trained steps %s, '
+          'launches %s (fp16 kernels), %.1f s'
+          % (skips, steps, int(math.log2(step.loss_scale)), steps - skips,
+             ['%.4f' % x for x in trained], launches, time.time() - t0),
+          flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'steps': steps, 'skips': skips}
+
+
+def _kernel_dtypes(fa, seen):
+    """Wrap the flash module's forward and backward launch helpers so each
+    launch adds (entry, operand dtype) to `seen`; returns the undo."""
+    fwd, bwd = fa._fwd_launch, fa._bwd_launch
+
+    def fwd_seen(entry, q, *rest):
+        seen.add((entry, str(q.dtype).split('.')[-1]))
+        return fwd(entry, q, *rest)
+
+    def bwd_seen(entry, operands, *rest):
+        seen.add((entry, str(operands[0].dtype).split('.')[-1]))
+        return bwd(entry, operands, *rest)
+
+    fa._fwd_launch, fa._bwd_launch = fwd_seen, bwd_seen
+
+    def undo():
+        fa._fwd_launch, fa._bwd_launch = fwd, bwd
+    return undo
+
+
+def eager_amp_phase():
+    """17e: the eager loop at full width, with the recipe's optimizer:
+    auto_cast O1 bf16 (attention, norms and the loss in f32: the f32
+    kernels), then O2 fp16 with a GradScaler."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**BENCH_CFG)
+    layers = cfg.num_layers
+    gen = torch.Generator().manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=gen).cuda()
+    labels = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen).cuda()
+    out = {}
+    for level, dtype, steps, scale in (('O1', 'bfloat16', 3, None),
+                                       ('O2', 'float16', 6, 2.0 ** 17)):
+        model = GPTForCausalLM(cfg, device='cuda', seed=SEED)
+        model.train()
+        opt, sched = _recipe_optimizer(model, steps)
+        sched.step()  # past the warm-up's zero rate
+        scaler = amp.GradScaler(init_loss_scaling=scale) if scale else None
+        seen = set()
+        undo = _kernel_dtypes(fa, seen)
+        _reset_counts(fa)
+        losses, skipped, step_ms = [], [], []
+        try:
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with amp.auto_cast(level=level, dtype=dtype):
+                    loss = model.loss(model(ids), labels)
+                if scaler is None:
+                    loss.backward()
+                    opt.step()
+                    skipped.append(False)
+                else:
+                    scaler.scale(loss).backward()
+                    scaler.step(opt)
+                    skipped.append(scaler._found_inf)
+                    scaler.update()
+                opt.clear_grad(set_to_zero=False)
+                sched.step()
+                losses.append(loss.item())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            undo()
+        launches = _launches(fa)
+        want_dtype = 'float32' if level == 'O1' else 'float16'
+        want_seen = {('flash_fwd', want_dtype),
+                     ('flash_bwd_fused', want_dtype)}
+        _check(seen == want_seen, '%s attention kernels launched %s, want '
+               '%s' % (level, sorted(seen), sorted(want_seen)))
+        _check(launches == _want(steps, flash_fwd=layers,
+                                 flash_bwd_fused=layers),
+               'eager %s launches %s over %d steps' % (level, launches,
+                                                        steps))
+        trained = [l for l, s in zip(losses, skipped) if not s]
+        _check(all(math.isfinite(x) for x in trained) and len(trained) >= 2
+               and trained[-1] < trained[0],
+               'eager %s trained losses %s not falling' % (level, trained))
+        print('slice 7 (e) eager %s %s: auto_cast, %s, recipe optimizer, '
+              'batch %d x %d, %d steps (%d skipped), step ms %s, losses %s, '
+              'attention kernels %s, launches %s'
+              % (level, dtype, 'GradScaler from 2^%d' % math.log2(scale)
+                 if scale else 'no scaler', TRAIN_BATCH, TRAIN_SEQ, steps,
+                 sum(skipped), ['%.1f' % x for x in step_ms],
+                 ['%.4f' % x for x in losses], sorted(seen), launches),
+              flush=True)
+        out[level] = {'launches': launches, 'steps': steps,
+                      'median_ms': sorted(step_ms)[steps // 2]}
+        del model, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def slice7_phases(sku, main):
+    """Phase 17, under the flash strict mode: a shape no kernel takes
+    raises instead of running the plain attention."""
+    prev = os.environ.get('PADDLE_TPU_FLASH_STRICT')
+    os.environ['PADDLE_TPU_FLASH_STRICT'] = '1'
+    try:
+        out = {'parity': recipe_parity_phase()}
+        out.update(recipe_train_phase(sku, main))
+        out['fp16'] = recipe_fp16_phase()
+        out['eager'] = eager_amp_phase()
+        return out
+    finally:
+        if prev is None:
+            del os.environ['PADDLE_TPU_FLASH_STRICT']
+        else:
+            os.environ['PADDLE_TPU_FLASH_STRICT'] = prev
 
 
 # (b, h, n, m, d, dtype, causal): the d = 192 / 256 instantiations (CUDA
@@ -2183,9 +2675,14 @@ def main():
     train = train_main_phase(sku)
     second = train_seq1024_phase()
     long_train = train_long_phase(sku)
+    slice7 = slice7_phases(sku, train)
 
-    fwd = next(r for r in fwd_rows
-               if r['shape'] == list(TRAIN_SHAPE[:5]) and r['strided'])
+    def train_fwd(dtype):
+        return next(r for r in fwd_rows
+                    if r['shape'] == list(TRAIN_SHAPE[:5]) and r['strided']
+                    and r['dtype'] == str(dtype).split('.')[-1])
+
+    fwd = train_fwd(torch.bfloat16)
 
     def bwd(which, shape_key):
         return next(r for w, key, r in bwd_rows
@@ -2248,6 +2745,25 @@ def main():
                              long_train['launches'][kernel],
                              long_train['steps'], 'train seq 8192',
                              long_shape))
+    # slice 7's operand types at the training shape: fp16 under loss
+    # scaling (wgmma, like bf16), f32 under auto_cast O1 (CUDA cores)
+    for shape_key, run, path in (
+            (TRAIN_SHAPE_F16, slice7['fp16'], 'slice 7 (d) fp16 AMP'),
+            (TRAIN_SHAPE_F32, slice7['eager']['O1'],
+             'slice 7 (e) eager auto_cast O1')):
+        dtype = str(shape_key[5]).split('.')[-1]
+        shape = 'b=32 h=12 n=m=512 d=64 %s causal strided' % dtype
+        design = 'cuda cores' if dtype == 'float32' else None
+        for kernel, source, line, row in (
+                ('flash_fwd', 'flash_fwd', 137, train_fwd(shape_key[5])),
+                ('flash_bwd_fused', 'flash_bwd', 659,
+                 bwd('fused', shape_key))):
+            k = dict(entry(kernel, source, line, row,
+                           run['launches'][kernel], run['steps'], path,
+                           shape), dtype=dtype)
+            if design:
+                k['design'] = design
+            kernels.append(k)
     pairs = {'flash_bwd_dq': pair(bwd('dq', BWD_SECOND_SHAPE),
                                   bwd('dkv', BWD_SECOND_SHAPE)),
              'flash_bwd_dq_long': pair(long_rows['dq', LONG_MAIN_SHAPE],
@@ -2269,7 +2785,7 @@ def main():
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': name,
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -1,2 +1,5 @@
-from . import functional, initializer  # noqa: F401
-from .layer import Dropout, Embedding, LayerNorm, Linear, RMSNorm  # noqa: F401
+from . import clip, functional, initializer  # noqa: F401
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                   ClipGradByValue)
+from .layer import (CrossEntropyLoss, Dropout, Embedding,  # noqa: F401
+                    LayerNorm, Linear, ParamAttr, RMSNorm)

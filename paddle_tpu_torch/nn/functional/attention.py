@@ -16,6 +16,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ...amp.auto_cast import cast as amp_cast
 from ...ops import flash_attention as fa
 from .common import dropout
 
@@ -100,7 +101,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     use_flash = (query.dim() == 4 and query.shape[1] >= 512
                  and query.shape[-1] <= 256)
     if use_flash and attn_mask is None and dropout_p == 0.0:
+        query, key, value = amp_cast('flash_attention', query, key, value)
         return fa.flash_attention_bnhd(query, key, value, causal=is_causal,
                                        scale=scale)
+    query, key, value = amp_cast('sdpa', query, key, value)
     return _sdpa_ref(query, key, value, attn_mask, is_causal, scale,
                      dropout_p, generator)

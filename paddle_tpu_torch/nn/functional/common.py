@@ -1,16 +1,21 @@
 """Common functionals (counterpart of paddle_tpu/nn/functional/common.py):
-linear, embedding, dropout."""
+linear, embedding, dropout. Each casts its inputs under auto_cast by its
+op name in the JAX package."""
 import torch
+
+from ...amp.auto_cast import cast as amp_cast
 
 
 def linear(x, weight, bias=None):
     """y = x @ W + b with W laid out [in, out] (the paddle convention)."""
+    x, weight, bias = amp_cast('linear', x, weight, bias)
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias
 
 
 def embedding(x, weight):
     """Row lookup: out[..., :] = weight[x[...], :]."""
+    weight, = amp_cast('embedding', weight)
     return weight[x]
 
 
@@ -23,6 +28,7 @@ def dropout(x, p=0.5, training=True, generator=None):
     the forward's mask for the backward."""
     if not training or p == 0:
         return x
+    x, = amp_cast('dropout', x)
     if p == 1:
         return x * 0.0
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p

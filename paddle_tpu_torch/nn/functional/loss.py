@@ -1,8 +1,11 @@
 """Loss functionals (counterpart of paddle_tpu/nn/functional/loss.py): the
-hard-label softmax cross-entropy and the fused LM-head cross-entropy that
-GPT training uses. Soft labels and class weights come in a later slice."""
+softmax cross-entropy (hard or soft labels, class weights, any axis,
+use_softmax=False) and the fused LM-head cross-entropy that GPT training
+uses. Both cast their inputs under auto_cast by the JAX package's op
+names."""
 import torch
 
+from ...amp.auto_cast import cast as amp_cast
 from ...ops import fused_ce as _fce
 
 __all__ = ['cross_entropy', 'linear_cross_entropy']
@@ -35,34 +38,61 @@ class _CEWithLogits(torch.autograd.Function):
         return (p * (g * valid)[..., None]).to(logits.dtype), None, None
 
 
-def cross_entropy(input, label, weight=None, ignore_index=-100,
-                  reduction='mean', soft_label=False, axis=-1,
-                  use_softmax=True):
-    """Softmax cross-entropy of logits `input` [..., C] against integer
-    labels (a trailing label dim of 1 is squeezed). reduction 'mean'
-    divides by the count of rows whose label != ignore_index."""
-    if soft_label or weight is not None:
-        raise NotImplementedError(
-            'cross_entropy with soft labels or class weights is not ported '
-            'yet (the training slice takes hard labels)')
-    if not use_softmax or axis not in (-1, input.dim() - 1):
-        raise NotImplementedError(
-            'cross_entropy over logits on the last axis only (the training '
-            'slice); use_softmax=False / another axis are not ported yet')
-    if reduction not in ('mean', 'sum', 'none'):
-        raise ValueError('reduction must be mean, sum or none, got %r'
-                         % (reduction,))
-    lab = label
-    if lab.dim() == input.dim() and lab.shape[-1] == 1:
-        lab = lab[..., 0]
-    lab = lab.long()
-    out = _CEWithLogits.apply(input, lab, int(ignore_index)).to(input.dtype)
+def _reduce(out, reduction):
     if reduction == 'mean':
-        denom = (lab != ignore_index).sum().to(input.dtype).clamp_min(1)
-        return out.sum() / denom
+        return out.mean()
     if reduction == 'sum':
         return out.sum()
     return out
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction='mean', soft_label=False, axis=-1,
+                  use_softmax=True):
+    """Softmax cross-entropy of `input` along `axis` (probabilities when
+    use_softmax=False: their log is taken as is).
+
+    Hard labels are integers (a label dim of 1 at `axis` is squeezed);
+    rows whose label == ignore_index give 0, and reduction 'mean' divides by
+    their count, or with class weights `weight` [C] by the summed weights of
+    the valid rows. Soft labels are distributions along `axis`: the loss is
+    -sum(label * log p), 'mean' averages over every row, and `weight` is not
+    used (as in the JAX package)."""
+    if reduction not in ('mean', 'sum', 'none'):
+        raise ValueError('reduction must be mean, sum or none, got %r'
+                         % (reduction,))
+    if soft_label:
+        input, label, weight = amp_cast('cross_entropy', input, label,
+                                         weight)
+        logp = (torch.log_softmax(input, dim=axis) if use_softmax
+                else torch.log(input))
+        return _reduce(-(label * logp).sum(dim=axis), reduction)
+    input, weight = amp_cast('cross_entropy', input, weight)
+    dim = axis % input.dim()
+    lab = label
+    if lab.dim() == input.dim() and lab.shape[dim] == 1:
+        lab = lab.squeeze(dim)
+    lab = lab.long()
+    valid = lab != ignore_index
+    if use_softmax and dim == input.dim() - 1:
+        out = _CEWithLogits.apply(input, lab, int(ignore_index)).to(
+            input.dtype)
+    else:
+        logp = (torch.log_softmax(input, dim=dim) if use_softmax
+                else torch.log(input))
+        safe = lab.clamp(0, input.shape[dim] - 1)
+        out = -logp.gather(dim, safe.unsqueeze(dim)).squeeze(dim)
+        out = torch.where(valid, out, 0.0)
+    if weight is not None:
+        cw = weight[lab.clamp(0, weight.shape[0] - 1)]
+        out = out * cw
+        if reduction == 'mean':
+            denom = torch.where(valid, cw, 0.0).sum()
+            return out.sum() / denom.clamp_min(1e-12)
+    if reduction == 'mean':
+        denom = valid.sum().to(input.dtype).clamp_min(1)
+        return out.sum() / denom
+    return _reduce(out, reduction)
 
 
 def linear_cross_entropy(input, weight, label, bias=None, ignore_index=-100,
@@ -72,6 +102,8 @@ def linear_cross_entropy(input, weight, label, bias=None, ignore_index=-100,
     logits (ops/fused_ce.py). input [..., d]; weight [d, vocab], or
     [vocab, d] with transpose_weight=True (the tied-embedding layout);
     label matches input's leading dims. chunk_rows defaults to 4096."""
+    input, weight, bias = amp_cast('linear_cross_entropy', input, weight,
+                                    bias)
     d = input.shape[-1]
     w = weight.t() if transpose_weight else weight
     chunk = _fce.DEFAULT_CHUNK_ROWS if chunk_rows is None else chunk_rows

@@ -2,10 +2,13 @@
 RMSNorm layer's body in paddle_tpu/nn/layer/norm.py)."""
 import torch
 
+from ...amp.auto_cast import cast as amp_cast
+
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
+    x, weight, bias = amp_cast('layer_norm', x, weight, bias)
     return torch.nn.functional.layer_norm(x, list(normalized_shape), weight,
                                           bias, epsilon)
 
@@ -15,6 +18,7 @@ def rms_norm(x, normalized_shape, weight=None, epsilon=1e-6):
     cast back to x's dtype."""
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
+    x, weight = amp_cast('rms_norm', x, weight)
     dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
     var = x.float().square().mean(dim=dims, keepdim=True)
     out = x * torch.rsqrt(var + epsilon).to(x.dtype)

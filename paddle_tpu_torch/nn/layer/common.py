@@ -3,29 +3,31 @@
 Parameters keep the JAX package's names and layouts (Linear.weight is
 [in, out]), so a state dict carries across without transposes. Weights are
 drawn on the CPU from the given generator and then moved to `device`.
+`weight_attr` / `bias_attr` take a ParamAttr (layers.py) as in the JAX
+package; bias_attr=False, like bias=False, builds no bias.
 """
 from torch import nn
 
 from ...framework import device as device_mod
 from .. import functional as F
 from .. import initializer as I
-
-
-def _param(init, shape, dtype, generator, device):
-    return nn.Parameter(init(shape, dtype, generator).to(device))
+from .layers import create_parameter
 
 
 class Linear(nn.Module):
     def __init__(self, in_features, out_features, bias=True, device='cuda',
-                 dtype='float32', generator=None):
+                 dtype='float32', generator=None, weight_attr=None,
+                 bias_attr=None):
         super().__init__()
         dev = device_mod.resolve(device)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _param(I.XavierNormal(), [in_features, out_features],
-                             dtype, generator, dev)
-        self.bias = _param(I.Constant(0.0), [out_features], dtype, generator,
-                           dev) if bias else None
+        self.weight = create_parameter([in_features, out_features],
+                                       weight_attr, dtype, I.XavierNormal(),
+                                       generator, dev)
+        self.bias = create_parameter(
+            [out_features], bias_attr if bias else False, dtype,
+            I.Constant(0.0), generator, dev)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -37,10 +39,11 @@ class Linear(nn.Module):
 
 class Embedding(nn.Module):
     def __init__(self, num_embeddings, embedding_dim, device='cuda',
-                 dtype='float32', generator=None):
+                 dtype='float32', generator=None, weight_attr=None):
         super().__init__()
-        self.weight = _param(I.XavierNormal(), [num_embeddings, embedding_dim],
-                             dtype, generator, device_mod.resolve(device))
+        self.weight = create_parameter(
+            [num_embeddings, embedding_dim], weight_attr, dtype,
+            I.XavierNormal(), generator, device_mod.resolve(device))
 
     def forward(self, x):
         return F.embedding(x, self.weight)

@@ -1,1 +1,5 @@
-from .optimizers import SGD, Adam, AdamW, Optimizer  # noqa: F401
+from . import lr  # noqa: F401
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax,  # noqa: F401
+                         AdamW, Dpsgd, Ftrl, Lamb, LarsMomentum, Momentum,
+                         Optimizer, ProximalAdagrad, ProximalGD, RMSProp,
+                         SparseAdam)

@@ -2,13 +2,14 @@
 no-cache forward, cached greedy or sampled `generate()`, the serving caches
 (`GPTSlotCache`, `GPTPagedCache`) the continuous-batching engines drive, and
 the training contract (`loss()`, the fused-loss forward,
-`flops_per_token`).
+`flops_per_token`), with per-block activation recompute
+(`GPTConfig.recompute`, `enable_recompute()`).
 
 Causal attention goes through nn.functional.scaled_dot_product_attention,
 which sends a sequence of 512 tokens or more to the flash kernels.
 Parameter names match the JAX package's state_dict, so
 `load_paddle_tpu_state` carries its weights across as they are. MoE
-blocks, activation recompute and pipeline stages are not ported yet.
+blocks and pipeline stages are not ported yet.
 """
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ from ...framework import device as device_mod
 from ...framework import random as random_mod
 from ...framework.dtype import to_torch_dtype
 from ... import nn as pnn
+from ...distributed.fleet.utils import recompute as _recompute
 from ...nn import functional as F
 
 __all__ = ['GPTConfig', 'GPTStaticCache', 'GPTSlotCache', 'GPTPagedCache',
@@ -440,10 +442,6 @@ class GPTModel(nn.Module):
             raise NotImplementedError(
                 'MoE blocks (num_experts > 0) are not ported yet; they come '
                 'with the distributed slice')
-        if config.recompute:
-            raise NotImplementedError(
-                'activation recompute is not ported yet (a later training '
-                'slice)')
         self.config = config
         self.wte = pnn.Embedding(config.vocab_size, config.hidden_size,
                                  device=device, generator=generator)
@@ -455,6 +453,12 @@ class GPTModel(nn.Module):
                                          generator=generator)
                                 for _ in range(config.num_layers)])
         self.ln_f = _norm(config, device)
+        self._recompute = config.recompute
+
+    def enable_recompute(self, flag=True):
+        """Per-block activation recompute in training: each block's
+        activations are rebuilt in the backward instead of kept."""
+        self._recompute = flag
 
     def forward(self, input_ids, position_ids=None, caches=None):
         """Final hidden states, or with caches (hidden, new caches).
@@ -492,8 +496,12 @@ class GPTModel(nn.Module):
                 x, nc = block(x, cache=c)
                 new_caches.append(nc)
             return self.ln_f(x), new_caches
-        for block in self.h:
-            x = block(x)
+        if self._recompute and self.training:
+            for block in self.h:
+                x = _recompute(block, x)
+        else:
+            for block in self.h:
+                x = block(x)
         return self.ln_f(x)
 
 
@@ -551,10 +559,7 @@ class GPTForCausalLM(nn.Module):
                                labels.reshape(b * n))
 
     def enable_recompute(self, flag=True):
-        if flag:
-            raise NotImplementedError(
-                'activation recompute is not ported yet (a later training '
-                'slice)')
+        self.gpt.enable_recompute(flag)
 
     def pp_decompose(self, loss_fn=None):
         raise NotImplementedError(

@@ -15,6 +15,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.text.models.gpt import GPTConfig as JConfig
 from paddle_tpu.text.models.gpt import GPTForCausalLM as JGPT
+from paddle_tpu_torch import nn as tpt_nn
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.text.models import gpt as tgpt
 
@@ -164,7 +165,7 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     # the walk reached the serving and monitor modules of slice 4 and the
     # registry and fabric modules of slice 6
     imported = set(res.stdout.split())
-    for mod in SLICE4_MODULES + SLICE6_MODULES:
+    for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -180,6 +181,10 @@ SLICE6_MODULES = ('framework.io_save', 'framework.compile_cache',
                   'serving.fabric.protocol', 'serving.fabric.presets',
                   'serving.fabric.worker', 'serving.fabric.socket_replica',
                   'serving.fabric.artifacts', 'serving.fabric.directory')
+SLICE7_MODULES = ('amp', 'amp.auto_cast', 'amp.grad_scaler', 'regularizer',
+                  'optimizer.lr', 'optimizer.optimizers', 'nn.clip',
+                  'nn.layer.layers', 'nn.layer.loss', 'distributed.fleet',
+                  'distributed.fleet.utils', 'framework.functional')
 
 
 def _port_files():
@@ -207,7 +212,7 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
                     offenders.append('%s: %s' % (path, name))
     assert len(_port_files()) > 10
     scanned = {os.path.relpath(f, REPO) for f in _port_files()}
-    for mod in SLICE4_MODULES + SLICE6_MODULES:
+    for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod
@@ -278,3 +283,81 @@ def test_keyword_constructor_and_int32_generate():
     out = tm.eval().generate(ids, max_new_tokens=3)
     assert out.dtype == torch.int32 and tuple(out.shape) == (1, 8)
     assert tm.generate(ids, max_new_tokens=0).dtype == torch.int32
+
+
+# ---- per-block recompute ---------------------------------------------------
+
+
+def _train_grads(model, ids):
+    model.train()
+    loss = model.loss(model(ids), ids)
+    loss.backward()
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def test_block_recompute_grads_match_jax():
+    """GPTConfig.recompute: each block checkpointed (fleet.utils.recompute)
+    on both sides; the loss and every gradient as in the JAX package's."""
+    import jax
+    from paddle_tpu.framework import functional as jfm
+    cfg = dict(SMALL, recompute=True)
+    paddle.seed(31)
+    jm = JGPT(JConfig(**cfg))
+    tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg), device='cpu')
+    tgpt.load_paddle_tpu_state(tm, {k: np.asarray(v.numpy())
+                                    for k, v in jm.state_dict().items()})
+    ids = _ids(2, 64, seed=9)
+
+    def f(params):
+        loss, _ = jfm.functional_call(
+            jm, params, {}, args=(jax.numpy.asarray(ids),), training=True,
+            post_fn=jfm.make_loss_post(lambda o, l: jm.loss(o, l),
+                                       (jax.numpy.asarray(ids),)))
+        return loss
+
+    want_loss, want = jax.jit(jax.value_and_grad(f))(jfm.extract_params(jm))
+    got_loss, got = _train_grads(tm, torch.from_numpy(ids))
+    np.testing.assert_allclose(got_loss, float(want_loss), rtol=1e-5)
+    for name, w in want.items():
+        w = np.asarray(w)
+        err = np.abs(got[name].numpy() - w).max()
+        assert err <= 1e-4 * max(np.abs(w).max(), 1e-6), (name, err)
+
+
+def test_block_recompute_with_dropout_draws_one_mask():
+    """With dropout (the blocks' and the attention probabilities', which
+    _sdpa_ref checkpoints inside the block's checkpoint), the recompute
+    draws the forward's masks again: loss and grads equal those of the
+    same run without recompute, bit for bit."""
+    cfg = tgpt.GPTConfig(**dict(SMALL, dropout=0.1))
+    model = tgpt.GPTForCausalLM(cfg, device='cpu', seed=3)
+    ids = torch.from_numpy(_ids(2, 64, seed=10))
+    runs = []
+    for flag in (False, True):
+        model.enable_recompute(flag)
+        torch.manual_seed(77)
+        runs.append(_train_grads(model, ids))
+    model.enable_recompute(False)
+    assert runs[0][0] == runs[1][0]
+    for name, g in runs[0][1].items():
+        assert torch.equal(runs[1][1][name], g), name
+    torch.manual_seed(78)
+    assert _train_grads(model, ids)[0] != runs[0][0]  # masks did change
+
+
+def test_fleet_recompute_of_module_and_function():
+    from paddle_tpu_torch.distributed.fleet import recompute
+    lin = tpt_nn.Linear(4, 3, device='cpu')
+    x = torch.randn(5, 4, requires_grad=True)
+    out = recompute(lin, x, preserve_rng_state=True)
+    out.square().sum().backward()
+    want_w, want_x = lin.weight.grad.clone(), x.grad.clone()
+    lin.weight.grad, x.grad = None, None
+    lin(x).square().sum().backward()
+    assert torch.equal(lin.weight.grad, want_w)
+    assert torch.equal(x.grad, want_x)
+    y = torch.randn(3, requires_grad=True)
+    recompute(lambda a, k=1.0: (a * k).exp(), y, k=2.0).sum().backward()
+    torch.testing.assert_close(y.grad, 2 * (2 * y.detach()).exp())

@@ -126,9 +126,92 @@ def test_cross_entropy_squeezes_label_dim_and_keeps_bf16():
     assert torch.equal(out, same)
 
 
+def _ce_pair(kwargs, logits, label, reduction='mean'):
+    """cross_entropy's loss and input grad in both packages; kwargs values
+    that are numpy arrays become each package's tensor."""
+    jkw = {k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+           for k, v in kwargs.items()}
+    tkw = {k: torch.tensor(v) if isinstance(v, np.ndarray) else v
+           for k, v in kwargs.items()}
+    jx = paddle.to_tensor(logits, stop_gradient=False)
+    want = JF.cross_entropy(jx, paddle.to_tensor(label),
+                            reduction=reduction, **jkw)
+    want.sum().backward() if reduction == 'none' else want.backward()
+    tx = _leaf(logits)
+    got = TF.cross_entropy(tx, torch.from_numpy(label), reduction=reduction,
+                           **tkw)
+    (got.sum() if reduction == 'none' else got).backward()
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), jx.grad.numpy(), **TOL)
+
+
+def _soft(rng, shape, axis=-1):
+    p = rng.rand(*shape).astype(np.float32)
+    return p / p.sum(axis=axis, keepdims=True)
+
+
+# These options raised NotImplementedError until the training slice ported
+# them; each case now holds the port to the JAX functional with it.
 @pytest.mark.parametrize('kwargs', [{'soft_label': True},
-                                    {'weight': torch.ones(9)},
+                                    {'weight': np.linspace(
+                                        0.5, 2.0, 9).astype(np.float32)},
                                     {'use_softmax': False}])
 def test_cross_entropy_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match='not ported'):
-        TF.cross_entropy(torch.randn(6, 9), torch.zeros(6).long(), **kwargs)
+    rng = np.random.RandomState(11)
+    logits = rng.randn(6, 9).astype(np.float32)
+    if kwargs.get('soft_label'):
+        label = _soft(rng, (6, 9))
+    else:
+        label = rng.randint(0, 9, 6)
+        label[2] = -100
+    if kwargs.get('use_softmax') is False:
+        logits = _soft(rng, (6, 9))  # probabilities in, log taken as is
+    _ce_pair(kwargs, logits, label)
+
+
+@pytest.mark.parametrize('reduction', ['mean', 'sum', 'none'])
+@pytest.mark.parametrize('case', ['soft_nosoftmax', 'weight_ignore',
+                                  'axis1', 'axis1_nosoftmax', 'soft_axis1',
+                                  'weight_label_dim'])
+def test_cross_entropy_options_match_jax(case, reduction):
+    rng = np.random.RandomState(12)
+    w = rng.rand(5).astype(np.float32) + 0.5
+    if case == 'soft_nosoftmax':
+        _ce_pair({'soft_label': True, 'use_softmax': False},
+                 _soft(rng, (7, 5)), _soft(rng, (7, 5)), reduction)
+    elif case == 'weight_ignore':
+        label = rng.randint(0, 5, 7)
+        label[[1, 4]] = -100
+        _ce_pair({'weight': w}, rng.randn(7, 5).astype(np.float32), label,
+                 reduction)
+    elif case == 'axis1':
+        # logits [B, C, N] against labels [B, N]
+        _ce_pair({'axis': 1}, rng.randn(2, 5, 3).astype(np.float32),
+                 rng.randint(0, 5, (2, 3)), reduction)
+    elif case == 'axis1_nosoftmax':
+        _ce_pair({'axis': 1, 'use_softmax': False},
+                 _soft(rng, (2, 5, 3), axis=1), rng.randint(0, 5, (2, 3)),
+                 reduction)
+    elif case == 'soft_axis1':
+        _ce_pair({'soft_label': True, 'axis': 1},
+                 rng.randn(2, 5, 3).astype(np.float32),
+                 _soft(rng, (2, 5, 3), axis=1), reduction)
+    else:
+        label = rng.randint(0, 5, (7, 1))
+        label[3] = -100
+        _ce_pair({'weight': w, 'ignore_index': -100},
+                 rng.randn(7, 5).astype(np.float32), label, reduction)
+
+
+def test_cross_entropy_loss_layer_matches_jax():
+    rng = np.random.RandomState(13)
+    logits = rng.randn(6, 5).astype(np.float32)
+    label = rng.randint(0, 5, 6)
+    w = rng.rand(5).astype(np.float32) + 0.5
+    want = paddle.nn.CrossEntropyLoss(weight=paddle.to_tensor(w),
+                                      reduction='sum')(
+        paddle.to_tensor(logits), paddle.to_tensor(label))
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    got = CrossEntropyLoss(weight=torch.tensor(w), reduction='sum')(
+        torch.tensor(logits), torch.from_numpy(label))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
