@@ -12,7 +12,12 @@ Phases, each printed as it finishes; any failure exits non-zero:
                CUDA graph; `eager_ms` times the same launches from Python,
                wrapper included. Two launches of each dq entry on the same
                inputs must give bitwise-equal dq; the fused backward's two
-               kernels are timed apart under the profiler.
+               kernels are timed apart under the profiler. f32 at d = 64 /
+               128 runs the split-TF32 kernels: each such row reads the
+               kernel names from the profiler (no CUDA-core kernel) and
+               keeps its CUDA-core bound (bound_ms_cuda_cores) beside its
+               bound at the split-TF32 rate; any row timed above 1.05 of
+               its bound fails (the bound would be miscounted).
   3. slice 1, f32  - GPT-2 small (seeded weights) prefill logits on the card
                against the same weights on the CPU plain path; greedy tokens.
   4. slice 1, bf16 - serving: generate() on 8 prompts of 768 tokens, 128 new
@@ -108,7 +113,8 @@ Phases, each printed as it finishes; any failure exits non-zero:
                from 2^32: skipped steps (scale halved, parameters and step
                count kept), then training through the fp16 kernels; (e)
                the eager loop: auto_cast O1 bf16 (attention in the f32
-               kernels) and O2 fp16 with a GradScaler. The kernel phases
+               kernels; one more step profiled for its busy share) and O2
+               fp16 with a GradScaler. The kernel phases
                time the forward and fused backward at the training shape
                in fp16 and f32 too.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12 and 17
@@ -132,15 +138,26 @@ SEED = 1234
 
 # Datasheet peaks (dense, no sparsity) by SKU, matched against the card's
 # name: (memory bytes/s, {dtype: operations/s}). The H100 SXM figures are
-# the default for an H100 whose name matches no other row.
+# the default for an H100 whose name matches no other row. f32 products at
+# f32 accuracy run as three TF32 tensor-core products each (split TF32, the
+# f32 kernels at d = 64 / 128), so the card's f32 rate is its TF32 peak over
+# 3 (H100 SXM: 495e12 / 3 = 165e12); 'float32_cuda_cores' is the FFMA rate
+# of the CUDA cores, the yardstick of the rows' bound_ms_cuda_cores.
 _SKUS = [
     ('H100 PCIe', 2.0e12, {'bfloat16': 756e12, 'float16': 756e12,
-                           'float32': 51e12}),
+                           'float32': 378e12 / 3,
+                           'float32_cuda_cores': 51e12}),
     ('H100 NVL', 3.9e12, {'bfloat16': 835e12, 'float16': 835e12,
-                          'float32': 60e12}),
+                          'float32': 417.5e12 / 3,
+                          'float32_cuda_cores': 60e12}),
     ('H100', 3.35e12, {'bfloat16': 989e12, 'float16': 989e12,
-                       'float32': 67e12}),
+                       'float32': 495e12 / 3,
+                       'float32_cuda_cores': 67e12}),
 ]
+
+# A kernel timed below its bound means the bound's count is wrong: any row
+# whose bound_ms / ms exceeds this raises.
+MAX_SHARE_OF_BOUND = 1.05
 
 
 def _check(ok, msg):
@@ -242,20 +259,34 @@ def _profile(fn):
             [(e.key, e.device_time_total / 1e3, e.count) for e in ops])
 
 
-def _flash_bound_ms(b, h, n, m, d, dtype, causal, sku):
+def _rate_name(dtype, cuda_cores):
+    name = {torch.bfloat16: 'bfloat16', torch.float16: 'float16',
+            torch.float32: 'float32'}[dtype]
+    return name + '_cuda_cores' if cuda_cores and name == 'float32' else name
+
+
+def _share_of_bound(bound_ms, ms, what):
+    """bound_ms / ms, raising above MAX_SHARE_OF_BOUND."""
+    share = bound_ms / ms
+    _check(share <= MAX_SHARE_OF_BOUND,
+           '%s: %.4f ms is %.2f of its bound %.4f ms: the bound is miscounted'
+           % (what, ms, share, bound_ms))
+    return share
+
+
+def _flash_bound_ms(b, h, n, m, d, dtype, causal, sku, cuda_cores=False):
     """Least time for the flash forward: each input read once, o and lse
     written once, over the memory rate; the score and p @ v products that
     these inputs need (causal: the visible pairs only) over the peak rate
-    for their type. Returns (ms, 'bytes' or 'operations')."""
+    for their type (f32: split TF32, or with cuda_cores the FFMA rate).
+    Returns (ms, 'bytes' or 'operations')."""
     _, bw, ops = sku
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * b * h * n * d + 2 * b * h * m * d) * item + 4 * b * h * n
     pairs = (sum(min(i + 1, m) for i in range(n)) if causal else n * m)
     flops = 4 * d * b * h * pairs
-    name = {torch.bfloat16: 'bfloat16', torch.float16: 'float16',
-            torch.float32: 'float32'}[dtype]
     t_bytes = nbytes / bw * 1e3
-    t_ops = flops / ops[name] * 1e3
+    t_ops = flops / ops[_rate_name(dtype, cuda_cores)] * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else
                                  'operations')
 
@@ -285,7 +316,14 @@ KERNEL_SHAPES = [
     # (loss scaling) and auto_cast O1, which runs attention in f32
     TRAIN_SHAPE_F16,
     TRAIN_SHAPE_F32,
+    # the split-TF32 kernels at the seq-1024 shape and at d = 128
+    (8, 12, 1024, 1024, 64, torch.float32, True, True),
+    (2, 8, 1024, 1024, 128, torch.float32, True, False),
 ]
+
+# f32 at these head dims runs the split-TF32 kernels (flash_*_tf32_kernel);
+# a CUDA-core kernel there is a fault
+TF32_HEAD_DIMS = (64, 128)
 
 # Tolerances of the kernel against its plain version. Both sum the same
 # f32 products in another order and round p to v's dtype at another point
@@ -313,6 +351,30 @@ def _qkv(gen, b, h, n, m, d, dtype, strided):
     k = torch.randn((b, h, m, d), generator=gen, device='cuda')
     v = 0.5 * torch.randn((b, h, m, d), generator=gen, device='cuda')
     return [q.to(dtype), k.to(dtype), v.to(dtype)]
+
+
+def _check_kernel_names(fn, want, what):
+    """The flash kernels fn launches, by name from the profiler over 3
+    calls (a single profiled call can miss its first kernel): every name
+    in `want` and no CUDA-core kernel (flash_*_cc_kernel). Returns the
+    names."""
+    flash = sorted(n for n in _kernels_ms(fn, calls=3)
+                   if n.startswith('flash_'))
+    _check(set(want) <= set(flash) and
+           not any(n.endswith('_cc_kernel') for n in flash),
+           '%s launched %s, want %s and no CUDA-core kernel'
+           % (what, flash, sorted(want)))
+    return flash
+
+
+def _f32_fields(row, dtype, d, bound_cc, fn, want, what):
+    """An f32 row's CUDA-core bound, and at d = 64 / 128 the names of the
+    kernels fn launches (the split-TF32 ones, checked; fn None: none)."""
+    if dtype != torch.float32:
+        return
+    row['bound_ms_cuda_cores'] = bound_cc
+    if d in TF32_HEAD_DIMS and fn is not None:
+        row['kernels'] = _check_kernel_names(fn, want, what)
 
 
 def kernel_phase(sku):
@@ -346,12 +408,18 @@ def kernel_phase(sku):
                 q, k, v, is_causal=causal, scale=scale))
         bound_ms, bound_by = _flash_bound_ms(b, h, n, m, d, dtype, causal,
                                              sku)
+        what = 'flash_fwd at %s' % ((b, h, n, m, d, str(dtype), causal),)
         row = {'shape': [b, h, n, m, d], 'dtype': str(dtype).split('.')[-1],
                'causal': causal, 'strided': strided, 'err_o': err_o,
                'err_lse': err_lse, 'ms': ms, 'eager_ms': eager_ms,
                'plain_ms': plain_ms,
                'library_ms': library_ms, 'bound_ms': bound_ms,
-               'bound_by': bound_by}
+               'bound_by': bound_by,
+               'share_of_bound': _share_of_bound(bound_ms, ms, what)}
+        _f32_fields(row, dtype, d, _flash_bound_ms(
+            b, h, n, m, d, dtype, causal, sku, cuda_cores=True)[0],
+            lambda: fa.flash_fwd_cuda(q, k, v, causal, scale),
+            {'flash_fwd_tf32_kernel'}, what)
         print('kernel flash_fwd %s' % json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, o, lse, o_ref, lse_ref
@@ -359,12 +427,13 @@ def kernel_phase(sku):
     return rows
 
 
-def _bwd_bound_ms(b, h, n, m, d, dtype, causal, which, sku):
+def _bwd_bound_ms(b, h, n, m, d, dtype, causal, which, sku, cuda_cores=False):
     """Least time for a backward kernel: q, k, v, do, lse and delta read
     once and its gradients (fused: dq, dk, dv; dq: dq; dkv: dk, dv) written
     once, over the memory rate; its products (5, 3 or 4 of 2 * d flops for
-    each visible pair) over the peak rate for their type. Returns (ms,
-    'bytes' or 'operations')."""
+    each visible pair) over the peak rate for their type (f32: split TF32,
+    or with cuda_cores the FFMA rate). Returns (ms, 'bytes' or
+    'operations')."""
     _, bw, ops = sku
     item = torch.empty((), dtype=dtype).element_size()
     q_elems, k_elems = b * h * n * d, b * h * m * d
@@ -374,10 +443,8 @@ def _bwd_bound_ms(b, h, n, m, d, dtype, causal, which, sku):
     pairs = (sum(min(i + 1, m) for i in range(n)) if causal else n * m)
     products = {'fused': 5, 'dq': 3, 'dkv': 4}[which]
     flops = products * 2 * d * b * h * pairs
-    name = {torch.bfloat16: 'bfloat16', torch.float16: 'float16',
-            torch.float32: 'float32'}[dtype]
     t_bytes = nbytes / bw * 1e3
-    t_ops = flops / ops[name] * 1e3
+    t_ops = flops / ops[_rate_name(dtype, cuda_cores)] * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else
                                  'operations')
 
@@ -402,7 +469,14 @@ BWD_SHAPES = [
     (2, 8, 640, 1152, 64, torch.bfloat16, False, False),
     TRAIN_SHAPE_F16,
     TRAIN_SHAPE_F32,
+    # the split-TF32 kernels at the seq-1024 two-pass shape
+    (8, 12, 1024, 1024, 64, torch.float32, True, True),
 ]
+
+# the split-TF32 kernels each backward entry launches
+TF32_BWD_KERNELS = {
+    'fused': {'flash_bwd_kv_tf32_kernel', 'flash_bwd_dq_tf32_kernel'},
+    'dq': {'flash_bwd_dq_tf32_kernel'}, 'dkv': {'flash_bwd_kv_tf32_kernel'}}
 
 # Tolerances of the backward kernels against their plain version, as a
 # share of the largest reference gradient. Both take the same f32 products
@@ -464,14 +538,23 @@ def bwd_kernel_phase(sku):
                 _check_same_dq(call, got[0], 'flash_bwd_%s' % which, shape)
             bound_ms, bound_by = _bwd_bound_ms(b, h, n, m, d, dtype, causal,
                                                which, sku)
+            what = 'flash_bwd_%s at %s %s causal=%s' % (which, shape, dtype,
+                                                        causal)
+            ms = _graph_ms(call)
             row = {'shape': shape, 'dtype': str(dtype).split('.')[-1],
                    'causal': causal, 'strided': strided,
                    'max_abs_err': max(errs), 'errs': errs,
-                   'ref_max': scales, 'tol_share': tol, 'ms': _graph_ms(call),
+                   'ref_max': scales, 'tol_share': tol, 'ms': ms,
                    'eager_ms': _time_ms(call),
                    'plain_ms': plain_ms, 'library_ms': lib,
-                   'bound_ms': bound_ms, 'bound_by': bound_by}
-            if which == 'fused' and shape_key == BWD_MAIN_SHAPE:
+                   'bound_ms': bound_ms, 'bound_by': bound_by,
+                   'share_of_bound': _share_of_bound(bound_ms, ms, what)}
+            _f32_fields(row, dtype, d, _bwd_bound_ms(
+                b, h, n, m, d, dtype, causal, which, sku,
+                cuda_cores=True)[0], call, TF32_BWD_KERNELS[which], what)
+            if which == 'fused' and shape_key in (BWD_MAIN_SHAPE,
+                                                  TRAIN_SHAPE_F32):
+                # the dk/dv kernel and the dq kernel apart
                 row['kernels_ms'] = _kernels_ms(call)
             print('kernel flash_bwd_%s %s' % (which, json.dumps(row)),
                   flush=True)
@@ -1258,24 +1341,28 @@ def eager_amp_phase():
         undo = _kernel_dtypes(fa, seen)
         _reset_counts(fa)
         losses, skipped, step_ms = [], [], []
+
+        def step():
+            with amp.auto_cast(level=level, dtype=dtype):
+                loss = model.loss(model(ids), labels)
+            if scaler is None:
+                loss.backward()
+                opt.step()
+                skipped.append(False)
+            else:
+                scaler.scale(loss).backward()
+                scaler.step(opt)
+                skipped.append(scaler._found_inf)
+                scaler.update()
+            opt.clear_grad(set_to_zero=False)
+            sched.step()
+            losses.append(loss.item())
+
         try:
             for _ in range(steps):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with amp.auto_cast(level=level, dtype=dtype):
-                    loss = model.loss(model(ids), labels)
-                if scaler is None:
-                    loss.backward()
-                    opt.step()
-                    skipped.append(False)
-                else:
-                    scaler.scale(loss).backward()
-                    scaler.step(opt)
-                    skipped.append(scaler._found_inf)
-                    scaler.update()
-                opt.clear_grad(set_to_zero=False)
-                sched.step()
-                losses.append(loss.item())
+                step()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
         finally:
             undo()
@@ -1301,8 +1388,21 @@ def eager_amp_phase():
                  sum(skipped), ['%.1f' % x for x in step_ms],
                  ['%.4f' % x for x in losses], sorted(seen), launches),
               flush=True)
+        busy = None
+        if level == 'O1':
+            # two more steps: one timed alone, one under the profiler (the
+            # card's busy share of the step and where its time goes)
+            wall_ms, device_ms, top, _ = _profile(step)
+            busy = {'wall_ms': wall_ms, 'device_ms': device_ms,
+                    'busy': device_ms / wall_ms,
+                    'top': [(k, round(ms, 3), n) for k, ms, n in top]}
+            print('slice 7 (e) eager O1 profiled step: %.1f ms wall, %.1f ms '
+                  'device (busy %.2f); top kernels %s'
+                  % (wall_ms, device_ms, device_ms / wall_ms, busy['top']),
+                  flush=True)
         out[level] = {'launches': launches, 'steps': steps,
-                      'median_ms': sorted(step_ms)[steps // 2]}
+                      'median_ms': sorted(step_ms)[steps // 2],
+                      'profile': busy}
         del model, opt
         torch.cuda.empty_cache()
     return out
@@ -1366,16 +1466,21 @@ def wide_kernel_phase(sku):
                'lse err %.3g (tol %g)' % (shape, dt, causal, err_o, tol_o,
                                           err_lse, tol_lse))
         bound, bound_by = _flash_bound_ms(b, h, n, m, d, dtype, causal, sku)
+        ms = _graph_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale))
         row = {'name': 'flash_fwd', 'shape': shape, 'dtype': dt,
                'causal': causal, 'max_abs_err': err_o, 'err_lse': err_lse,
-               'ms': _graph_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal,
-                                                         scale)),
+               'ms': ms,
                'plain_ms': _time_ms(lambda: fa.flash_attention_fwd_ref(
                    q, k, v, causal, scale), iters=3, warmup=1),
                'library_ms': _graph_ms(
                    lambda: torch.nn.functional.scaled_dot_product_attention(
                        q, k, v, is_causal=causal, scale=scale)),
-               'bound_ms': bound, 'bound_by': bound_by}
+               'bound_ms': bound, 'bound_by': bound_by,
+               'share_of_bound': _share_of_bound(
+                   bound, ms, 'wide flash_fwd at %s %s' % (shape, dt))}
+        _f32_fields(row, dtype, d, _flash_bound_ms(
+            b, h, n, m, d, dtype, causal, sku, cuda_cores=True)[0],
+            None, (), '')
         print('kernel wide %s' % json.dumps(row), flush=True)
         rows.append(row)
 
@@ -1407,12 +1512,19 @@ def wide_kernel_phase(sku):
                 _check_same_dq(call, got[0], 'flash_bwd_%s' % which, shape)
             bound, bound_by = _bwd_bound_ms(b, h, n, m, d, dtype, causal,
                                             which, sku)
+            ms = _graph_ms(call)
             row = {'name': 'flash_bwd_%s' % which, 'shape': shape,
                    'dtype': dt, 'causal': causal, 'max_abs_err': max(errs),
                    'err_share': shares, 'tol_share': tol,
-                   'ms': _graph_ms(call), 'plain_ms': plain_ms,
+                   'ms': ms, 'plain_ms': plain_ms,
                    'library_ms': lib, 'bound_ms': bound,
-                   'bound_by': bound_by}
+                   'bound_by': bound_by,
+                   'share_of_bound': _share_of_bound(
+                       bound, ms, 'wide flash_bwd_%s at %s %s' % (
+                           which, shape, dt))}
+            _f32_fields(row, dtype, d, _bwd_bound_ms(
+                b, h, n, m, d, dtype, causal, which, sku,
+                cuda_cores=True)[0], None, (), '')
             print('kernel wide %s' % json.dumps(row), flush=True)
             rows.append(row)
             del got
@@ -1431,6 +1543,7 @@ LONG_SHAPES = [
     (1, 4, 4100, 4100, 64, torch.bfloat16, True, False),
     (1, 4, 4096, 4096, 64, torch.float16, True, False),
     (1, 2, 4100, 4100, 128, torch.float32, True, False),
+    (1, 4, 4096, 4096, 64, torch.float32, True, False),
     (1, 4, 1000, 4160, 64, torch.bfloat16, False, False),
 ]
 
@@ -1480,10 +1593,10 @@ def long_kernel_phase(sku):
                '%g), lse err %.3g (tol %g)' % (shape, dt, causal, err_o,
                                                 tol_o, err_lse, tol_lse))
         bound, bound_by = _flash_bound_ms(b, h, n, m, d, dtype, causal, sku)
+        ms = _graph_ms(lambda: fa.flash_fwd_long_cuda(q, k, v, causal, scale))
         row = {'shape': shape, 'dtype': dt, 'causal': causal,
                'strided': strided, 'max_abs_err': err_o, 'err_lse': err_lse,
-               'ms': _graph_ms(lambda: fa.flash_fwd_long_cuda(
-                   q, k, v, causal, scale)),
+               'ms': ms,
                'eager_ms': _time_ms(lambda: fa.flash_fwd_long_cuda(
                    q, k, v, causal, scale)),
                'std_ms': _graph_ms(lambda: fa.flash_fwd_cuda(
@@ -1493,7 +1606,14 @@ def long_kernel_phase(sku):
                'library_ms': _graph_ms(
                    lambda: torch.nn.functional.scaled_dot_product_attention(
                        q, k, v, is_causal=causal, scale=scale)),
-               'bound_ms': bound, 'bound_by': bound_by}
+               'bound_ms': bound, 'bound_by': bound_by,
+               'share_of_bound': _share_of_bound(
+                   bound, ms, 'flash_fwd_long at %s %s' % (shape, dt))}
+        _f32_fields(row, dtype, d, _flash_bound_ms(
+            b, h, n, m, d, dtype, causal, sku, cuda_cores=True)[0],
+            lambda: fa.flash_fwd_long_cuda(q, k, v, causal, scale),
+            {'flash_fwd_tf32_kernel'}, 'flash_fwd_long at %s %s' % (shape,
+                                                                     dt))
         print('kernel flash_fwd_long %s' % json.dumps(row), flush=True)
         rows['fwd', key] = row
         torch.cuda.empty_cache()
@@ -1524,13 +1644,19 @@ def long_kernel_phase(sku):
                 _check_same_dq(call, got[0], 'flash_bwd_dq_long', shape)
             bound, bound_by = _bwd_bound_ms(b, h, n, m, d, dtype, causal,
                                             which, sku)
+            what = 'flash_bwd_%s_long at %s %s' % (which, shape, dt)
+            ms = _graph_ms(call)
             row = {'shape': shape, 'dtype': dt, 'causal': causal,
                    'strided': strided, 'max_abs_err': max(errs),
                    'err_share': shares, 'tol_share': tol,
-                   'ms': _graph_ms(call), 'eager_ms': _time_ms(call),
+                   'ms': ms, 'eager_ms': _time_ms(call),
                    'std_ms': _graph_ms(std),
                    'plain_ms': plain_ms, 'library_ms': lib,
-                   'bound_ms': bound, 'bound_by': bound_by}
+                   'bound_ms': bound, 'bound_by': bound_by,
+                   'share_of_bound': _share_of_bound(bound, ms, what)}
+            _f32_fields(row, dtype, d, _bwd_bound_ms(
+                b, h, n, m, d, dtype, causal, which, sku,
+                cuda_cores=True)[0], call, TF32_BWD_KERNELS[which], what)
             print('kernel flash_bwd_%s_long %s' % (which, json.dumps(row)),
                   flush=True)
             rows[which, key] = row
@@ -2626,7 +2752,10 @@ def _pct(xs, q):
 # How each kernel entry computes its products: "wgmma+tma" (warpgroup
 # wgmma on TMA-fed shared memory, a producer warpgroup and consumer
 # warpgroups). The fused backward launches the dk/dv kernel, then the dq
-# kernel; both are wgmma+tma.
+# kernel; both are wgmma+tma. In f32 at d = 64 / 128 every entry runs
+# DESIGN_F32: three TF32 mma.sync products for each f32 product, operands
+# split in registers, on TMA-fed shared memory (csrc/tf32x3.cuh).
+DESIGN_F32 = 'split-tf32 mma.sync+tma'
 DESIGN = {'flash_fwd': 'wgmma+tma', 'flash_fwd_long': 'wgmma+tma',
           'flash_bwd_fused': 'wgmma+tma', 'flash_bwd_dkv': 'wgmma+tma',
           'flash_bwd_dkv_long': 'wgmma+tma', 'flash_bwd_dq': 'wgmma+tma',
@@ -2700,11 +2829,12 @@ def main():
             'ms': row['ms'], 'eager_ms': row['eager_ms'],
             'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
             'bound_by': row['bound_by'],
-            'share_of_bound': row['bound_ms'] / row['ms'],
+            'share_of_bound': row['share_of_bound'],
             'library_ms': row['library_ms'],
             'vs_library': row['ms'] / row['library_ms'], 'shape': shape,
         }
-        for key in ('std_ms', 'kernels_ms'):
+        for key in ('std_ms', 'kernels_ms', 'bound_ms_cuda_cores',
+                    'kernels'):
             if key in row:
                 out[key] = row[key]
         return out
@@ -2746,14 +2876,14 @@ def main():
                              long_train['steps'], 'train seq 8192',
                              long_shape))
     # slice 7's operand types at the training shape: fp16 under loss
-    # scaling (wgmma, like bf16), f32 under auto_cast O1 (CUDA cores)
+    # scaling (wgmma, like bf16), f32 under auto_cast O1 (split TF32)
     for shape_key, run, path in (
             (TRAIN_SHAPE_F16, slice7['fp16'], 'slice 7 (d) fp16 AMP'),
             (TRAIN_SHAPE_F32, slice7['eager']['O1'],
              'slice 7 (e) eager auto_cast O1')):
         dtype = str(shape_key[5]).split('.')[-1]
         shape = 'b=32 h=12 n=m=512 d=64 %s causal strided' % dtype
-        design = 'cuda cores' if dtype == 'float32' else None
+        design = DESIGN_F32 if dtype == 'float32' else None
         for kernel, source, line, row in (
                 ('flash_fwd', 'flash_fwd', 137, train_fwd(shape_key[5])),
                 ('flash_bwd_fused', 'flash_bwd', 659,

@@ -1,6 +1,6 @@
 """Compare builds of the flash backward kernels on one NVIDIA GPU.
 
-    python3 flash_bwd_probe.py [--variant NAME=SOURCE.cu[:FLAG,FLAG...]] ...
+    python3 flash_bwd_probe.py [--dtype float32] [--variant NAME=SOURCE.cu[:FLAG,...]] ...
 
 Builds this tree's paddle_tpu_torch/csrc/flash_bwd.cu and every variant
 given (another tree's flash_bwd.cu, or an edited copy; FLAGs are extra
@@ -11,8 +11,9 @@ against the plain version (chip_smoke's tolerances) and launched twice
 for a bitwise-equal dq; at the timed shapes every build's dq, fused and
 dk/dv entries are timed by CUDA-graph replay, the builds in turns and then
 in the reverse order, and at the training shape the fused entry's two
-kernels are timed apart under the profiler. Prints the registers and
-spills of each dq kernel; exits non-zero if a build fails or any check of
+kernels are timed apart under the profiler. --dtype float32 takes f32
+shapes (the split-TF32 kernels) instead. Prints the registers and
+spills of each dq kernel (and of every f32 kernel); exits non-zero if a build fails or any check of
 this tree's build fails.
 """
 import argparse
@@ -46,6 +47,19 @@ SHAPES = [
     (2, 12, 8192, 8192, 64, torch.bfloat16, True),
 ]
 TIMED = SHAPES[-3:]
+# --dtype float32: the split-TF32 kernels at both head dims, ragged and
+# cross-length, then the timed shapes: d = 128, the seq-1024 two-pass and
+# the training shape
+F32_SHAPES = [
+    (1, 2, 700, 700, 64, torch.float32, True),
+    (1, 2, 700, 700, 128, torch.float32, True),
+    (2, 8, 640, 1152, 64, torch.float32, False),
+    (1, 2, 300, 700, 128, torch.float32, False),
+    (4, 8, 1024, 1024, 128, torch.float32, True),
+    (8, 12, 1024, 1024, 64, torch.float32, True),
+    (32, 12, 512, 512, 64, torch.float32, True),
+]
+F32_TIMED = F32_SHAPES[-3:]
 
 
 def _build_all(variants):
@@ -68,7 +82,8 @@ def _build_all(variants):
             if 'Compiling entry function' in line:
                 entry = line.split("'")[1] if "'" in line else line
                 entry = entry[entry.rfind('flash_'):]
-            if 'bwd_dq' in entry and any(k in line for k in ('registers', 'spill', 'wgmma')):
+            if ('bwd_dq' in entry or 'tf32' in entry) and any(
+                    k in line for k in ('registers', 'spill', 'wgmma')):
                 print('  %s %s: %s' % (name, entry[:64], line.strip()), flush=True)
         lib = ctypes.CDLL(out)
         for fn_name in ENTRIES:
@@ -87,7 +102,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--variant', action='append', default=[],
                     help='NAME=SOURCE.cu[:FLAG,FLAG...]')
+    ap.add_argument('--dtype', choices=('16bit', 'float32'), default='16bit',
+                    help='the shapes: bf16 / fp16 (default) or f32')
     args = ap.parse_args(argv)
+    shapes, timed = ((F32_SHAPES, F32_TIMED) if args.dtype == 'float32'
+                     else (SHAPES, TIMED))
     if not torch.cuda.is_available():
         print('flash_bwd_probe: CUDA is not available', file=sys.stderr)
         return 1
@@ -106,7 +125,7 @@ def main(argv=None):
 
     failures = 0
     gen = torch.Generator(device='cuda').manual_seed(cs.SEED)
-    for key in SHAPES:
+    for key in shapes:
         b, h, n, m, d, dtype, causal = key
         scale = 1 / math.sqrt(d)
         q, k, v = cs._qkv(gen, b, h, n, m, d, dtype, False)
@@ -135,7 +154,7 @@ def main(argv=None):
                       % (name, which, key[:5], err / top,
                          'equal' if torch.equal(first, again) else 'DIFFERS',
                          'ok' if ok else 'FAILED'), flush=True)
-        if key in TIMED:
+        if key in timed:
             for order in (list(libs), list(libs)[::-1]):
                 for name in order:
                     use(name)

@@ -48,7 +48,7 @@
 //   (46 us) for 4 products on 33.6M visible pairs per (b, h), 412 GFLOP
 //   (417 us); the dq pass 3 products (313 us). Operations bound both.
 //
-// Two paths:
+// Three paths:
 // - bf16 / fp16 at d = 64 and 128: warpgroup wgmma on shared memory that
 //   TMA fills, a producer warpgroup (40 registers) feeding two consumer
 //   warpgroups (232 registers, moved over by setmaxnreg) through rings
@@ -65,17 +65,21 @@
 //   K tile as B. Only the tiles that cross the diagonal or an end test
 //   each pair: the test cost more instructions than the rest of the
 //   elementwise step.
-// - f32, and every type at d = 192 and 256: FMAs on the CUDA cores, 256
+// - f32 at d = 64 and 128: f32-accurate products as three TF32 tensor-core
+//   products each (split TF32, tf32x3.cuh) on TMA-fed shared memory
+//   (flash_bwd_kv_tf32_kernel, flash_bwd_dq_tf32_kernel); their section
+//   below says what bounds them and what the design does about that.
+// - every type at d = 192 and 256: FMAs on the CUDA cores, 256
 //   threads, each on a 4 x 2 to 4 x 16 register tile, operands staged in
 //   shared memory as their own type (flash_bwd_kv_cc_kernel,
 //   flash_bwd_dq_cc_kernel). This is the simple first kernel for the wide
 //   heads; it runs at CUDA-core rates, far below the tensor cores'.
-// The wgmma kernels are persistent (one block an SM): each walks pairs of
-// tiles whose causal work adds up to the same (TilePairs), and the next
-// tile's resident operands (K and V, or q and do) arrive in a second buffer
-// while this one finishes. The CUDA-core kernels' grid is one-dimensional, the
-// tiles of one (b, h) adjacent and the heaviest first (the last query tile
-// for dq, the first key tile for dk/dv).
+// The tensor-core kernels are persistent (one block an SM): each walks pairs
+// of tiles whose causal work adds up to the same (TilePairs); in the 16-bit
+// ones the next tile's resident operands (K and V, or q and do) arrive in a
+// second buffer while this one finishes. The CUDA-core kernels' grid is
+// one-dimensional, the tiles of one (b, h) adjacent and the heaviest first
+// (the last query tile for dq, the first key tile for dk/dv).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
@@ -91,6 +95,7 @@
 
 #include "mma_sm90.cuh"
 #include "sm90_async.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -792,9 +797,560 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core kernels: f32 at every head dim, and bf16 / fp16 at d = 192
-// and 256, where the wgmma kernels' rings would not fit in shared memory
-// (they are instantiated at d = 64 and 128). 256 threads as 16 x 16; thread
+// f32 at d = 64 and 128: split-TF32 products on the tensor cores
+// (tf32x3.cuh) on TMA-fed shared memory.
+//
+// Replaces the TPU kernels of every backward entry for f32 operands:
+// _bwd_fused_kernel (paddle_tpu/ops/flash_attention.py:659, launched by
+// _bwd_impl_fused), _bwd_dq_kernel / _bwd_dkv_kernel (:580 / :617) and the
+// long route's _bwd_dq_kernel_long / _bwd_dkv_kernel_long (:437 / :474).
+// auto_cast O1 runs attention in f32, so an O1 training step launches the
+// fused entry once a layer.
+//
+// What bounds it on the card: at the training shape (b=32, h=12, n=m=512,
+// d=64, causal) the fused backward moves 7 x 50.3 MB (105 us at 3.35 TB/s)
+// for 32.3 GFLOP of f32-accurate products: 482 us on the CUDA cores' 67
+// TFLOP/s, 196 us as three TF32 products each on the tensor cores. So
+// operations bound it; every product is three mma.sync.m16n8k8 .tf32 on
+// operands split in registers as they are loaded, and producer warps keep
+// the streamed tiles coming by TMA. Three of the five products take an
+// MN-major B (dv += p^T do, dk += ds^T q, dq += ds k), which wgmma takes
+// for .tf32 only K-major; mma.sync reads those B fragments from the
+// row-major tiles with 32-bit loads, and p^T, ds^T and ds go from their
+// accumulators to A fragments in registers (frag_from_acc).
+//
+// Two kernels, each a persistent block (one an SM) of 8 consumer warps (16
+// rows each) and one producer warp walking tile pairs (TilePairs):
+// - flash_bwd_kv_tf32_kernel: dk and dv of a tile of 128 keys, K and V
+//   copied once, query tiles of KVT_BQ rows (q, do by TMA, lse and
+//   delta by the producer's lanes) streamed through a ring; each warp
+//   computes s^T = k q^T and dp^T = v do^T, then p^T and ds^T in
+//   registers, dv += p^T do and dk += ds^T q. With STORE_DS (the fused
+//   pass) it also stores ds^T, in f32, to the workspace.
+// - flash_bwd_dq_tf32_kernel: dq of a tile of 128 query rows, q and do
+//   copied once, K and V tiles of dqt_bn keys streamed; each warp
+//   computes s = q k^T and dp = do v^T, ds, and dq += ds k. With FROM_DS
+//   (the fused pass) it streams K and the ds^T tiles instead and does only
+//   dq += ds k, ds read from the ds^T tile with 32-bit loads.
+// The fused pass keeps the 16-bit path's design: at the training shape on
+// an H100 SXM at 700 W the f32 round trip through the workspace (written
+// and read over the causal half of its 0.40 GB) took 1.04 ms against 1.18
+// ms for a dq kernel that recomputes s and dp, both built alike
+// (flash_bwd_probe.py). dq is summed in a fixed order with no atomics, so
+// it is deterministic.
+
+constexpr int BT_WARPS = 8;                        // consumer warps, 16 rows each
+constexpr int BT_ROWS = 16 * BT_WARPS;             // keys (dk/dv) or queries (dq) a tile
+constexpr int BT_THREADS = (BT_WARPS + 1) * 32;    // + the producer warp
+// query rows of the dk/dv kernel's streamed tile: 64 at d = 64 measured 12 %
+// slower on an H100 SXM at 700 W (the s^T and dp^T accumulators of 64
+// queries left the compiler too few registers; flash_bwd_probe.py)
+constexpr int KVT_BQ = 32;
+template <int D> __host__ __device__ constexpr int bt_stages() { return D == 64 ? 3 : 2; }
+// keys of the dq kernel's streamed tile, and its stages: with FROM_DS a
+// stage holds K and the tile's ds^T (128 query columns), without it K and V
+template <int D, bool FROM_DS> __host__ __device__ constexpr int dqt_bn() {
+    return FROM_DS || D == 64 ? 64 : 32;
+}
+template <int D, bool FROM_DS> __host__ __device__ constexpr int dqt_stages() {
+    return FROM_DS ? 3 : bt_stages<D>();
+}
+template <int D, bool FROM_DS> __host__ __device__ constexpr int dqt_x_cols() {
+    return FROM_DS ? BT_ROWS : D;
+}
+
+template <int D>
+constexpr size_t kvt_smem_bytes() {
+    // K and V of the key tile, then q and do of every stage, lse and delta
+    // of every stage, the barriers and the 1024-byte alignment slack
+    constexpr int BQ = KVT_BQ;
+    constexpr int ST = bt_stages<D>();
+    return (size_t)(2 * BT_ROWS + 2 * ST * BQ) * D * 4 + (size_t)2 * ST * BQ * 4 +
+           (2 * ST + 2) * 8 + 1024;
+}
+
+template <int D, bool FROM_DS>
+constexpr size_t dqt_smem_bytes() {
+    // q and do of the query tile (recomputing only), then K and V (or ds^T)
+    // of every stage, the barriers and the 1024-byte alignment slack
+    constexpr int BN = dqt_bn<D, FROM_DS>();
+    constexpr int ST = dqt_stages<D, FROM_DS>();
+    return (size_t)(FROM_DS ? 0 : 2 * BT_ROWS * D) * 4 +
+           (size_t)ST * BN * (D + dqt_x_cols<D, FROM_DS>()) * 4 + (2 * ST + 2) * 8 + 1024;
+}
+
+// p and ds of one score (f32, expf: the CUDA-core kernels' p_ds), 0 where
+// MASK finds the pair invisible
+template <bool MASK>
+__device__ __forceinline__ void p_ds_f32(const BwdParams& p, int row, int key, float& s, float& dp,
+                                         float lse, float delta) {
+    const float pv = expf(fminf(s * p.scale - lse, 30.f));
+    const float dsv = pv * (dp - delta) * p.scale;
+    const bool vis = !MASK || visible(p, row, key);
+    s = vis ? pv : 0.f;
+    dp = vis ? dsv : 0.f;
+}
+
+// The f32 outputs of a warp's rows row_a and row_a + 8 (below `limit`):
+// acc[j][2 r], acc[j][2 r + 1] at columns 8 j + 2 t, + 1 of row row_a + 8 r
+template <int NJ>
+__device__ __forceinline__ void store_rows_f32(float* x, long long row_stride, int row_a,
+                                               int limit, const float (&acc)[NJ][4]) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        if (row >= limit) continue;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+            *reinterpret_cast<float2*>(x + (long long)row * row_stride + 8 * j + 2 * t) =
+                make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+    }
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero_acc(float (&acc)[NJ][4]) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+template <int D, bool STORE_DS>
+__global__ void __launch_bounds__(BT_THREADS, 1)
+    flash_bwd_kv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do, const BwdParams p) {
+    constexpr int KR = BT_ROWS;
+    constexpr int BQ = KVT_BQ;
+    constexpr int ST = bt_stages<D>();
+    constexpr int NQ = BQ / 8;  // n8 tiles of s^T and dp^T (queries)
+    constexpr int NG = D / 8;   // n8 tiles of dk and dv
+    constexpr uint32_t STAGE = BQ * D * 4;  // bytes of one stage of q or do
+    extern __shared__ unsigned char smem_raw[];
+    float* Ks = reinterpret_cast<float*>(align_1024(smem_raw));
+    float* Vs = Ks + KR * D;
+    float* Qs = Vs + KR * D;        // ST stages
+    float* dOs = Qs + ST * BQ * D;  // ST stages
+    float* lse_s = dOs + ST * BQ * D;
+    float* delta_s = lse_s + ST * BQ;
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + ST * BQ);
+    uint64_t* kv_empty = kv_full + 1;
+    uint64_t* full = kv_empty + 1;  // ST
+    uint64_t* empty = full + ST;    // ST
+
+    const TilePairs work(cdiv(p.m, KR), p.h * p.b);
+    const int num_qt = cdiv(p.n, BQ);
+    if (threadIdx.x == 0) {
+        mbar_init(kv_full, 1);
+        mbar_init(kv_empty, BT_WARPS);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full + s, 32);  // every producer lane writes lse and delta
+            mbar_init(empty + s, BT_WARPS);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp == BT_WARPS) {
+        // the producer warp: lane 0 issues the copies, every lane loads the
+        // row stats
+        Ring<ST> ring;
+        int local = 0;  // key tiles this block has walked
+        for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+            for (int si = 0; si < work.count(u); ++si, ++local) {
+                const Tile tile = work.tile<false>(u, si, p.h);
+                const int k0 = tile.t * KR;
+                if (lane == 0) {
+                    mbar_wait(kv_empty, (local & 1) ^ 1);
+                    mbar_arrive_expect_tx(kv_full, 2 * KR * D * 4);
+                    tma_load_rows<D, KR>(Ks, &tm_k, kv_full, k0, tile.hi, tile.bi);
+                    tma_load_rows<D, KR>(Vs, &tm_v, kv_full, k0, tile.hi, tile.bi);
+                }
+                const long long row_base = ((long long)tile.bi * p.h + tile.hi) * p.n;
+                for (int qt = first_q_tile(p, k0, BQ); qt < num_qt; ++qt, ring.advance()) {
+                    const int q0 = qt * BQ;
+                    mbar_wait(empty + ring.stage, ring.phase ^ 1);
+                    for (int r = lane; r < BQ; r += 32) {
+                        const int row = q0 + r;
+                        lse_s[ring.stage * BQ + r] = row < p.n ? p.lse[row_base + row] : 0.f;
+                        delta_s[ring.stage * BQ + r] = row < p.n ? p.delta[row_base + row] : 0.f;
+                    }
+                    if (lane == 0) {
+                        mbar_arrive_expect_tx(full + ring.stage, 2 * BQ * D * 4);
+                        tma_load_rows<D, BQ>(Qs + ring.stage * BQ * D, &tm_q, full + ring.stage,
+                                             q0, tile.hi, tile.bi);
+                        tma_load_rows<D, BQ>(dOs + ring.stage * BQ * D, &tm_do, full + ring.stage,
+                                             q0, tile.hi, tile.bi);
+                    } else {
+                        mbar_arrive(full + ring.stage);
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint32_t k_tile = smem_addr(Ks);
+    const uint32_t v_tile = smem_addr(Vs);
+    const uint32_t q_tiles = smem_addr(Qs);
+    const uint32_t do_tiles = smem_addr(dOs);
+    const KmajorLoader<KR, true> kv_ld(16 * warp);  // K and V as A: the warp's 16 keys
+    const KmajorLoader<BQ, false> qb_ld(0);         // q and do as B
+    const MnmajorLoader<BQ> mn_ld;                  // do and q as MN-major B
+    float dk[NG][4], dv[NG][4];
+    Ring<ST> ring;
+    int local = 0;
+    for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+        for (int si = 0; si < work.count(u); ++si, ++local) {
+            const Tile tile = work.tile<false>(u, si, p.h);
+            const int k0 = tile.t * KR;
+            const int k0w = k0 + 16 * warp;  // the warp's first key
+            const int key_a = k0w + g;       // this thread's keys: key_a, key_a + 8
+            zero_acc(dk);
+            zero_acc(dv);
+            mbar_wait(kv_full, local & 1);
+            for (int qt = first_q_tile(p, k0, BQ); qt < num_qt; ++qt, ring.advance()) {
+                const int q0 = qt * BQ;
+                mbar_wait(full + ring.stage, ring.phase);
+                // causal: a tile whose queries all precede the warp's keys
+                // adds nothing
+                if (!(p.causal && q0 + BQ - 1 < k0w)) {
+                    const uint32_t q_tile = q_tiles + ring.stage * STAGE;
+                    const uint32_t do_tile = do_tiles + ring.stage * STAGE;
+                    // s^T = k q^T and dp^T = v do^T: the warp's 16 keys x BQ
+                    // queries, K and V as A, q and do as B (all K-major)
+                    float s[NQ][4], dp[NQ][4];
+                    zero_acc(s);
+                    zero_acc(dp);
+                    // (one product at a time: the registers hold dk, dv, s
+                    // and dp, and little more)
+#pragma unroll
+                    for (int kk = 0; kk < D / 8; ++kk) {
+                        const FragA ka = ld_a(kv_ld, k_tile, kk);
+#pragma unroll
+                        for (int j = 0; j < NQ; j += 2) {
+                            FragB b0, b1;
+                            ld_b_pair(b0, b1, qb_ld, q_tile, j, kk);
+                            mma3(s[j], ka, b0);
+                            mma3(s[j + 1], ka, b1);
+                        }
+                    }
+#pragma unroll
+                    for (int kk = 0; kk < D / 8; ++kk) {
+                        const FragA va = ld_a(kv_ld, v_tile, kk);
+#pragma unroll
+                        for (int j = 0; j < NQ; j += 2) {
+                            FragB b0, b1;
+                            ld_b_pair(b0, b1, qb_ld, do_tile, j, kk);
+                            mma3(dp[j], va, b0);
+                            mma3(dp[j + 1], va, b1);
+                        }
+                    }
+                    // p^T and ds^T in place of s^T and dp^T; only tiles that
+                    // cross the diagonal or an end test each pair
+                    const float* lse_b = lse_s + ring.stage * BQ;
+                    const float* delta_b = delta_s + ring.stage * BQ;
+                    const bool edge = edge_pair(p, q0, BQ, k0w, 16);
+#pragma unroll
+                    for (int j = 0; j < NQ; ++j) {
+                        const int col = 8 * j + 2 * t;
+                        const float2 lse2 = *reinterpret_cast<const float2*>(lse_b + col);
+                        const float2 dl2 = *reinterpret_cast<const float2*>(delta_b + col);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int key = key_a + 8 * (e >> 1);
+                            const int row = q0 + 8 * j + 2 * t + (e & 1);
+                            const float lse = (e & 1) ? lse2.y : lse2.x;
+                            const float dl = (e & 1) ? dl2.y : dl2.x;
+                            if (edge)
+                                p_ds_f32<true>(p, row, key, s[j][e], dp[j][e], lse, dl);
+                            else
+                                p_ds_f32<false>(p, row, key, s[j][e], dp[j][e], lse, dl);
+                        }
+                    }
+                    if (STORE_DS) {  // rows key_a (r = 0) and key_a + 8 (r = 1) of ds^T
+                        float* ds_t = ds_rows<float>(p, tile.bi, tile.hi);
+#pragma unroll
+                        for (int r = 0; r < 2; ++r) {
+                            const int key = key_a + 8 * r;
+                            if (key >= p.m) continue;
+#pragma unroll
+                            for (int j = 0; j < NQ; ++j)
+                                *reinterpret_cast<float2*>(ds_t + (long long)key * ds_ld(p.n) +
+                                                           q0 + 8 * j + 2 * t) =
+                                    make_float2(dp[j][2 * r], dp[j][2 * r + 1]);
+                        }
+                    }
+                    // dv += p^T do, then dk += ds^T q: do and q as MN-major B
+#pragma unroll
+                    for (int c = 0; c < NQ; ++c) {
+                        const FragA pa = frag_from_acc(s[c]);
+#pragma unroll
+                        for (int j = 0; j < NG; ++j)
+                            mma3(dv[j], pa, mn_ld.load(do_tile, c, j));
+                    }
+#pragma unroll
+                    for (int c = 0; c < NQ; ++c) {
+                        const FragA da = frag_from_acc(dp[c]);
+#pragma unroll
+                        for (int j = 0; j < NG; ++j)
+                            mma3(dk[j], da, mn_ld.load(q_tile, c, j));
+                    }
+                }
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + ring.stage);
+            }
+            // every product of this tile is done: K and V may be refilled
+            __syncwarp();
+            if (lane == 0) mbar_arrive(kv_empty);
+
+            float* dk_out = static_cast<float*>(p.dk) + tile.bi * p.sdk[0] + tile.hi * p.sdk[1];
+            float* dv_out = static_cast<float*>(p.dv) + tile.bi * p.sdv[0] + tile.hi * p.sdv[1];
+            store_rows_f32(dk_out, p.sdk[2], key_a, p.m, dk);
+            store_rows_f32(dv_out, p.sdv[2], key_a, p.m, dv);
+        }
+    }
+}
+
+// The A fragments of dq += ds k from a stage's ds^T tile (FROM_DS): the
+// warp's 16 query rows are columns row0.. of the tile, the k8 slice c its
+// rows (keys) 8 c.., in the permuted order (k t is key 8 c + 2 t), read
+// with 32-bit loads; off[r][h] serves key 2t + r and row g + 8h.
+template <int ROWS>
+struct DsTLoader {
+    uint32_t off[2][2];
+    __device__ __forceinline__ explicit DsTLoader(int row0) {
+        const int lane = threadIdx.x & 31;
+        const int g = lane >> 2;
+        const int t = lane & 3;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int col = row0 + g + 8 * h;
+                const int row = 2 * t + r;
+                off[r][h] = (col >> 5) * (ROWS * 128) + row * 128 +
+                            (((((col & 31) >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+            }
+    }
+    // MASK zeroes the keys past a row's diagonal (key0: the tile's first
+    // key, row_a: this lane's first row): the dk/dv kernel writes ds^T only
+    // for the pairs it visits, so the workspace holds garbage there
+    template <bool MASK>
+    __device__ __forceinline__ FragA load(uint32_t tile, int c, int key0, int row_a) const {
+        const uint32_t at = tile + c * 1024;
+        uint32_t x[4] = {lds32(at + off[0][0]), lds32(at + off[0][1]), lds32(at + off[1][0]),
+                         lds32(at + off[1][1])};
+        if (MASK) {
+            const int key = key0 + 8 * c + 2 * (threadIdx.x & 3);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                if (key + (i >> 1) > row_a + 8 * (i & 1)) x[i] = 0u;
+        }
+        return split_a(x);
+    }
+};
+
+template <int D, bool FROM_DS>
+__global__ void __launch_bounds__(BT_THREADS, 1)
+    flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_x,
+                             const __grid_constant__ CUtensorMap tm_do, const BwdParams p) {
+    constexpr int QR = BT_ROWS;
+    constexpr int BN = dqt_bn<D, FROM_DS>();
+    constexpr int XW = dqt_x_cols<D, FROM_DS>();
+    constexpr int ST = dqt_stages<D, FROM_DS>();
+    constexpr int QBUF = FROM_DS ? 0 : QR * D;  // floats of the q (and the do) buffer
+    constexpr int NK = BN / 8;  // n8 tiles of s and dp (keys)
+    constexpr int NG = D / 8;   // n8 tiles of dq
+    constexpr uint32_t K_STAGE = BN * D * 4;   // bytes of one stage of K
+    constexpr uint32_t X_STAGE = BN * XW * 4;  // bytes of one stage of V or ds^T
+    extern __shared__ unsigned char smem_raw[];
+    float* Qs = reinterpret_cast<float*>(align_1024(smem_raw));
+    float* dOs = Qs + QBUF;
+    float* Ks = dOs + QBUF;        // ST stages
+    float* Xs = Ks + ST * BN * D;  // ST stages of V or ds^T
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(Xs + ST * BN * XW);
+    uint64_t* q_empty = q_full + 1;
+    uint64_t* full = q_empty + 1;  // ST
+    uint64_t* empty = full + ST;   // ST
+
+    const TilePairs work(cdiv(p.n, QR), p.h * p.b);
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        mbar_init(q_empty, BT_WARPS);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, BT_WARPS);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp == BT_WARPS) {
+        // the producer warp; one lane issues every copy
+        if (lane != 0) return;
+        Ring<ST> ring;
+        int local = 0;  // query tiles this block has walked
+        for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+            for (int si = 0; si < work.count(u); ++si, ++local) {
+                const Tile tile = work.tile<true>(u, si, p.h);
+                const int q0 = tile.t * QR;
+                if constexpr (!FROM_DS) {
+                    mbar_wait(q_empty, (local & 1) ^ 1);
+                    mbar_arrive_expect_tx(q_full, 2 * QR * D * 4);
+                    tma_load_rows<D, QR>(Qs, &tm_q, q_full, q0, tile.hi, tile.bi);
+                    tma_load_rows<D, QR>(dOs, &tm_do, q_full, q0, tile.hi, tile.bi);
+                }
+                const int kt_end = last_k_tile(p, q0, QR, BN);
+                for (int kt = 0; kt < kt_end; ++kt, ring.advance()) {
+                    mbar_wait(empty + ring.stage, ring.phase ^ 1);
+                    mbar_arrive_expect_tx(full + ring.stage, BN * (D + XW) * 4);
+                    tma_load_rows<D, BN>(Ks + ring.stage * BN * D, &tm_k, full + ring.stage,
+                                         kt * BN, tile.hi, tile.bi);
+                    float* x = Xs + ring.stage * BN * XW;
+                    if constexpr (FROM_DS) {
+                        // ds^T rows kt * BN.. (keys), columns q0.. (queries)
+#pragma unroll
+                        for (int c = 0; c < XW / 32; ++c)
+                            tma_load_box(x + c * BN * 32, &tm_x, full + ring.stage, q0 + c * 32,
+                                         kt * BN, tile.hi, tile.bi);
+                    } else {
+                        tma_load_rows<D, BN>(x, &tm_x, full + ring.stage, kt * BN, tile.hi,
+                                             tile.bi);
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint32_t q_tile = smem_addr(Qs);
+    const uint32_t do_tile = smem_addr(dOs);
+    const uint32_t k_tiles = smem_addr(Ks);
+    const uint32_t x_tiles = smem_addr(Xs);
+    const KmajorLoader<QR, true> a_ld(16 * warp);  // q and do as A: the warp's 16 rows
+    const KmajorLoader<BN, false> b_ld(0);         // K and V as B
+    const MnmajorLoader<BN> k_ld;                  // K as MN-major B
+    const DsTLoader<BN> dst_ld(16 * warp);         // ds from ds^T (FROM_DS)
+    float dq[NG][4];
+    Ring<ST> ring;
+    int local = 0;
+    for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+        for (int si = 0; si < work.count(u); ++si, ++local) {
+            const Tile tile = work.tile<true>(u, si, p.h);
+            const int q0 = tile.t * QR;
+            const int kt_end = last_k_tile(p, q0, QR, BN);
+            const int q0w = q0 + 16 * warp;  // the warp's first row
+            const int row_a = q0w + g;       // this thread's rows: row_a, row_a + 8
+            // key tiles with a key that some row of the warp sees; the rest
+            // (causal) only pass through the ring
+            const int kt_w = p.causal ? min(kt_end, (q0w + 15) / BN + 1) : kt_end;
+            const long long row_base = ((long long)tile.bi * p.h + tile.hi) * p.n;
+            float lse[2], dl[2];  // lse and delta of rows row_a, row_a + 8
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int row = row_a + 8 * r;
+                lse[r] = !FROM_DS && row < p.n ? p.lse[row_base + row] : 0.f;
+                dl[r] = !FROM_DS && row < p.n ? p.delta[row_base + row] : 0.f;
+            }
+            zero_acc(dq);
+            if (!FROM_DS) mbar_wait(q_full, local & 1);
+            for (int kt = 0; kt < kt_end; ++kt, ring.advance()) {
+                mbar_wait(full + ring.stage, ring.phase);
+                if (kt < kt_w) {
+                    const uint32_t k_tile = k_tiles + ring.stage * K_STAGE;
+                    const uint32_t x_tile = x_tiles + ring.stage * X_STAGE;
+                    const int k0 = kt * BN;
+                    if constexpr (FROM_DS) {
+                        // dq += ds k: ds from the ds^T tile, K as an MN-major B
+                        const bool edge = p.causal && k0 + BN - 1 > q0w;
+#pragma unroll
+                        for (int c = 0; c < NK; ++c) {
+                            const FragA a =
+                                edge ? dst_ld.template load<true>(x_tile, c, k0, row_a)
+                                     : dst_ld.template load<false>(x_tile, c, k0, row_a);
+#pragma unroll
+                            for (int j = 0; j < NG; ++j)
+                                mma3(dq[j], a, k_ld.load(k_tile, c, j));
+                        }
+                    } else {
+                        // s = q k^T and dp = do v^T: q and do as A, K and V as
+                        // B (all K-major)
+                        float s[NK][4], dp[NK][4];
+                        zero_acc(s);
+                        zero_acc(dp);
+#pragma unroll
+                        for (int kk = 0; kk < D / 8; ++kk) {
+                            const FragA qa = ld_a(a_ld, q_tile, kk);
+                            const FragA da = ld_a(a_ld, do_tile, kk);
+#pragma unroll
+                            for (int j = 0; j < NK; j += 2) {
+                                FragB b0, b1;
+                                ld_b_pair(b0, b1, b_ld, k_tile, j, kk);
+                                mma3(s[j], qa, b0);
+                                mma3(s[j + 1], qa, b1);
+                                ld_b_pair(b0, b1, b_ld, x_tile, j, kk);
+                                mma3(dp[j], da, b0);
+                                mma3(dp[j + 1], da, b1);
+                            }
+                        }
+                        // ds in place of dp; only tiles that cross the
+                        // diagonal or an end test each pair
+                        const bool edge = edge_pair(p, q0w, 16, k0, BN);
+#pragma unroll
+                        for (int j = 0; j < NK; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) {
+                                const int r = e >> 1;
+                                const int key = k0 + 8 * j + 2 * t + (e & 1);
+                                if (edge)
+                                    p_ds_f32<true>(p, row_a + 8 * r, key, s[j][e], dp[j][e],
+                                                   lse[r], dl[r]);
+                                else
+                                    p_ds_f32<false>(p, row_a + 8 * r, key, s[j][e], dp[j][e],
+                                                    lse[r], dl[r]);
+                            }
+                        // dq += ds k: K as an MN-major B
+#pragma unroll
+                        for (int c = 0; c < NK; ++c) {
+                            const FragA a = frag_from_acc(dp[c]);
+#pragma unroll
+                            for (int j = 0; j < NG; ++j)
+                                mma3(dq[j], a, k_ld.load(k_tile, c, j));
+                        }
+                    }
+                }
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + ring.stage);
+            }
+            if (!FROM_DS) {
+                // every product on this tile's q and do is done
+                __syncwarp();
+                if (lane == 0) mbar_arrive(q_empty);
+            }
+
+            float* dq_out = static_cast<float*>(p.dq) + tile.bi * p.sdq[0] + tile.hi * p.sdq[1];
+            store_rows_f32(dq_out, p.sdq[2], row_a, p.n, dq);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core kernels: f32 and bf16 / fp16 at d = 192 and 256, where the
+// tensor-core kernels' rings would not fit in shared memory (they are
+// instantiated at d = 64 and 128). 256 threads as 16 x 16; thread
 // (ty, tx) owns rows ty + 16 i and columns tx + 16 j of every product, so the
 // operand reads of a warp are broadcasts or hit distinct banks. Operands are
 // staged in shared memory as T (16-bit ones in half the bytes of f32, rows
@@ -1170,14 +1726,82 @@ cudaError_t launch_cc(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
     return launch(flash_bwd_dq_cc_kernel<T, D, BN, true>, q_grid, dq_smem, p, s);
 }
 
-// d = 64 and 128: the wgmma kernels for bf16 / fp16, the CUDA-core kernels
+// The split-TF32 dk/dv kernel (with STORE_DS: the fused backward's first
+// kernel) on its four tensor maps.
+template <int D, bool STORE_DS>
+cudaError_t launch_kv_tf32(const BwdParams& p, int b, cudaStream_t stream) {
+    CUtensorMap maps[4];
+    const void* bases[4] = {p.q, p.k, p.v, p.dout};
+    const long long* strides[4] = {p.sq, p.sk, p.sv, p.sdo};
+    const int rows[4] = {p.n, p.m, p.m, p.n};
+    // q and do in streamed tiles of KVT_BQ rows, K and V in tiles of 128 keys
+    const int box_rows[4] = {KVT_BQ, BT_ROWS, BT_ROWS, KVT_BQ};
+    for (int i = 0; i < 4; ++i) {
+        const cudaError_t err = encode_rows_map<float>(&maps[i], bases[i], D, rows[i], p.h, b,
+                                                       strides[i], box_rows[i]);
+        if (err != cudaSuccess) return err;
+    }
+    const auto kernel = flash_bwd_kv_tf32_kernel<D, STORE_DS>;
+    constexpr size_t smem = kvt_smem_bytes<D>();
+    static_assert(smem <= MAX_SMEM, "the f32 dk/dv kernel's shared memory exceeds 227 KB");
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid = persistent_grid((cdiv(p.m, BT_ROWS) + 1) / 2 * p.h * b);
+    kernel<<<grid, BT_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+    return cudaGetLastError();
+}
+
+// The split-TF32 dq kernel on its four tensor maps: q, K, V and do, or with
+// FROM_DS K and the f32 ds^T workspace (columns n of rows ds_ld(n), so the
+// queries past n read as zeros) with K's map in the unused places.
+template <int D, bool FROM_DS>
+cudaError_t launch_dq_tf32(const BwdParams& p, int b, cudaStream_t stream) {
+    constexpr int BN = dqt_bn<D, FROM_DS>();
+    CUtensorMap maps[4];
+    cudaError_t err = encode_rows_map<float>(&maps[1], p.k, D, p.m, p.h, b, p.sk, BN);
+    if (err != cudaSuccess) return err;
+    if (FROM_DS) {
+        const long long ld = ds_ld(p.n);
+        const long long ds_strides[3] = {(long long)p.h * p.m * ld, (long long)p.m * ld, ld};
+        err = encode_rows_map<float>(&maps[2], p.ds, p.n, p.m, p.h, b, ds_strides, BN);
+        maps[0] = maps[3] = maps[1];
+    } else {
+        err = encode_rows_map<float>(&maps[0], p.q, D, p.n, p.h, b, p.sq, BT_ROWS);
+        if (err == cudaSuccess)
+            err = encode_rows_map<float>(&maps[2], p.v, D, p.m, p.h, b, p.sv, BN);
+        if (err == cudaSuccess)
+            err = encode_rows_map<float>(&maps[3], p.dout, D, p.n, p.h, b, p.sdo, BT_ROWS);
+    }
+    if (err != cudaSuccess) return err;
+    const auto kernel = flash_bwd_dq_tf32_kernel<D, FROM_DS>;
+    constexpr size_t smem = dqt_smem_bytes<D, FROM_DS>();
+    static_assert(smem <= MAX_SMEM, "the f32 dq kernel's shared memory exceeds 227 KB");
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid = persistent_grid((cdiv(p.n, BT_ROWS) + 1) / 2 * p.h * b);
+    kernel<<<grid, BT_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tf32(const BwdParams& p, Pass pass, int b, cudaStream_t s) {
+    if (pass == DKV_PASS) return launch_kv_tf32<D, false>(p, b, s);
+    if (pass == DQ_PASS) return launch_dq_tf32<D, false>(p, b, s);
+    cudaError_t err = launch_kv_tf32<D, true>(p, b, s);
+    if (err != cudaSuccess) return err;
+    return launch_dq_tf32<D, true>(p, b, s);
+}
+
+// d = 64 and 128: the wgmma kernels for bf16 / fp16, the split-TF32 kernels
 // for f32; d = 192 and 256: the CUDA-core kernels for every type.
 template <int D>
 cudaError_t launch_d(const BwdParams& p, Pass pass, int dtype, int b, cudaStream_t s) {
     constexpr bool WGMMA = D <= 128;
     switch (dtype) {
         case 0:
-            return launch_cc<float, D>(p, pass, b, s);
+            if constexpr (WGMMA) return launch_tf32<D>(p, pass, b, s);
+            else return launch_cc<float, D>(p, pass, b, s);
         case 1:
             if constexpr (WGMMA) return launch_16bit<__nv_bfloat16, D>(p, pass, b, s);
             else return launch_cc<__nv_bfloat16, D>(p, pass, b, s);
@@ -1232,8 +1856,8 @@ int run(Pass pass, const void* q, const void* k, const void* v, const void* dout
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. `strides` holds the (b, h,
 // row) strides in elements of q, k, v, do, dq, dk, dv, in that order (zeros
 // for an output the pass does not write). The last dimension of every
-// operand must be contiguous, and for the 16-bit types every row must start
-// on a 16-byte boundary. lse and delta are dense f32 [b, h, n]; `ds` is the
+// operand must be contiguous, and for the tensor-core paths (16-bit, and f32
+// at d = 64 / 128) every row must start on a 16-byte boundary. lse and delta are dense f32 [b, h, n]; `ds` is the
 // fused pass's workspace, dense [b, h, m, n rounded up to 64] of the
 // operand dtype (NULL for the other passes).
 #define FLASH_BWD_ENTRY(name, pass)                                                              \

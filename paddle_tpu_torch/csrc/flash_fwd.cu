@@ -33,7 +33,7 @@
 //   GFLOP (208 us): operations bound it, over a causal triangle 64 tiles of
 //   128 rows deep.
 //
-// Two paths:
+// Three paths:
 // - bf16 / fp16 at d = 64 and 128 (flash_fwd_tma_kernel): warpgroup wgmma on shared memory
 //   that TMA fills. A producer warpgroup (one thread issuing the copies,
 //   40 registers) and two consumer warpgroups (64 query rows each, 232
@@ -45,7 +45,11 @@
 //   query tiles whose causal work adds up to the same (TilePairs), and the
 //   producer copies the next tile's q and K/V while the consumers finish
 //   this one, so the start and end of a tile overlap other work.
-// - f32, and every type at d = 192 and 256 (flash_fwd_cc_kernel): f32 FMAs
+// - f32 at d = 64 and 128 (flash_fwd_tf32_kernel): f32-accurate products as
+//   three TF32 tensor-core products each (split TF32, tf32x3.cuh) on
+//   TMA-fed shared memory, a producer warp feeding 8 consumer warps; its
+//   section below says what bounds it and what the design does about that.
+// - every type at d = 192 and 256 (flash_fwd_cc_kernel): f32 FMAs
 //   on the CUDA cores, each thread on a 4x4 register tile of scores (4-wide
 //   shared-memory reads, 2 loads per 16 FMAs), so an f32 call keeps full
 //   f32 products. 16-bit operands are staged as 16-bit and widened at use:
@@ -67,6 +71,7 @@
 
 #include "mma_sm90.cuh"
 #include "sm90_async.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -378,9 +383,252 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core kernel: f32 at every head dim, and bf16 / fp16 at d = 192 and
-// 256, where the wgmma kernel's q, K and V rings would not fit in shared
-// memory (it is instantiated at d = 64 and 128). Operands are staged in
+// f32 at d = 64 and 128 (flash_fwd_tf32_kernel): split-TF32 products on the
+// tensor cores (tf32x3.cuh) on TMA-fed shared memory.
+//
+// Replaces the TPU kernels _fwd_kernel (paddle_tpu/ops/flash_attention.py:137,
+// launched by _fwd_impl) and _fwd_kernel_long (:343, by _fwd_impl_long) for
+// f32 operands. f32 is the default parameter type and auto_cast O1 runs
+// attention in f32, so every f32 training step and prefill runs this kernel.
+//
+// What bounds it on the card: at the training shape (b=32, h=12, n=m=512,
+// d=64, causal) the kernel must move 4 x 50.3 MB (30 us at 3.35 TB/s) and
+// do 12.9 GFLOP of f32-accurate products; the CUDA cores' 67 TFLOP/s take
+// 193 us for them, and three TF32 products on the tensor cores (495 TFLOP/s
+// dense) 78 us. So operations bound it, and the design spends them on the
+// tensor cores: each product is three mma.sync.m16n8k8 .tf32 on operands
+// split in registers as they are loaded (no lo copy in shared memory, no
+// conversion pass), and a producer warp keeps the K/V ring full by TMA, so
+// the consumers never wait on a synchronous load. For p v, V is MN-major,
+// which wgmma takes for .tf32 only K-major; mma.sync reads its B fragments
+// from the row-major V tile with 32-bit loads instead, and p goes from the
+// s accumulator to the A fragment in registers (frag_from_acc).
+//
+// A persistent block (one an SM) walks query tiles of 128 rows (TilePairs):
+// 8 consumer warps of 16 rows and one producer warp, of which one lane
+// issues the copies: q into one of f32t_qbufs<D>() buffers, K and V tiles
+// of 64 keys into a ring of f32t_stages<D>() stages. Each consumer warp
+// computes s = q k^T, the online softmax with expf in f32 (the CUDA-core
+// kernel's arithmetic) and o += p v, and skips the K/V tiles past its last
+// row's diagonal. 288 threads leave ptxas 168 registers a thread (9 warps
+// put 3 on one of the SM's four quarters of 16K registers); with s, o and
+// the loads' offsets (tf32x3.cuh) d = 64 fits in them.
+
+constexpr int F32T_WARPS = 8;                        // consumer warps, 16 query rows each
+constexpr int F32T_BM = 16 * F32T_WARPS;             // query rows a tile
+constexpr int F32T_THREADS = (F32T_WARPS + 1) * 32;  // + the producer warp
+constexpr int F32T_BN = 64;                          // keys a K/V tile
+template <int D> __host__ __device__ constexpr int f32t_stages() { return D == 64 ? 3 : 2; }
+template <int D> __host__ __device__ constexpr int f32t_qbufs() { return D == 64 ? 2 : 1; }
+
+template <int D>
+constexpr size_t f32t_smem_bytes() {
+    // q buffers, then K and V of every stage, the barriers and the
+    // 1024-byte alignment slack
+    return (size_t)(f32t_qbufs<D>() * F32T_BM + 2 * f32t_stages<D>() * F32T_BN) * D * 4 +
+           (2 * f32t_qbufs<D>() + 2 * f32t_stages<D>()) * 8 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32T_THREADS, 1)
+    flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const FwdParams p) {
+    constexpr int BM = F32T_BM;
+    constexpr int BN = F32T_BN;
+    constexpr int ST = f32t_stages<D>();
+    constexpr int QB = f32t_qbufs<D>();
+    constexpr int NJ = BN / 8;  // n8 tiles of s (keys)
+    constexpr int NO = D / 8;   // n8 tiles of o
+    extern __shared__ unsigned char smem_raw[];
+    float* Qs = reinterpret_cast<float*>(align_1024(smem_raw));  // QB buffers
+    float* Ks = Qs + QB * BM * D;                                // ST stages
+    float* Vs = Ks + ST * BN * D;                                // ST stages
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * BN * D);  // QB
+    uint64_t* q_empty = q_full + QB;                                    // QB
+    uint64_t* full = q_empty + QB;                                      // ST
+    uint64_t* empty = full + ST;                                        // ST
+
+    const TilePairs work(cdiv(p.n, BM), p.h * p.b);
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < QB; ++i) {
+            mbar_init(q_full + i, 1);
+            mbar_init(q_empty + i, F32T_WARPS);
+        }
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, F32T_WARPS);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp == F32T_WARPS) {
+        // the producer warp; one lane issues every copy
+        if (lane != 0) return;
+        Ring<ST> ring;
+        int local = 0;  // tiles this block has walked
+        for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+            for (int s = 0; s < work.count(u); ++s, ++local) {
+                const Tile tile = work.tile<true>(u, s, p.h);
+                const int q0 = tile.t * BM;
+                const int qb = local % QB;
+                mbar_wait(q_empty + qb, ((local / QB) & 1) ^ 1);
+                mbar_arrive_expect_tx(q_full + qb, BM * D * 4);
+                tma_load_rows<D, BM>(Qs + qb * BM * D, &tm_q, q_full + qb, q0, tile.hi, tile.bi);
+                const int kt_end = kv_tiles<BM, BN>(p, q0);
+                for (int kt = 0; kt < kt_end; ++kt, ring.advance()) {
+                    mbar_wait(empty + ring.stage, ring.phase ^ 1);
+                    mbar_arrive_expect_tx(full + ring.stage, 2 * BN * D * 4);
+                    tma_load_rows<D, BN>(Ks + ring.stage * BN * D, &tm_k, full + ring.stage,
+                                         kt * BN, tile.hi, tile.bi);
+                    tma_load_rows<D, BN>(Vs + ring.stage * BN * D, &tm_v, full + ring.stage,
+                                         kt * BN, tile.hi, tile.bi);
+                }
+            }
+        }
+        return;
+    }
+
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint32_t k_tiles = smem_addr(Ks);
+    const uint32_t v_tiles = smem_addr(Vs);
+    constexpr uint32_t KV_STAGE = BN * D * 4;  // bytes of one K or V stage
+    const KmajorLoader<BM, true> q_ld(16 * warp);  // q as A: the warp's 16 rows
+    const KmajorLoader<BN, false> k_ld(0);         // K as B
+    const MnmajorLoader<BN> v_ld;                  // V as B
+    float o[NO][4];
+    float s[NJ][4];
+    float m_run[2], l_run[2];  // running max (scaled scores); this thread's share of the row sums
+    Ring<ST> ring;
+    int local = 0;
+    for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+        for (int si = 0; si < work.count(u); ++si, ++local) {
+            const Tile tile = work.tile<true>(u, si, p.h);
+            const int q0 = tile.t * BM;
+            const int kt_end = kv_tiles<BM, BN>(p, q0);
+            const int qb = local % QB;
+            const int q0w = q0 + 16 * warp;  // the warp's first row
+            const int row_a = q0w + g;       // this thread's rows: row_a, row_a + 8
+            // K/V tiles with a key that some row of the warp sees; the rest
+            // (causal) only pass through the ring
+            const int kt_w = p.causal ? min(kt_end, (q0w + 15) / BN + 1) : kt_end;
+            const uint32_t q_tile = smem_addr(Qs + qb * BM * D);
+#pragma unroll
+            for (int j = 0; j < NO; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+            for (int r = 0; r < 2; ++r) {
+                m_run[r] = -INFINITY;
+                l_run[r] = 0.f;
+            }
+            mbar_wait(q_full + qb, (local / QB) & 1);
+            for (int kt = 0; kt < kt_end; ++kt, ring.advance()) {
+                mbar_wait(full + ring.stage, ring.phase);
+                if (kt < kt_w) {
+                    const uint32_t k_tile = k_tiles + ring.stage * KV_STAGE;
+                    const uint32_t v_tile = v_tiles + ring.stage * KV_STAGE;
+                    const int kv0 = kt * BN;
+                    // s = q k^T: q as A (K-major), K as B (its rows K-major)
+#pragma unroll
+                    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+                    for (int kk = 0; kk < D / 8; ++kk) {
+                        const FragA a = ld_a(q_ld, q_tile, kk);
+#pragma unroll
+                        for (int j = 0; j < NJ; j += 2) {
+                            FragB b0, b1;
+                            ld_b_pair(b0, b1, k_ld, k_tile, j, kk);
+                            mma3(s[j], a, b0);
+                            mma3(s[j + 1], a, b1);
+                        }
+                    }
+                    // online softmax: scaled scores, masked ones MASKED; a
+                    // row's keys live in the 4 lanes of a quad
+                    const bool edge = edge_tile<BN>(p, q0w, kv0);
+                    float mx[2] = {MASKED, MASKED};
+#pragma unroll
+                    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int row = row_a + (e >> 1) * 8;
+                            const int col = kv0 + 8 * j + 2 * t + (e & 1);
+                            s[j][e] = edge ? masked_score(s[j][e], p, row, col) : s[j][e] * p.scale;
+                            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+                        }
+                    float alpha[2];
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        float m = mx[r];
+                        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+                        const float m_new = fmaxf(m_run[r], m);
+                        alpha[r] = expf(m_run[r] - m_new);
+                        m_run[r] = m_new;
+                    }
+                    float sum[2] = {0.f, 0.f};
+#pragma unroll
+                    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            s[j][e] = expf(s[j][e] - m_run[e >> 1]);
+                            sum[e >> 1] += s[j][e];
+                        }
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+#pragma unroll
+                    for (int j = 0; j < NO; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+                    // o += p v: p from the s accumulator, V as an MN-major B
+#pragma unroll
+                    for (int c = 0; c < NJ; ++c) {
+                        const FragA a = frag_from_acc(s[c]);
+#pragma unroll
+                        for (int j = 0; j < NO; ++j)
+                            mma3(o[j], a, v_ld.load(v_tile, c, j));
+                    }
+                }
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + ring.stage);
+            }
+            // every q k^T of this tile is done: its q buffer may be refilled
+            __syncwarp();
+            if (lane == 0) mbar_arrive(q_empty + qb);
+
+            // rows row_a (r = 0) and row_a + 8 (r = 1); a row's sums live in
+            // the 4 lanes of a quad
+            float* out = static_cast<float*>(p.o) + tile.bi * p.so[0] + tile.hi * p.so[1];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                float l = l_run[r];
+                l += __shfl_xor_sync(0xffffffffu, l, 1);
+                l += __shfl_xor_sync(0xffffffffu, l, 2);
+                const int row = row_a + r * 8;
+                if (row >= p.n) continue;
+                const float l_safe = fmaxf(l, 1e-30f);
+                float* orow = out + (long long)row * p.so[2];
+#pragma unroll
+                for (int j = 0; j < NO; ++j)
+                    *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+                        make_float2(o[j][2 * r] / l_safe, o[j][2 * r + 1] / l_safe);
+                if (t == 0)
+                    p.lse[((long long)tile.bi * p.h + tile.hi) * p.n + row] =
+                        m_run[r] + logf(l_safe);
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core kernel: f32 and bf16 / fp16 at d = 192 and 256, where the
+// tensor-core kernels' rings would not fit in shared memory (they are
+// instantiated at d = 64 and 128). Operands are staged in
 // shared memory as T (16-bit ones in half the bytes of f32) and widened to
 // f32 at use, so the products are the exact products of the native operands
 // and the sums f32, the contract of the wgmma kernel; p is rounded to T
@@ -583,14 +831,37 @@ cudaError_t launch_tma(const FwdParams& p, int b, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-// d = 64 and 128: the wgmma kernel for bf16 / fp16, the CUDA-core kernel for
-// f32; d = 192 and 256: the CUDA-core kernel for every type.
+template <int D>
+cudaError_t launch_tf32(const FwdParams& p, int b, cudaStream_t stream) {
+    CUtensorMap maps[3];
+    const void* bases[3] = {p.q, p.k, p.v};
+    const long long* strides[3] = {p.sq, p.sk, p.sv};
+    const int rows[3] = {p.n, p.m, p.m};
+    for (int i = 0; i < 3; ++i) {
+        const cudaError_t err = encode_rows_map<float>(&maps[i], bases[i], D, rows[i], p.h, b,
+                                                       strides[i], i == 0 ? F32T_BM : F32T_BN);
+        if (err != cudaSuccess) return err;
+    }
+    const auto kernel = flash_fwd_tf32_kernel<D>;
+    constexpr size_t smem = f32t_smem_bytes<D>();
+    static_assert(smem <= MAX_SMEM, "the f32 forward's shared memory exceeds 227 KB");
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid = persistent_grid((cdiv(p.n, F32T_BM) + 1) / 2 * p.h * b);
+    kernel<<<grid, F32T_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], p);
+    return cudaGetLastError();
+}
+
+// d = 64 and 128: the wgmma kernel for bf16 / fp16, the split-TF32 kernel
+// for f32; d = 192 and 256: the CUDA-core kernel for every type.
 template <int D>
 cudaError_t launch_d(const FwdParams& p, int dtype, int b, cudaStream_t stream) {
     constexpr bool WGMMA = D <= 128;
     switch (dtype) {
         case 0:
-            return launch_cc<float, D>(p, b, stream);
+            if constexpr (WGMMA) return launch_tf32<D>(p, b, stream);
+            else return launch_cc<float, D>(p, b, stream);
         case 1:
             if constexpr (WGMMA) return launch_tma<__nv_bfloat16, D>(p, b, stream);
             else return launch_cc<__nv_bfloat16, D>(p, b, stream);
@@ -632,7 +903,8 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse, int dty
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Strides are in elements;
 // the last dimension of q, k, v and o must be contiguous, and for the
-// 16-bit types every row must start on a 16-byte boundary.
+// tensor-core paths (16-bit, and f32 at d = 64 / 128) every row must start
+// on a 16-byte boundary.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int dtype, int b, int h, int n, int m, int d,
                          long long sqb, long long sqh, long long sqn,

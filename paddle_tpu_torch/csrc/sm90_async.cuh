@@ -1,10 +1,10 @@
-// Hopper building blocks of the flash kernels' 16-bit paths (flash_fwd.cu,
-// flash_bwd.cu), in raw PTX for sm_90a:
+// Hopper building blocks of the flash kernels' tensor-core paths
+// (flash_fwd.cu, flash_bwd.cu), in raw PTX for sm_90a:
 // - TMA: a tile of R rows and W columns of a rank-4 (d, row, head, batch)
-//   tensor map is W / 64 boxes of R x 64 elements (R x 128 bytes each),
-//   copied by cp.async.bulk.tensor into shared memory in the 128-byte
-//   swizzle, completion counted in bytes on an mbarrier. Rows past the end
-//   of the map arrive as zeros.
+//   tensor map is W / B boxes of R x B elements (R x 128 bytes each; B = 64
+//   for the 16-bit types, 32 for f32), copied by cp.async.bulk.tensor into
+//   shared memory in the 128-byte swizzle, completion counted in bytes on
+//   an mbarrier. Rows past the end of the map arrive as zeros.
 // - mbarriers: init, arrive, arrive with expected bytes, and the parity wait;
 //   Ring carries the stage and phase bit of a ring of buffers.
 // - wgmma.mma_async m64nNk16 with f32 accumulators in its SS form (A and B
@@ -101,14 +101,22 @@ __device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, 
         : "memory");
 }
 
-// All W / 64 boxes of the rows row0.. of (head, batch) into `tile`, boxes
-// ROWS x 64 elements apart; ROWS is the map's box height.
+// The columns of a 128-byte box of T: 64 of a 16-bit type, 32 of f32
+template <typename T>
+__host__ __device__ constexpr int box_cols() {
+    return 128 / (int)sizeof(T);
+}
+
+// All W / box_cols<T>() boxes of the rows row0.. of (head, batch) into
+// `tile`, boxes ROWS x box_cols<T>() elements apart; ROWS is the map's box
+// height.
 template <int W, int ROWS, typename T>
 __device__ __forceinline__ void tma_load_rows(T* tile, const CUtensorMap* map, uint64_t* bar,
                                               int row0, int head, int batch) {
+    constexpr int BOX = box_cols<T>();
 #pragma unroll
-    for (int c = 0; c < W / 64; ++c)
-        tma_load_box(tile + c * ROWS * 64, map, bar, c * 64, row0, head, batch);
+    for (int c = 0; c < W / BOX; ++c)
+        tma_load_box(tile + c * ROWS * BOX, map, bar, c * BOX, row0, head, batch);
 }
 
 // -- wgmma -------------------------------------------------------------------
@@ -381,26 +389,32 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 }
 
 // The rank-4 map (d, row, head, batch) of a [b, h, rows, d] operand of type
-// T with (batch, head, row) strides in elements (the last dimension
-// contiguous), read in boxes of 64 columns x box_rows rows in the 128-byte
-// swizzle. Rows at or past `rows` read as zeros, never the next head's. The
-// base must be 16-byte aligned and the strides multiples of 16 bytes (the
-// wrappers' _rows_aligned). Returns cudaErrorInvalidValue if the encoder
-// refuses the map, cudaErrorNotSupported if there is no encoder.
+// T (bf16, fp16 or f32) with (batch, head, row) strides in elements (the
+// last dimension contiguous), read in boxes of box_cols<T>() columns (128
+// bytes) x box_rows rows in the 128-byte swizzle. Rows at or past `rows`
+// read as zeros, never the next head's. The base must be 16-byte aligned
+// and the strides multiples of 16 bytes (the wrappers' _rows_aligned).
+// Returns cudaErrorInvalidValue if the encoder refuses the map,
+// cudaErrorNotSupported if there is no encoder.
 template <typename T>
 inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
                                    int batch, const long long* strides, int box_rows) {
-    static_assert(sizeof(T) == 2, "16-bit operands");
+    static_assert(std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half> ||
+                      std::is_same_v<T, float>,
+                  "bf16, fp16 or f32 operands");
     const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
     if (encode == nullptr) return cudaErrorNotSupported;
     const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads,
                                 (cuuint64_t)batch};
     // byte strides of dims 1..3: row, head, batch
-    const cuuint64_t byte_strides[3] = {(cuuint64_t)strides[2] * 2, (cuuint64_t)strides[1] * 2,
-                                        (cuuint64_t)strides[0] * 2};
-    const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+    constexpr cuuint64_t item = sizeof(T);
+    const cuuint64_t byte_strides[3] = {(cuuint64_t)strides[2] * item,
+                                        (cuuint64_t)strides[1] * item,
+                                        (cuuint64_t)strides[0] * item};
+    const cuuint32_t box[4] = {(cuuint32_t)box_cols<T>(), (cuuint32_t)box_rows, 1, 1};
     const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-    const CUtensorMapDataType type = std::is_same_v<T, __nv_bfloat16>
+    const CUtensorMapDataType type = std::is_same_v<T, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : std::is_same_v<T, __nv_bfloat16>
                                          ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
     const CUresult res = encode(map, type, 4, const_cast<void*>(base), dims, byte_strides, box,

@@ -20,6 +20,11 @@ fused backward. Its entry points launch the same kernels as the standard
 ones: on the H100 one tiling serves every length (the sources' headers
 say why), so the route differs only in the backward's passes and counts.
 
+In f32 at d = 64 and 128 the kernels take each f32 product as three TF32
+tensor-core products (split TF32, csrc/tf32x3.cuh), which keeps the f32
+contract (1e-4 of the plain versions); at d = 192 and 256 they run on the
+CUDA cores in every dtype.
+
 Every kernel wrapper launches its kernel for CUDA tensors or raises: it
 never falls back. For CPU tensors the split interfaces take the plain
 versions `flash_attention_fwd_ref` / `flash_attention_bwd_ref`, which
@@ -161,8 +166,9 @@ def _fwd_lib():
 
 def _rows_aligned(t):
     """t itself if its rows are contiguous and its base and (b, h, row)
-    strides are multiples of 16 bytes, else an aligned copy. The 16-bit
-    kernels read their operands through TMA tensor maps, which need both;
+    strides are multiples of 16 bytes, else an aligned copy. The
+    tensor-core kernels (16-bit, and f32 at d = 64 / 128) read their
+    operands through TMA tensor maps, which need both;
     the q/k/v views of a packed [b, n, 3, h, d] projection pass as they
     are."""
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
