@@ -139,8 +139,31 @@ Phases, each printed as it finishes; any failure exits non-zero:
                fit on the pipeline killed and resumed through the
                supervisor with the pipeline attached: the batches after the
                resume and the parameters bitwise equal.
-(Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17 and
-18 in main().)
+ 19. slice 10, compiled mode and the inference engine - (1) the kernels as
+               torch.library custom ops (paddle_tpu_torch::flash_fwd /
+               flash_bwd): torch.library.opcheck of both on each route
+               (standard + fused in bf16 and f32, two-pass at n = 1024,
+               long at b=1 h=2 n=4096), each op's outputs against the
+               plain versions; (2) f32, the bench GPT cut to 2 layers,
+               batch 2 x 512: 3 AdamW steps with the forward and the loss
+               under jit.to_static against the same steps eager; (3) path
+               (a): the bench's bf16 step (phase 6's model, batch and
+               AdamW) with the forward and the loss as one to_static
+               program, then loss.backward() and the update: one graph
+               and no break, one compile, 12 forward and 12 fused
+               backward launches every step, a falling loss, the compile
+               seconds, 2 warm-up and 10 timed steps beside phase 6's
+               eager step, a profiled step's busy share and top kernels,
+               the _rows_aligned copies, peak memory; (4) path (b):
+               jit.save of GPT-2 small with InputSpec([8, 768], 'int64'),
+               jit.load, the exported program against the eager model,
+               then a Predictor on the card in f32 and in bf16, run() on
+               8 x 768 ids: the first run compiles, 3 more do not, 12
+               flash forward launches a run, logits against the eager
+               model (f32 within 1e-4), run() p50 beside the eager
+               forward. The phase prints its own seconds.
+(Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
+18 and 19 in main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
@@ -153,6 +176,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 
 import torch
 
@@ -907,6 +931,9 @@ def _collect_garbage():
         gc.collect()
         storages = {}
         for obj in gc.garbage:
+            # a weak proxy among the garbage may outlive its referent
+            if isinstance(obj, (weakref.ProxyType, weakref.CallableProxyType)):
+                continue
             if torch.is_tensor(obj) and obj.is_cuda:
                 st = obj.untyped_storage()
                 storages[st.data_ptr()] = st.nbytes()
@@ -1864,6 +1891,365 @@ def slice9_phases(card, main):
     out['ingest'] = shell_ingest_phase(card, model, pool)
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 19: slice 10, compiled mode and the inference engine ------------
+
+# (name, (b, h, n, d, dtype), forward wrapper, backward wrappers): each
+# route of the two custom ops, the shapes strided as the GPT hands them over
+OP_ROUTES = [
+    ('standard + fused', (2, 4, 512, 64, torch.bfloat16), 'flash_fwd',
+     ('flash_bwd_fused',)),
+    ('standard + fused, f32', (2, 4, 512, 64, torch.float32), 'flash_fwd',
+     ('flash_bwd_fused',)),
+    ('two-pass', (2, 4, 1024, 64, torch.bfloat16), 'flash_fwd',
+     ('flash_bwd_dq', 'flash_bwd_dkv')),
+    ('long', (1, 2, 4096, 64, torch.bfloat16), 'flash_fwd_long',
+     ('flash_bwd_dq_long', 'flash_bwd_dkv_long')),
+]
+
+
+def op_registration_phase():
+    """(1) The custom ops on the card: torch.library.opcheck (schema, fake,
+    autograd registration, the AOT dispatch) of both ops on each route,
+    and each op's outputs against the plain versions within the kernel
+    phases' tolerances, launching the route's kernels."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 19)
+    out = []
+    for name, (b, h, n, d, dtype), fwd, bwds in OP_ROUTES:
+        scale = 1.0 / math.sqrt(d)
+        q, k, v = _qkv(gen, b, h, n, n, d, dtype, True)
+        _reset_counts(fa)
+        o, lse = fa.flash_fwd_op(q, k, v, True, scale)
+        do = torch.randn((b, n, h, d), generator=gen,
+                         device='cuda').to(dtype).transpose(1, 2)
+        grads = fa.flash_bwd_op(q, k, v, o, lse, do, True, scale)
+        torch.cuda.synchronize()
+        launches = _launches(fa)
+        _check(launches == _want(1, **{w: 1 for w in (fwd,) + bwds}),
+               'ops on the %s route launched %s' % (name, launches))
+        o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+        refs = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, True,
+                                          scale)
+        tol_o, tol_lse = TOLERANCE[dtype]
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        _check(err_o <= tol_o and err_lse <= tol_lse,
+               'flash_fwd op on the %s route: o err %.3g, lse err %.3g'
+               % (name, err_o, err_lse))
+        errs = []
+        for g, r in zip(grads, refs):
+            top = r.float().abs().max().item()
+            err = (g.float() - r.float()).abs().max().item()
+            _check(err <= BWD_TOLERANCE[dtype] * top,
+                   'flash_bwd op on the %s route: err %.3g > %g x %.3g'
+                   % (name, err, BWD_TOLERANCE[dtype], top))
+            errs.append(err / top)
+        t0 = time.time()
+        qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        for op, args in ((fa.flash_fwd_op, (qg, kg, vg, True, scale)),
+                         (fa.flash_bwd_op, (q, k, v, o, lse, do, True,
+                                            scale))):
+            result = torch.library.opcheck(op, args)
+            _check(all(r == 'SUCCESS' for r in result.values()),
+                   'opcheck %s on the %s route: %s' % (op, name, result))
+        row = {'route': name, 'shape': [b, h, n, d],
+               'dtype': str(dtype).split('.')[-1], 'err_o': err_o,
+               'err_lse': err_lse, 'grad_err_share': max(errs),
+               'launched': sorted(w for w, c in launches.items() if c),
+               'opcheck_s': time.time() - t0}
+        print('op registration: %s' % json.dumps(row), flush=True)
+        out.append(row)
+        del q, k, v, o, lse, do, grads, refs, qg, kg, vg
+        torch.cuda.empty_cache()
+    return out
+
+
+def _static_step(model):
+    """to_static on the Layer, and the forward and the loss as one
+    compiled function over it (the Layer's program traced into it)."""
+    from paddle_tpu_torch import jit
+
+    jit.to_static(model)
+    return jit.to_static(lambda ids, labels: model.loss(model(ids), labels))
+
+
+def _eager_or_static_steps(model, opt, fn, ids, labels, steps):
+    losses = []
+    for _ in range(steps):
+        loss = fn(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad(set_to_zero=False)
+        losses.append(loss.item())
+    return losses
+
+
+def static_parity_phase():
+    """(2) f32 at the bench's width cut to 2 layers, batch 2 x 512: 3 AdamW
+    steps through to_static against the same steps eager on the card."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**dict(BENCH_CFG, num_layers=2))
+    t0 = time.time()
+    eager, _, ids, labels = _train_setup(cfg, 'cuda', SEED, 2, TRAIN_SEQ)
+    static, _, _, _ = _train_setup(cfg, 'cuda', SEED + 1, 2, TRAIN_SEQ)
+    static.load_state_dict(eager.state_dict())
+    opts = [AdamW(learning_rate=TRAIN_LR, parameters=m.parameters())
+            for m in (eager, static)]
+    eager.train()
+    static.train()
+    want = _eager_or_static_steps(
+        eager, opts[0], lambda i, lab: eager.loss(eager(i), lab), ids,
+        labels, 3)
+    step = _static_step(static)
+    _reset_counts(fa)
+    got = _eager_or_static_steps(static, opts[1], step, ids, labels, 3)
+    launches = _launches(fa)
+    _check(launches == _want(3, flash_fwd=2, flash_bwd_fused=2),
+           'to_static f32 steps launched %s' % launches)
+    _check(step.compile_count() == 1, 'f32 step compiled %d graphs'
+           % step.compile_count())
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    _check(rel <= 1e-5, 'to_static f32 losses %s vs eager %s' % (got, want))
+    worst, close, total = 0.0, 0, 0
+    want_state = eager.state_dict()
+    for name, p in static.state_dict().items():
+        diff = (p - want_state[name]).abs()
+        worst = max(worst, diff.max().item())
+        close += int((diff <= 1e-6 + 1e-4 * want_state[name].abs()).sum())
+        total += diff.numel()
+    # phase 5's tolerances: Adam's first steps move a parameter by ~lr
+    # whatever its gradient, so where it is ~0 the sign of f32 noise
+    # decides (2 lr); all others agree to rounding
+    _check(worst <= 2 * 3 * TRAIN_LR + 1e-6,
+           'to_static f32 params differ by %.3g' % worst)
+    _check(close >= 0.999 * total,
+           'to_static f32 params: %d of %d close' % (close, total))
+    print('to_static f32: 2 layers, batch 2 x %d, 3 AdamW steps, losses %s '
+          'vs eager %s (max rel %.3g, tol 1e-5), params max abs diff %.3g '
+          '(tol 2 lr a step), %d of %d within 1e-6 + 1e-4 |p|, launches %s, '
+          '%.1f s' % (TRAIN_SEQ, ['%.7f' % x for x in got],
+                      ['%.7f' % x for x in want], rel, worst, close, total,
+                      launches, time.time() - t0), flush=True)
+    del eager, static, opts
+    torch.cuda.empty_cache()
+
+
+def static_train_phase(sku, main):
+    """(3) Path (a): the bench's training step with the forward and the
+    loss under to_static, at full width."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    cfg = GPTConfig(**BENCH_CFG)
+    layers = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, _, ids, labels = _train_setup(
+        cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    model.train()
+    step = _static_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = step(ids, labels)
+    torch.cuda.synchronize()
+    fwd_compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd_compile_s = time.perf_counter() - t0
+    opt.step()
+    opt.clear_grad(set_to_zero=False)
+    losses = [loss.item()]
+    losses += _eager_or_static_steps(model, opt, step, ids, labels, 1)
+    steps = 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, per_step, copies = [], [], 0
+    for _ in range(steps):
+        _reset_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += _eager_or_static_steps(model, opt, step, ids, labels, 1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(_launches(fa))
+        copies += fa.counts['aligned_copies']
+    peak = torch.cuda.max_memory_allocated()
+    want = _want(1, flash_fwd=layers, flash_bwd_fused=layers)
+    _check(all(s == want for s in per_step),
+           'to_static steps launched %s, want %s every step'
+           % (per_step, want))
+    _check(step.compile_count() == 1,
+           'the to_static step compiled %d graphs, want 1'
+           % step.compile_count())
+    _check(all(math.isfinite(x) for x in losses), 'losses finite')
+    _check(losses[-1] < losses[0], 'to_static loss %.4f not below %.4f'
+           % (losses[-1], losses[0]))
+    median = sorted(step_ms)[steps // 2]
+
+    def one_step():
+        _eager_or_static_steps(model, opt, step, ids, labels, 1)
+    wall, dev, top, ops = _profile(one_step)
+    clones = sum(c for name, _, c in ops if name == 'aten::clone')
+    print('to_static train bf16 (path a): compile %.1f s forward + %.1f s '
+          'backward, 1 graph, 0 breaks, median step %.2f ms (min %.2f, max '
+          '%.2f) against phase 6\'s eager TrainStep %.2f ms in this run, '
+          'peak memory %.2f GiB (phase 6: %.2f), launches a step %s, '
+          '_rows_aligned copies over %d steps %d, losses %s'
+          % (fwd_compile_s, bwd_compile_s, median, min(step_ms),
+             max(step_ms), main['median_ms'], peak / 2 ** 30,
+             main['peak'] / 2 ** 30, per_step[0], steps, copies,
+             ['%.4f' % x for x in losses]), flush=True)
+    print('profile to_static train step: wall %.2f ms, device kernels %.2f '
+          'ms, busy share %.3f (phase 6: %.3f); top kernels: %s; top aten '
+          'ops: %s' % (wall, dev, dev / wall, main['busy'],
+                       '; '.join('%s %.2f ms x%d' % t for t in top),
+                       '; '.join('%s %.2f ms x%d' % t for t in ops)),
+          flush=True)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return {'launches': {k: steps * v for k, v in per_step[0].items()},
+            'steps': steps, 'median_ms': median, 'busy': dev / wall,
+            'peak': peak, 'compile_s': fwd_compile_s + bwd_compile_s,
+            'aligned_copies': copies}
+
+
+def predictor_phase():
+    """(4) Path (b): jit.save of GPT-2 small (seeded weights) with
+    InputSpec([8, 768], 'int64'), jit.load, then a Predictor on the card
+    in f32 and in PrecisionType.Bfloat16, run on 8 x 768 token ids."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig.gpt2_small()
+    layers = cfg.num_layers
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
+    gen = torch.Generator().manual_seed(SEED + 19)
+    ids = torch.randint(0, cfg.vocab_size, (8, 768), generator=gen)
+    ids_np = ids.numpy()
+    with torch.no_grad():
+        want = model(ids.cuda()).float()
+    eager_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model(ids.cuda())
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_jit_')
+    try:
+        path = os.path.join(tmp, 'gpt2')
+        t0 = time.time()
+        jit.save(model, path, input_spec=[InputSpec([8, 768], 'int64',
+                                                    'input_ids')])
+        save_s = time.time() - t0
+        loaded = jit.load(path)
+        exported = loaded.run_exported(ids.cuda()).float()
+        err_exported = (exported - want).abs().max().item()
+        _check(err_exported <= 1e-4, 'the exported program vs eager: %.3g'
+               % err_exported)
+        del loaded, exported
+        rows = {}
+        for label, precision in (('f32', inference.PrecisionType.Float32),
+                                 ('bf16', inference.PrecisionType.Bfloat16)):
+            config = inference.Config(path)
+            config.enable_use_gpu()
+            config.enable_tensorrt_engine(precision_mode=precision)
+            pred = inference.create_predictor(config)
+            _reset_counts(fa)
+            t0 = time.perf_counter()
+            out = pred.run([ids_np])[0]
+            compile_s = time.perf_counter() - t0
+            launches = _launches(fa)
+            _check(launches == _want(1, flash_fwd=layers),
+                   'Predictor %s first run launched %s' % (label, launches))
+            compiles = pred.compile_count()
+            run_ms = []
+            for _ in range(3):
+                _reset_counts(fa)
+                t0 = time.perf_counter()
+                out = pred.run([ids_np])[0]
+                run_ms.append((time.perf_counter() - t0) * 1e3)
+                _check(_launches(fa) == _want(1, flash_fwd=layers),
+                       'Predictor %s run launched %s'
+                       % (label, _launches(fa)))
+            _check(pred.compile_count() == compiles == 1,
+                   'Predictor %s compiled %d programs over 4 runs'
+                   % (label, pred.compile_count()))
+            tensor = torch.from_numpy(ids_np).cuda()
+            program_ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    pred._program(tensor)
+                torch.cuda.synchronize()
+                program_ms.append((time.perf_counter() - t0) * 1e3)
+            got = torch.from_numpy(out).cuda()
+            err = (got - want).abs().max().item()
+            if label == 'f32':
+                _check(err <= 1e-4, 'Predictor f32 logits vs eager: %.3g'
+                       % err)
+            else:
+                rel = err / want.abs().max().item()
+                _check(rel <= 0.1, 'Predictor bf16 logits vs eager f32: '
+                       '%.3g of range' % rel)
+            rows[label] = {
+                'compile_s': compile_s, 'run_p50_ms': sorted(run_ms)[1],
+                'program_p50_ms': sorted(program_ms)[2],
+                'max_abs_err': err, 'launches_a_run': layers}
+            print('Predictor %s (path b): first run (compile) %.1f s, then '
+                  'no compile over 3 runs; run() p50 %.2f ms (numpy in, '
+                  'logits [8, 768, %d] back to the host), the compiled '
+                  'program alone p50 %.2f ms, the eager f32 forward p50 '
+                  '%.2f ms; logits max abs err vs eager f32 %.3g; %d flash '
+                  'forward launches a run' % (
+                      label, compile_s, rows[label]['run_p50_ms'],
+                      cfg.vocab_size, rows[label]['program_p50_ms'],
+                      sorted(eager_ms)[2], err, layers), flush=True)
+            del pred, out, got, tensor
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print('jit.save of GPT-2 small (f32, export included) %.1f s; the '
+          'exported program vs eager max abs err %.3g'
+          % (save_s, err_exported), flush=True)
+    del model, want
+    torch.cuda.empty_cache()
+    return {'rows': rows, 'eager_p50_ms': sorted(eager_ms)[2],
+            'save_s': save_s, 'exported_err': err_exported}
+
+
+def slice10_phases(sku, main):
+    """Phase 19: compiled mode and the inference engine on the card."""
+    t0 = time.time()
+    out = {'ops': op_registration_phase()}
+    static_parity_phase()
+    out['train'] = static_train_phase(sku, main)
+    out['predictor'] = predictor_phase()
+    out['seconds'] = time.time() - t0
+    print('phase 19 (slice 10): %.1f s' % out['seconds'], flush=True)
     return out
 
 
@@ -3247,6 +3633,7 @@ def main():
     long_train = train_long_phase(sku)
     slice7 = slice7_phases(sku, train)
     slice9 = slice9_phases(card, train)
+    slice10 = slice10_phases(sku, train)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -3341,6 +3728,14 @@ def main():
     for k in kernels[:2]:
         k['fit_launches'] = slice9['launches'][k['name']]
         k['fit_launches_per_step'] = k['fit_launches'] // slice9['steps']
+    # slice 10 drives them from inside compiled programs: the to_static
+    # step (path a), and the forward in each Predictor run (path b)
+    for k in kernels[:2]:
+        k['static_launches'] = slice10['train']['launches'][k['name']]
+        k['static_launches_per_step'] = \
+            k['static_launches'] // slice10['train']['steps']
+    kernels[0]['predictor_launches_per_run'] = \
+        slice10['predictor']['rows']['f32']['launches_a_run']
     pairs = {'flash_bwd_dq': pair(bwd('dq', BWD_SECOND_SHAPE),
                                   bwd('dkv', BWD_SECOND_SHAPE)),
              'flash_bwd_dq_long': pair(long_rows['dq', LONG_MAIN_SHAPE],

@@ -17,13 +17,19 @@ bring-up in the port reads 0 / 0 where the JAX package reads its XLA cache
 hits.
 
 `configure(path)` points the builds at another directory (default: the
-package's `_build/`). Not ported: ``disable()`` / ``enabled()`` (nvcc
+package's `_build/`). The compiled programs of `jit.to_static` and the
+inference `Predictor` are Inductor's; `configure_inductor(path)` points
+Inductor's own cache (its FX graphs and generated kernels) at a directory,
+where `Config.set_optim_cache_dir` asks for it. Not ported: ``disable()`` / ``enabled()`` (nvcc
 builds are always cached) and the per-thread tallies the reference's
 compile watchdog reads.
 """
 import threading
 
-__all__ = ['configure', 'stats', 'hit_rate', 'reset_stats']
+import os
+
+__all__ = ['configure', 'configure_inductor', 'stats', 'hit_rate',
+           'reset_stats']
 
 _lock = threading.Lock()
 _hits = 0
@@ -36,6 +42,16 @@ def configure(path=None):
     from .. import _build
     path = path or _build.DEFAULT_BUILD_DIR
     _build.BUILD_DIR = path
+    return path
+
+
+def configure_inductor(path):
+    """Point Inductor's cache at `path` (read by every later compile in
+    this process and in the processes it starts); returns the absolute
+    path. The last caller wins."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    os.environ['TORCHINDUCTOR_CACHE_DIR'] = path
     return path
 
 

@@ -21,9 +21,9 @@ Differences from the JAX package, each on purpose:
   is no steady-state recompile to watch. fit keeps the StepTimeline
   (data_wait / host_dispatch / device_block); the last fit's timeline
   stays readable as `last_timeline`.
-- save(training=False) (jit.save) raises NotImplementedError: jit/ is the
-  next slice. summary_perf raises NotImplementedError: it reads XLA's cost
-  analysis.
+- save(training=False) exports through jit.save with prepare()'s inputs
+  as the input spec. summary_perf raises NotImplementedError: it reads
+  XLA's cost analysis.
 - prepare(amp_configs=...) is accepted and ignored, as in the JAX package.
 """
 import contextlib
@@ -375,10 +375,13 @@ class Model:
 
     # -- persistence --------------------------------------------------------
     def save(self, path, training=True):
+        """training=True: the parameters (.pdparams) and the optimizer's
+        state (.pdopt); training=False: the inference artifact, through
+        jit.save with prepare()'s inputs as its input spec."""
         if not training:
-            raise NotImplementedError(
-                'Model.save(training=False) exports through jit.save, which '
-                'is not ported yet; jit/ comes with the next slice')
+            from .. import jit
+            jit.save(self.network, path, input_spec=self._inputs)
+            return
         io_save.save(self.network.state_dict(), path + '.pdparams')
         if self._optimizer:
             io_save.save(self._optimizer.state_dict(), path + '.pdopt')

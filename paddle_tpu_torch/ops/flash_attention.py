@@ -29,8 +29,18 @@ Every kernel wrapper launches its kernel for CUDA tensors or raises: it
 never falls back. For CPU tensors the split interfaces take the plain
 versions `flash_attention_fwd_ref` / `flash_attention_bwd_ref`, which
 follow the kernels' numeric contract on both routes. `flash_attention_bnhd`
-/ `_bhnd` are the public entry points; their autograd Function saves q, k,
-v, o and lse and runs `backward`.
+/ `_bhnd` are the public entry points.
+
+Eager code and compiled programs (jit.to_static, torch.export) reach the
+kernels through two torch.library custom ops: `flash_fwd_op`
+(paddle_tpu_torch::flash_fwd, over `forward`) and `flash_bwd_op`
+(paddle_tpu_torch::flash_bwd, over `backward`), the second registered as
+the first's autograd formula (q, k, v, o and lse saved; lse carries no
+gradient). Their fake implementations give the real outputs' shapes,
+dtypes and strides (o, dq, dk and dv are laid out [b, rows, h, d]). The
+counters count inside the op bodies, so a compiled program counts every
+call; the kernels are built at the first launch, never while a program is
+traced.
 
 Routing follows the JAX package's `_dispatch_fwd`: causal attention with
 n != m is not the kernels' contract (they are top-left causal) and goes to
@@ -70,9 +80,11 @@ LONG_SEQ = 4096
 # on CPU). Forward: 'flash' (standard) and 'fwd_long'; backward:
 # 'bwd_fused', 'bwd_two_pass' and 'bwd_long'. 'rejected': calls _supported
 # routed to _ref_bhnd; 'blockwise': causal n != m calls routed to the
-# blockwise attention.
+# blockwise attention. 'aligned_copies': operands the kernels could not
+# read as they were given (_rows_aligned copied them).
 counts = {'flash': 0, 'fwd_long': 0, 'rejected': 0, 'blockwise': 0,
-          'bwd_fused': 0, 'bwd_two_pass': 0, 'bwd_long': 0}
+          'bwd_fused': 0, 'bwd_two_pass': 0, 'bwd_long': 0,
+          'aligned_copies': 0}
 
 
 def _use_long_path(n, m):
@@ -174,6 +186,7 @@ def _rows_aligned(t):
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
             all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]):
         return t
+    counts['aligned_copies'] += 1
     return t.clone(memory_format=torch.contiguous_format)
 
 
@@ -461,20 +474,84 @@ def backward(q, k, v, o, lse, do, causal, scale):
     return flash_attention_bwd_ref(q, k, v, do, lse, delta, causal, scale)
 
 
-class _FlashForward(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        ctx.mark_non_differentiable(lse)
-        return o, lse
+def _as_bnhd(t):
+    """t [b, h, rows, d] laid out [b, rows, h, d] in memory, as the kernels
+    write o, dq, dk and dv: t itself when it is (the card), else a copy in
+    that layout (the plain versions' results, on the CPU). The ops' fake
+    implementations promise this layout, so that a compiler plans the
+    strides the kernels give."""
+    b, h, rows, d = t.shape
+    if t.stride() == (rows * h * d, d, h * d, 1):
+        return t
+    out = torch.empty((b, rows, h, d), dtype=t.dtype,
+                      device=t.device).transpose(1, 2)
+    return out.copy_(t)
 
-    @staticmethod
-    def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = backward(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+
+# The kernels read their operands with the strides they are given (a
+# packed projection's q / k / v views pass without a copy): a compiler
+# must hand the ops the strides eager code would, not a layout of its own.
+_EXACT_STRIDES = (getattr(torch.Tag, 'needs_exact_strides', None) or
+                  torch.Tag.needs_fixed_stride_order,)
+
+
+@torch.library.custom_op('paddle_tpu_torch::flash_fwd', mutates_args=(),
+                         tags=_EXACT_STRIDES)
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator for eager code and compiled programs:
+    `forward` (the standard or the long kernel on the card, the plain
+    version on the CPU, counted as it runs). Returns (o, lse): o [b, h, n,
+    d] laid out [b, n, h, d], lse f32 [b, h, n, 1]."""
+    o, lse = forward(q, k, v, causal, scale)
+    return _as_bnhd(o), lse
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    b, h, n, d = q.shape
+    o = q.new_empty((b, n, h, d)).transpose(1, 2)
+    return o, q.new_empty((b, h, n, 1), dtype=torch.float32)
+
+
+@torch.library.custom_op('paddle_tpu_torch::flash_bwd', mutates_args=(),
+                         tags=_EXACT_STRIDES)
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 causal: bool, scale: float
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as one operator: `backward` (fused, two-pass or long on
+    the card, the plain version on the CPU, counted as it runs). Returns
+    (dq, dk, dv), each laid out [b, rows, h, d] as the kernels write
+    them."""
+    return tuple(_as_bnhd(g) for g in backward(q, k, v, o, lse, do, causal,
+                                               scale))
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, do, causal, scale):
+    return tuple(t.new_empty((t.shape[0], t.shape[2], t.shape[1],
+                              t.shape[3])).transpose(1, 2)
+                 for t in (q, k, v))
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _fwd_backward(ctx, do, dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_fwd_op.register_autograd(_fwd_backward,
+                               setup_context=_fwd_setup_context)
 
 
 def _dispatch_fwd(q, k, v, causal, scale):
@@ -495,7 +572,7 @@ def _dispatch_fwd(q, k, v, causal, scale):
                 'PADDLE_TPU_FLASH_STRICT=1 but the flash kernel cannot '
                 'run: ' + reason)
         return _ref_bhnd(q, k, v, causal, scale), None
-    return _FlashForward.apply(q, k, v, causal, scale)
+    return flash_fwd_op(q, k, v, causal, scale)
 
 
 def flash_attention_bnhd(q, k, v, causal=False, scale=None):

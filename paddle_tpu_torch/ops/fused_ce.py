@@ -5,8 +5,9 @@ Mean softmax-CE of `x @ w (+ bias)` against integer labels without the
 full [rows, vocab] logits: the forward keeps only each row's logsumexp,
 and the backward recomputes each chunk's logits and forms
 (softmax - onehot) * g / denom on the fly, summing dw in f32 across
-chunks. The JAX package writes it in jnp; here it is an autograd Function
-over torch ops, and its products are cuBLAS matmuls on the card.
+chunks. The JAX package writes it in jnp; here it is two torch.library
+custom operators over torch ops (the backward registered as the forward's
+autograd), and its products are cuBLAS matmuls on the card.
 
 Chunks are contiguous row ranges. The JAX package takes strided chunks
 (rows i, i + n, ...) so that every chunk spans all data-parallel shards;
@@ -14,6 +15,8 @@ the port has no data parallelism yet, and contiguous chunks are views,
 with no copy and no padding. Rows are independent, so only the order of
 the f32 sums differs.
 """
+from typing import Optional
+
 import torch
 
 __all__ = ['linear_cross_entropy_arrays', 'DEFAULT_CHUNK_ROWS']
@@ -50,53 +53,102 @@ def _tile_logits(xc, w, bias):
     return logits.float()
 
 
-class _LinearCE(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, labels, bias, ignore_index, chunk):
-        rows = x.shape[0]
-        chunk, _ = _chunk_plan(rows, chunk)
-        valid = labels != ignore_index
-        safe = labels.clamp(0, w.shape[1] - 1)
-        lse_parts, picked_parts = [], []
-        for c0 in range(0, rows, chunk):
-            af = _tile_logits(x[c0:c0 + chunk], w, bias)
-            lse_parts.append(torch.logsumexp(af, dim=-1))
-            picked_parts.append(
-                af.gather(1, safe[c0:c0 + chunk, None])[:, 0])
-        lse = torch.cat(lse_parts)
-        per_row = torch.where(valid, lse - torch.cat(picked_parts), 0.0)
-        denom = valid.sum().float().clamp_min(1.0)
-        ctx.save_for_backward(x, w, labels, bias, lse, denom)
-        ctx.ignore_index, ctx.chunk = ignore_index, chunk
-        return (per_row.sum() / denom).to(x.dtype)
+def _forward(x, w, labels, bias, ignore_index, chunk):
+    """(mean CE in x's dtype, each row's logsumexp, the valid-row count)."""
+    rows = x.shape[0]
+    valid = labels != ignore_index
+    safe = labels.clamp(0, w.shape[1] - 1)
+    lse_parts, picked_parts = [], []
+    for c0 in range(0, rows, chunk):
+        af = _tile_logits(x[c0:c0 + chunk], w, bias)
+        lse_parts.append(torch.logsumexp(af, dim=-1))
+        picked_parts.append(af.gather(1, safe[c0:c0 + chunk, None])[:, 0])
+    lse = torch.cat(lse_parts)
+    per_row = torch.where(valid, lse - torch.cat(picked_parts), 0.0)
+    denom = valid.sum().float().clamp_min(1.0)
+    return (per_row.sum() / denom).to(x.dtype), lse, denom
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w, labels, bias, lse, denom = ctx.saved_tensors
-        rows = x.shape[0]
-        chunk = ctx.chunk
-        gg = g.float() / denom
-        scale = gg * (labels != ctx.ignore_index).float()
-        safe = labels.clamp(0, w.shape[1] - 1)
-        dx = torch.empty_like(x)
-        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-        db = (torch.zeros(bias.shape, dtype=torch.float32, device=w.device)
-              if bias is not None else None)
-        for c0 in range(0, rows, chunk):
-            sl = slice(c0, c0 + chunk)
-            xc = x[sl]
-            p = torch.exp(_tile_logits(xc, w, bias) - lse[sl, None])
-            # d(CE)/d(logits) = softmax - onehot, zeroed on ignored rows
-            p.scatter_add_(1, safe[sl, None],
-                           torch.full_like(p[:, :1], -1.0))
-            p.mul_(scale[sl, None])
-            pc = p.to(w.dtype)
-            dx[sl] = torch.matmul(pc, w.t())
-            dw += _mm_f32(xc.t(), pc)
-            if db is not None:
-                db += p.sum(dim=0)
-        return (dx, dw.to(w.dtype), None,
-                None if bias is None else db.to(bias.dtype), None, None)
+
+def _backward(g, x, w, labels, bias, lse, denom, ignore_index, chunk):
+    """(dx, dw, db) of the mean CE given its output gradient g; db is
+    empty without a bias."""
+    rows = x.shape[0]
+    gg = g.float() / denom
+    scale = gg * (labels != ignore_index).float()
+    safe = labels.clamp(0, w.shape[1] - 1)
+    dx = torch.empty_like(x)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    db = (torch.zeros(bias.shape, dtype=torch.float32, device=w.device)
+          if bias is not None else None)
+    for c0 in range(0, rows, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc = x[sl]
+        p = torch.exp(_tile_logits(xc, w, bias) - lse[sl, None])
+        # d(CE)/d(logits) = softmax - onehot, zeroed on ignored rows
+        p.scatter_add_(1, safe[sl, None], torch.full_like(p[:, :1], -1.0))
+        p.mul_(scale[sl, None])
+        pc = p.to(w.dtype)
+        dx[sl] = torch.matmul(pc, w.t())
+        dw += _mm_f32(xc.t(), pc)
+        if db is not None:
+            db += p.sum(dim=0)
+    db = x.new_empty((0,)) if db is None else db.to(bias.dtype)
+    return dx, dw.to(w.dtype), db
+
+
+# The loss as two custom operators, as the flash kernels are: a compiled
+# program (jit.to_static) calls them as they are, and their chunked loops
+# run eagerly inside it, in the order and with the memory of the eager
+# path.
+@torch.library.custom_op('paddle_tpu_torch::linear_ce_fwd', mutates_args=())
+def linear_ce_fwd_op(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                     bias: Optional[torch.Tensor], ignore_index: int,
+                     chunk: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean CE, each row's logsumexp f32 [rows], the valid count f32)."""
+    return _forward(x, w, labels, bias, ignore_index, chunk)
+
+
+@linear_ce_fwd_op.register_fake
+def _linear_ce_fwd_fake(x, w, labels, bias, ignore_index, chunk):
+    return (x.new_empty(()), x.new_empty((x.shape[0],), dtype=torch.float32),
+            x.new_empty((), dtype=torch.float32))
+
+
+@torch.library.custom_op('paddle_tpu_torch::linear_ce_bwd', mutates_args=())
+def linear_ce_bwd_op(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                     labels: torch.Tensor, bias: Optional[torch.Tensor],
+                     lse: torch.Tensor, denom: torch.Tensor,
+                     ignore_index: int, chunk: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx like x, dw contiguous in w's dtype, db or an empty tensor)."""
+    return _backward(g, x, w, labels, bias, lse, denom, ignore_index, chunk)
+
+
+@linear_ce_bwd_op.register_fake
+def _linear_ce_bwd_fake(g, x, w, labels, bias, lse, denom, ignore_index,
+                        chunk):
+    db = x.new_empty((0,)) if bias is None else torch.empty_like(bias)
+    return (torch.empty_like(x), w.new_empty(w.shape), db)
+
+
+def _ce_setup_context(ctx, inputs, output):
+    x, w, labels, bias, ignore_index, chunk = inputs
+    _, lse, denom = output
+    ctx.save_for_backward(x, w, labels, bias, lse, denom)
+    ctx.ignore_index, ctx.chunk = ignore_index, chunk
+    ctx.mark_non_differentiable(lse, denom)
+
+
+def _ce_backward(ctx, g, dlse, ddenom):
+    x, w, labels, bias, lse, denom = ctx.saved_tensors
+    dx, dw, db = linear_ce_bwd_op(g, x, w, labels, bias, lse, denom,
+                                  ctx.ignore_index, ctx.chunk)
+    return dx, dw, None, (db if bias is not None else None), None, None
+
+
+linear_ce_fwd_op.register_autograd(_ce_backward,
+                                   setup_context=_ce_setup_context)
 
 
 def linear_cross_entropy_arrays(x, w, labels, bias=None, ignore_index=-100,
@@ -107,5 +159,6 @@ def linear_cross_entropy_arrays(x, w, labels, bias=None, ignore_index=-100,
     embedding is fine); labels: [rows] int; bias: [vocab] or None. Rows
     whose label == ignore_index contribute nothing; the mean divides by the
     valid count. Returns a scalar in x's dtype."""
-    return _LinearCE.apply(x, w, labels.long(), bias, int(ignore_index),
-                           int(chunk))
+    chunk, _ = _chunk_plan(x.shape[0], chunk)
+    return linear_ce_fwd_op(x, w, labels.long(), bias, int(ignore_index),
+                            chunk)[0]

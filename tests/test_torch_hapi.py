@@ -176,8 +176,13 @@ def test_fit_with_workers_and_eval_data(tmp_path):
         assert torch.equal(a, b), k
     assert other._optimizer.state_dict()['step'] == \
         tmodel._optimizer.state_dict()['step']
-    with pytest.raises(NotImplementedError, match='jit'):
-        tmodel.save(path, training=False)
+    # training=False exports through jit.save (no input spec given to
+    # the Model: the architecture and the weights, no exported program)
+    tmodel.save(path, training=False)
+    loaded = tpt.jit.load(path, device='cpu')
+    ids = torch.from_numpy(tdata.ids[:2])
+    tmodel.network.eval()
+    assert torch.equal(loaded(ids), tmodel.network(ids))
     with pytest.raises(NotImplementedError, match='cost'):
         tmodel.summary_perf(None)
 

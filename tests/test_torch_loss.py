@@ -63,6 +63,34 @@ def test_fused_ce_loss_and_grads_match_jax(with_bias, chunk):
         np.testing.assert_allclose(gt.numpy(), np.asarray(wt), **TOL)
 
 
+@pytest.mark.parametrize('with_bias', [True, False])
+def test_fused_ce_ops_opcheck_and_compiled_grads_match_jax(with_bias):
+    """The fused CE as custom operators (paddle_tpu_torch::linear_ce_fwd /
+    linear_ce_bwd): opcheck, and the loss and gradients of the compiled
+    call (torch.compile with fullgraph) against the JAX package's."""
+    x, w, bias, labels, g = _inputs(seed=1)
+    b = bias if with_bias else None
+    targs = [_leaf(x), _leaf(w)] + ([_leaf(b)] if with_bias else [])
+    tlabels = torch.from_numpy(labels)
+    torch.library.opcheck(tfce.linear_ce_fwd_op,
+                          (targs[0], targs[1], tlabels,
+                           targs[2] if with_bias else None, -100, 8))
+    compiled = torch.compile(
+        lambda *a: tfce.linear_cross_entropy_arrays(
+            a[0], a[1], tlabels, a[2] if with_bias else None, -100, 8),
+        fullgraph=True, backend='aot_eager')
+    got = compiled(*targs)
+    got_grads = torch.autograd.grad(got, targs, torch.tensor(g))
+    jargs = [jnp.asarray(x), jnp.asarray(w)] + (
+        [jnp.asarray(b)] if with_bias else [])
+    want, vjp = jax.vjp(lambda *a: jfce.linear_cross_entropy_arrays(
+        a[0], a[1], jnp.asarray(labels, jnp.int32),
+        a[2] if with_bias else None, -100, 8), *jargs)
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    for gt, wt in zip(got_grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt), **TOL)
+
+
 def test_fused_ce_chunk_plan_bounds_the_chunk_count():
     assert tfce._chunk_plan(37, 8) == jfce._chunk_plan(37, 8)[:2]
     assert tfce._chunk_plan(16384, 4096) == (4096, 4)
