@@ -162,8 +162,30 @@ Phases, each printed as it finishes; any failure exits non-zero:
                flash forward launches a run, logits against the eager
                model (f32 within 1e-4), run() p50 beside the eager
                forward. The phase prints its own seconds.
+ 20. slice 11, the static graph - (a) GPT-2 small (seeded, dropout 0)
+               built under static.program_guard from static.data('ids',
+               [8, 768], 'int64') in f32 and bf16, Executor.run on the
+               card with 3 fresh feeds: logits against the eager f32
+               forward (f32 within 1e-4, bf16 within 0.1 of the range),
+               different feeds give different fetches, 12 flash forward
+               launches a run, one compile, the first run's compile
+               seconds, run() p50 with numpy out and with tensors on the
+               card, a profiled run's busy share; (b) save_inference_model
+               of the f32 Program (a torch.export program, weights
+               inside), load_inference_model and Executor.run on the card:
+               fetches within 1e-5 of (a)'s, 12 launches a run, its size
+               and load seconds; (c) phase 6's bf16 model and batch under
+               program_guard with its fused loss: append_backward's
+               (parameter, grad) pairs against loss.backward() of the same
+               model on the same batch, 12 + 12 launches; (d) the digits
+               CNN and fit_a_line written in the reference format (a
+               ProgramDesc and LoDTensor writer of this script's own), in
+               the separate and the combined layout, through a Predictor
+               and through load_inference_model + Executor on the card,
+               each within 1e-5 of the op table on the CPU. The phase
+               prints its own seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18 and 19 in main().)
+18, 19 and 20 in main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
@@ -173,11 +195,13 @@ import gc
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import time
 import weakref
 
+import numpy as np
 import torch
 
 SEED = 1234
@@ -2253,6 +2277,479 @@ def slice10_phases(sku, main):
     return out
 
 
+# -- phase 20: slice 11, the static graph -------------------------------------
+
+def _static_feeds(vocab, batch, seq, count):
+    gen = torch.Generator().manual_seed(SEED + 20)
+    return [torch.randint(0, vocab, (batch, seq), generator=gen).numpy()
+            for _ in range(count)]
+
+
+def _p50(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _timed_runs(fn, count):
+    ms = []
+    for _ in range(count):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def static_program_phase():
+    """(a) GPT-2 small (seeded weights, dropout 0) built under
+    static.program_guard from static.data('ids', [8, 768], 'int64'), in
+    f32 and in bf16, then Executor.run on the card with three fresh feeds:
+    each run's logits against the eager f32 forward on the same ids, 12
+    flash forward launches a run, one compile, run() p50 with and without
+    the host copy, a profiled run's busy share. (b) save_inference_model of
+    the f32 Program, load_inference_model and Executor.run on the card:
+    the fetches against (a)'s, 12 launches a run."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig.gpt2_small()
+    cfg.dropout = 0.0
+    layers, batch, seq = cfg.num_layers, 8, 768
+    feeds = _static_feeds(cfg.vocab_size, batch, seq, 3)
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
+    with torch.no_grad():
+        wants = [model(torch.from_numpy(f).cuda()).float() for f in feeds]
+    rows, f32 = {}, None
+    exe = static.Executor('gpu')
+    for label, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        # the bf16 model is a second one from the same seed: to() converts
+        # in place, and the f32 Program holds the f32 model's parameters
+        m = model if dtype == torch.float32 else GPTForCausalLM(
+            cfg, device='cuda', seed=SEED).eval().to(dtype)
+        prog = static.Program()
+        t0 = time.perf_counter()
+        with torch.no_grad(), static.program_guard(prog):
+            ids = static.data('ids', [batch, seq], 'int64')
+            logits = m(ids)
+        build_s = time.perf_counter() - t0
+        outs, run_s = [], []
+        for feed, want in zip(feeds, wants):
+            _reset_counts(fa)
+            t0 = time.perf_counter()
+            out = exe.run(prog, feed={'ids': feed}, fetch_list=[logits])[0]
+            run_s.append(time.perf_counter() - t0)
+            launches = _launches(fa)
+            _check(launches == _want(1, flash_fwd=layers),
+                   'Executor.run %s launched %s' % (label, launches))
+            got = torch.from_numpy(out).cuda()
+            err = (got - want).abs().max().item()
+            if dtype == torch.float32:
+                _check(err <= 1e-4, 'Executor %s logits vs eager: %.3g'
+                       % (label, err))
+            else:
+                rel = err / want.abs().max().item()
+                _check(rel <= 0.1, 'Executor bf16 logits vs eager f32: '
+                       '%.3g of range' % rel)
+            outs.append(got)
+            del got
+        _check(not torch.equal(outs[0], outs[1]),
+               'Executor %s: two feeds gave the same fetches' % label)
+        _check(prog.compile_count() == 1 and prog.program_count() == 1,
+               'Executor %s compiled %d graphs for %d signatures'
+               % (label, prog.compile_count(), prog.program_count()))
+        numpy_ms = _timed_runs(lambda: exe.run(
+            prog, feed={'ids': feeds[0]}, fetch_list=[logits]), 5)
+        device_feed = torch.from_numpy(feeds[0]).cuda()
+        tensor_ms = _timed_runs(lambda: exe.run(
+            prog, feed={'ids': device_feed}, fetch_list=[logits],
+            return_numpy=False), 5)
+        wall, dev, top, _ = _profile(lambda: exe.run(
+            prog, feed={'ids': device_feed}, fetch_list=[logits],
+            return_numpy=False))
+        _check(prog.compile_count() == 1, 'Executor %s recompiled' % label)
+        rows[label] = {
+            'build_s': build_s, 'compile_s': run_s[0],
+            'run_p50_ms': _p50(numpy_ms), 'device_p50_ms': _p50(tensor_ms),
+            'busy': dev / wall, 'max_abs_err': err,
+            'recorded_calls': len(prog._ops), 'launches_a_run': layers}
+        print('static Executor %s (a): GPT-2 small Program on ids [%d, %d], '
+              '%d recorded torch calls, build %.2f s, first run (compile) '
+              '%.1f s, then runs of %.2f / %.2f s; 3 feeds: logits max abs '
+              'err vs eager f32 %.3g, %d flash forward launches a run, 1 '
+              'compile; run() p50 %.2f ms (numpy out), %.2f ms (tensors on '
+              'the card); a profiled run: wall %.2f ms, kernels %.2f ms, '
+              'busy %.3f; top kernels: %s' % (
+                  label, batch, seq, len(prog._ops), build_s, run_s[0],
+                  run_s[1], run_s[2], err, layers, rows[label]['run_p50_ms'],
+                  rows[label]['device_p50_ms'], wall, dev, dev / wall,
+                  '; '.join('%s %.2f ms x%d' % t for t in top)), flush=True)
+        if dtype == torch.float32:
+            f32 = (prog, ids, logits, outs[0])
+        else:
+            del prog, ids, logits
+        del outs, device_feed
+        torch.cuda.empty_cache()
+
+    # (b) the f32 Program as an inference artifact
+    prog, ids, logits, want = f32
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_static_')
+    try:
+        path = os.path.join(tmp, 'gpt2')
+        t0 = time.perf_counter()
+        static.save_inference_model(path, [ids], [logits], exe, program=prog)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path + '.pdmodel')
+        del prog, ids, logits, model, m
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded, names, fetches = static.load_inference_model(path, exe)
+        load_s = time.perf_counter() - t0
+        _check(names == ['ids'], 'artifact feeds %s' % names)
+        run_s = []
+        for _ in range(2):
+            _reset_counts(fa)
+            t0 = time.perf_counter()
+            out, = exe.run(loaded, feed={'ids': feeds[0]},
+                           fetch_list=fetches, return_numpy=False)
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+            launches = _launches(fa)
+            _check(launches == _want(1, flash_fwd=layers),
+                   'the loaded artifact launched %s' % launches)
+            err = (out - want).abs().max().item()
+            _check(err <= 1e-5, 'the loaded artifact vs the Program: %.3g'
+                   % err)
+        _check(loaded.compile_count() == 1, 'the artifact compiled %d graphs'
+               % loaded.compile_count())
+        tensor_ms = _timed_runs(lambda: exe.run(
+            loaded, feed={'ids': feeds[0]}, fetch_list=fetches,
+            return_numpy=False), 5)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows['artifact'] = {'save_s': save_s, 'bytes': size, 'load_s': load_s,
+                        'compile_s': run_s[0], 'device_p50_ms':
+                        _p50(tensor_ms), 'max_abs_err': err,
+                        'launches_a_run': layers}
+    print('static artifact (b): save_inference_model %.1f s, %.1f MiB '
+          '(weights inside), load_inference_model %.2f s, first run '
+          '(compile) %.1f s, run p50 %.2f ms (tensors on the card), fetches '
+          'vs the Program max abs err %.3g, %d flash forward launches a run'
+          % (save_s, size / 2 ** 20, load_s, run_s[0], _p50(tensor_ms), err,
+             layers), flush=True)
+    del loaded, out, want, wants
+    torch.cuda.empty_cache()
+    return rows
+
+
+def append_backward_phase():
+    """(c) phase 6's bench GPT (bf16, batch 32 x 512, fused loss) built
+    under program_guard: append_backward's (parameter, grad) pairs against
+    loss.backward() of the same model on the same batch, eagerly; 12 fused
+    backward launches in append_backward."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    cfg = GPTConfig(**BENCH_CFG)
+    layers = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, _, ids, labels = _train_setup(
+        cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
+    model.train()
+    prog = static.Program()
+    _reset_counts(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with static.program_guard(prog):
+        loss = model.loss(model(ids), labels)
+        pairs = static.append_backward(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches(fa)
+    _check(launches == _want(1, flash_fwd=layers, flash_bwd_fused=layers),
+           'append_backward launched %s' % launches)
+    names = {id(p): n for n, p in model.named_parameters()}
+    got = {names[id(p)]: g.detach().clone() for p, g in pairs}
+    _check(set(got) == set(names.values()),
+           'append_backward paired %d of %d parameters'
+           % (len(got), len(names)))
+    prog_loss = loss.item()
+    del prog, loss, pairs
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(model(ids), labels)
+    loss.backward()
+    worst, equal = 0.0, 0
+    for name, p in model.named_parameters():
+        top = p.grad.float().abs().max().item()
+        err = (got[name].float() - p.grad.float()).abs().max().item()
+        _check(err <= 1e-2 * top, 'append_backward %s: err %.3g of %.3g'
+               % (name, err, top))
+        worst = max(worst, err / top if top else err)
+        equal += int(torch.equal(got[name], p.grad))
+    _check(loss.item() == prog_loss, 'losses %r vs %r'
+           % (loss.item(), prog_loss))
+    print('static append_backward (c): bench GPT bf16, batch %d x %d, loss '
+          '%.6f (eager %.6f), %d (parameter, grad) pairs, %d bitwise equal '
+          'to loss.backward(), worst err %.3g of the gradient\'s max (tol '
+          '1e-2), forward + backward %.2f s, launches %s' % (
+              TRAIN_BATCH, TRAIN_SEQ, prog_loss, loss.item(), len(got), equal,
+              worst, seconds, launches), flush=True)
+    del model, got, loss, ids, labels
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'pairs': len(names), 'bitwise': equal,
+            'worst': worst, 'seconds': seconds}
+
+
+# -- a reference-format (fluid ProgramDesc) writer: proto2 wire format and
+# LoDTensor streams (framework.proto, lod_tensor.cc SerializeToStream)
+
+def _pb_varint(v):
+    if v < 0:
+        v += 1 << 64
+    out = b''
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if not v:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb_len(field, payload):
+    return _pb_varint((field << 3) | 2) + _pb_varint(len(payload)) + payload
+
+
+def _pb_int(field, v):
+    return _pb_varint(field << 3) + _pb_varint(v)
+
+
+def _pb_attr(name, value):
+    """INT, FLOAT, STRING, INTS or BOOLEAN, by the value's Python type."""
+    out = _pb_len(1, name.encode())
+    if isinstance(value, bool):
+        return out + _pb_int(2, 6) + _pb_int(10, int(value))
+    if isinstance(value, int):
+        return out + _pb_int(2, 0) + _pb_int(3, value)
+    if isinstance(value, float):
+        return out + _pb_int(2, 1) + _pb_varint((4 << 3) | 5) + \
+            struct.pack('<f', value)
+    if isinstance(value, str):
+        return out + _pb_int(2, 2) + _pb_len(5, value.encode())
+    return out + _pb_int(2, 3) + b''.join(_pb_int(6, v) for v in value)
+
+
+def _pb_op(op_type, inputs, outputs, **attrs):
+    out = b''
+    for field, slots in ((1, inputs), (2, outputs)):
+        for slot, names in slots.items():
+            out += _pb_len(field, _pb_len(1, slot.encode()) + b''.join(
+                _pb_len(2, n.encode()) for n in names))
+    out += _pb_len(3, op_type.encode())
+    for name, value in attrs.items():
+        out += _pb_len(4, _pb_attr(name, value))
+    return out
+
+
+def _pb_desc(dtype, dims):
+    return _pb_int(1, dtype) + b''.join(_pb_int(2, d) for d in dims)
+
+
+def _pb_var(name, dims=None, vtype=7, dtype=5, persistable=False):
+    vt = _pb_int(1, vtype)
+    if dims is not None:
+        vt += _pb_len(3, _pb_len(1, _pb_desc(dtype, dims)) + _pb_int(2, 0))
+    return _pb_len(1, name.encode()) + _pb_len(2, vt) + \
+        (_pb_int(3, 1) if persistable else b'')
+
+
+def _pb_program(variables, ops):
+    block = _pb_int(1, 0) + _pb_int(2, -1) + \
+        b''.join(_pb_len(3, v) for v in variables) + \
+        b''.join(_pb_len(4, o) for o in ops)
+    return _pb_len(1, block) + _pb_len(4, _pb_int(1, 0))
+
+
+def _lod_tensor(arr):
+    desc = _pb_desc(5, arr.shape)
+    return struct.pack('<IQIi', 0, 0, 0, len(desc)) + desc + \
+        np.ascontiguousarray(arr, np.float32).tobytes()
+
+
+def _write_fluid(root, name, feeds, fetches, variables, ops, params,
+                 combined):
+    """A reference-format model directory: __model__ and one file per
+    parameter, or __model__ and the parameters in one __params__ file
+    (sorted by name). Returns (model path, params path or None)."""
+    d = os.path.join(root, name + ('_combined' if combined else ''))
+    os.makedirs(d)
+    head = [_pb_var('feed', vtype=9, persistable=True),
+            _pb_var('fetch', vtype=10, persistable=True)]
+    head += [_pb_var(n, dims=list(a.shape), persistable=True)
+             for n, a in params.items()]
+    ops = [_pb_op('feed', {'X': ['feed']}, {'Out': [n]}, col=i)
+           for i, n in enumerate(feeds)] + ops + \
+        [_pb_op('fetch', {'X': [n]}, {'Out': ['fetch']}, col=i)
+         for i, n in enumerate(fetches)]
+    with open(os.path.join(d, '__model__'), 'wb') as f:
+        f.write(_pb_program(head + variables, ops))
+    if combined:
+        with open(os.path.join(d, '__params__'), 'wb') as f:
+            for n in sorted(params):
+                f.write(_lod_tensor(params[n]))
+        return os.path.join(d, '__model__'), os.path.join(d, '__params__')
+    for n, a in params.items():
+        with open(os.path.join(d, n), 'wb') as f:
+            f.write(_lod_tensor(a))
+    return d, None
+
+
+def _digits_model(root, combined):
+    """recognize_digits' convolutional net: conv2d(20 5x5) + batch_norm +
+    relu + pool2d(max 2x2), twice (50 filters), then mul + elementwise_add
+    to 10 classes and softmax."""
+    gen = np.random.RandomState(SEED + 20)
+    p = {'conv1_w': gen.randn(20, 1, 5, 5) * 0.2,
+         'conv2_w': gen.randn(50, 20, 5, 5) * 0.05,
+         'fc_w': gen.randn(50 * 4 * 4, 10) * 0.03, 'fc_b': gen.randn(10)}
+    for i, c in ((1, 20), (2, 50)):
+        p['bn%d_s' % i] = gen.rand(c) + 0.5
+        p['bn%d_b' % i] = gen.randn(c) * 0.1
+        p['bn%d_m' % i] = gen.randn(c) * 0.1
+        p['bn%d_v' % i] = gen.rand(c) + 0.5
+    p = {k: np.asarray(v, np.float32) for k, v in p.items()}
+    ops = []
+    x = 'img'
+    for i in (1, 2):
+        ops += [
+            _pb_op('conv2d', {'Input': [x], 'Filter': ['conv%d_w' % i]},
+                   {'Output': ['conv%d' % i]}, strides=[1, 1],
+                   paddings=[0, 0], dilations=[1, 1], groups=1),
+            _pb_op('batch_norm', {'X': ['conv%d' % i],
+                                  'Scale': ['bn%d_s' % i],
+                                  'Bias': ['bn%d_b' % i],
+                                  'Mean': ['bn%d_m' % i],
+                                  'Variance': ['bn%d_v' % i]},
+                   {'Y': ['bn%d' % i]}, epsilon=1e-5, is_test=True),
+            _pb_op('relu', {'X': ['bn%d' % i]}, {'Out': ['relu%d' % i]}),
+            _pb_op('pool2d', {'X': ['relu%d' % i]}, {'Out': ['pool%d' % i]},
+                   pooling_type='max', ksize=[2, 2], strides=[2, 2],
+                   paddings=[0, 0])]
+        x = 'pool%d' % i
+    ops += [
+        _pb_op('flatten_contiguous_range', {'X': ['pool2']},
+               {'Out': ['flat']}, start_axis=1, stop_axis=-1),
+        _pb_op('mul', {'X': ['flat'], 'Y': ['fc_w']}, {'Out': ['fc_tmp']},
+               x_num_col_dims=1, y_num_col_dims=1),
+        _pb_op('elementwise_add', {'X': ['fc_tmp'], 'Y': ['fc_b']},
+               {'Out': ['logits']}, axis=1),
+        _pb_op('softmax', {'X': ['logits']}, {'Out': ['prob']}, axis=-1)]
+    return _write_fluid(root, 'digits', ['img'], ['prob'],
+                        [_pb_var('img', dims=[-1, 1, 28, 28])], ops, p,
+                        combined)
+
+
+def _fit_a_line_model(root, combined):
+    gen = np.random.RandomState(SEED + 21)
+    p = {'fc_w': gen.randn(13, 1).astype(np.float32),
+         'fc_b': gen.randn(1).astype(np.float32)}
+    ops = [_pb_op('mul', {'X': ['x'], 'Y': ['fc_w']}, {'Out': ['fc_tmp']},
+                  x_num_col_dims=1, y_num_col_dims=1),
+           _pb_op('elementwise_add', {'X': ['fc_tmp'], 'Y': ['fc_b']},
+                  {'Out': ['y']}, axis=1)]
+    return _write_fluid(root, 'fit_a_line', ['x'], ['y'],
+                        [_pb_var('x', dims=[-1, 13])], ops, p, combined)
+
+
+def fluid_model_phase():
+    """(d) reference-format models written by this script's own
+    ProgramDesc / LoDTensor writer — recognize_digits' CNN (batch 64 x 1 x
+    28 x 28) and fit_a_line (batch 256 x 13), each in the separate-files
+    and the combined layout — served through a Predictor on the card and
+    through static.load_inference_model + Executor on the card, each
+    against the port's op table run on the CPU (uncompiled) on the same
+    artifact within 1e-5."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.inference import fluid_program
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = np.random.RandomState(SEED + 22)
+    inputs = {'digits': gen.rand(64, 1, 28, 28).astype(np.float32),
+              'fit_a_line': gen.randn(256, 13).astype(np.float32)}
+    root = tempfile.mkdtemp(prefix='chip_smoke_fluid_')
+    rows = []
+    try:
+        for name, write in (('digits', _digits_model),
+                            ('fit_a_line', _fit_a_line_model)):
+            x = inputs[name]
+            for combined in (False, True):
+                model, params = write(root, combined)
+                # the CPU run through the op table uncompiled (a card's
+                # host may lack the C++ toolchain Inductor's CPU backend
+                # needs)
+                ref = fluid_program.load_fluid_model(model, params,
+                                                     device='cpu')
+                with torch.no_grad():
+                    cpu = ref._forward(torch.from_numpy(x))[0].numpy()
+                config = inference.Config(model, params)
+                config.enable_use_gpu()
+                pred = inference.create_predictor(config)
+                t0 = time.perf_counter()
+                out = pred.run([x])[0]
+                compile_s = time.perf_counter() - t0
+                ms = _timed_runs(lambda: pred.run([x]), 5)
+                exe = static.Executor('gpu')
+                kw = {'model_filename': '__model__',
+                      'params_filename': '__params__'} if combined else {}
+                prog, feeds, fetches = static.load_inference_model(
+                    os.path.dirname(model) if combined else model, exe,
+                    **kw)
+                out2 = exe.run(prog, feed={feeds[0]: x},
+                               fetch_list=fetches)[0]
+                errs = []
+                for got in (out, out2):
+                    err = np.abs(got - cpu).max()
+                    _check(np.allclose(got, cpu, rtol=1e-5, atol=1e-5),
+                           '%s (%s) on the card vs the CPU: %.3g' % (
+                               name, 'combined' if combined else 'separate',
+                               err))
+                    errs.append(float(err))
+                _check(pred.compile_count() == 1 and
+                       prog.compile_count() == 1,
+                       '%s compiled %d + %d graphs' % (
+                           name, pred.compile_count(), prog.compile_count()))
+                row = {'model': name, 'layout': 'combined' if combined
+                       else 'separate', 'batch': x.shape[0],
+                       'predictor_err': errs[0], 'executor_err': errs[1],
+                       'compile_s': compile_s, 'run_p50_ms': _p50(ms)}
+                print('static fluid (d): %s' % json.dumps(row), flush=True)
+                rows.append(row)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rows
+
+
+def slice11_phases():
+    """Phase 20: the static graph on the card."""
+    t0 = time.time()
+    out = {'program': static_program_phase()}
+    out['backward'] = append_backward_phase()
+    out['fluid'] = fluid_model_phase()
+    out['seconds'] = time.time() - t0
+    print('phase 20 (slice 11): %.1f s' % out['seconds'], flush=True)
+    return out
+
+
 # (b, h, n, m, d, dtype, causal): the d = 192 / 256 instantiations (CUDA
 # cores, operands staged as their own type) of every entry, at one short
 # causal shape and one ragged non-causal cross-length shape. No path of this
@@ -3615,25 +4112,34 @@ def main():
             if any(key in line for key in ('registers', 'spill', 'wgmma')):
                 print('  %s: %s %s' % (src, entry[:64], line.strip()), flush=True)
 
-    fwd_rows = kernel_phase(sku)
-    bwd_rows = bwd_kernel_phase(sku)
-    long_rows = long_kernel_phase(sku)
-    wide_rows = wide_kernel_phase(sku)
-    generate_launches = slice_phases()
-    engine_parity_phase()
-    engine_throughput_phase()
-    gateway_parity_phase()
-    inproc_qos = gateway_qos_phase()
-    fabric_parity_phase()
-    fabric_qos_phase(inproc_qos)
-    multimodel_phase()
-    train_f32_phase()
-    train = train_main_phase(sku)
-    second = train_seq1024_phase()
-    long_train = train_long_phase(sku)
-    slice7 = slice7_phases(sku, train)
-    slice9 = slice9_phases(card, train)
-    slice10 = slice10_phases(sku, train)
+    start = time.time()
+
+    def timed(phase, *args):
+        out = phase(*args)
+        print('%s done at %.1f s' % (phase.__name__, time.time() - start),
+              flush=True)
+        return out
+
+    fwd_rows = timed(kernel_phase, sku)
+    bwd_rows = timed(bwd_kernel_phase, sku)
+    long_rows = timed(long_kernel_phase, sku)
+    wide_rows = timed(wide_kernel_phase, sku)
+    generate_launches = timed(slice_phases)
+    timed(engine_parity_phase)
+    timed(engine_throughput_phase)
+    timed(gateway_parity_phase)
+    inproc_qos = timed(gateway_qos_phase)
+    timed(fabric_parity_phase)
+    timed(fabric_qos_phase, inproc_qos)
+    timed(multimodel_phase)
+    timed(train_f32_phase)
+    train = timed(train_main_phase, sku)
+    second = timed(train_seq1024_phase)
+    long_train = timed(train_long_phase, sku)
+    slice7 = timed(slice7_phases, sku, train)
+    slice9 = timed(slice9_phases, card, train)
+    slice10 = timed(slice10_phases, sku, train)
+    slice11 = timed(slice11_phases)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -3736,6 +4242,16 @@ def main():
             k['static_launches'] // slice10['train']['steps']
     kernels[0]['predictor_launches_per_run'] = \
         slice10['predictor']['rows']['f32']['launches_a_run']
+    # slice 11 drives them through the static graph: the forward in each
+    # Executor.run of the GPT-2 small Program and of its artifact, the
+    # forward and the fused backward in append_backward
+    kernels[0]['executor_launches_per_run'] = \
+        slice11['program']['f32']['launches_a_run']
+    kernels[0]['artifact_launches_per_run'] = \
+        slice11['program']['artifact']['launches_a_run']
+    for k in kernels[:2]:
+        k['append_backward_launches'] = \
+            slice11['backward']['launches'][k['name']]
     pairs = {'flash_bwd_dq': pair(bwd('dq', BWD_SECOND_SHAPE),
                                   bwd('dkv', BWD_SECOND_SHAPE)),
              'flash_bwd_dq_long': pair(long_rows['dq', LONG_MAIN_SHAPE],

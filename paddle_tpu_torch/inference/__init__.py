@@ -4,8 +4,8 @@ paddle/fluid/inference/ AnalysisPredictor, AnalysisConfig, ZeroCopyTensor).
 load (a jit.save artifact) -> one compiled program per input signature
 (torch.compile, the hand-written kernels inside it) -> cached runs. The
 pass-pipeline surface (Config.switch_ir_optim, enable_tensorrt_engine,
-...) is kept. Reference-format programs (inference/fluid_program.py) come
-with the static-graph slice.
+...) is kept. Reference-format programs (`__model__` / ProgramDesc
+`.pdmodel`) load through inference/fluid_program.py.
 """
 from .predictor import (Config, AnalysisConfig, Predictor,  # noqa: F401
                         AnalysisPredictor, create_predictor,

@@ -7,7 +7,8 @@ input signature (jit.StaticFunction: torch.compile with fullgraph, the
 flash kernels as custom ops inside it), compiled under the predictor's
 lock on the first run of the signature; later runs call the cached
 program. Reference-format artifacts (`__model__` / ProgramDesc
-`.pdmodel`) need inference/fluid_program.py, which is not ported yet.
+`.pdmodel` with LoDTensor params) load through inference/fluid_program.py
+and run its op table as one program per signature too.
 """
 import inspect
 import os
@@ -214,6 +215,21 @@ class Predictor:
         return (path.endswith('.pdmodel')
                 or os.path.basename(path) == '__model__')
 
+    def _load_fluid(self, path):
+        """Serve a reference-format model: ProgramDesc block 0 through the
+        fluid op table (fluid_program.py), compiled once per signature."""
+        from .fluid_program import load_fluid_model
+        prog = load_fluid_model(path, self._config.params_file(),
+                                device=self._device)
+        self._fluid = prog
+        self._layer = None
+        self._translated = None
+        self._input_names = list(prog.feed_names)
+        self._float_dtype = next(
+            (t.dtype for t in prog.params.values() if t.is_floating_point()),
+            torch.float32)
+        self._program = prog.compiled()
+
     def _enable_optim_cache(self):
         """Config.set_optim_cache_dir points Inductor's cache (its compiled
         graphs and kernels) at the directory, through
@@ -228,13 +244,10 @@ class Predictor:
         if path is None:
             raise ValueError('Config.set_model(path) required')
         self._enable_optim_cache()
-        if self._is_fluid_artifact(path):
-            raise NotImplementedError(
-                'reference-format artifacts (__model__ / ProgramDesc '
-                '.pdmodel) are served through inference/fluid_program.py, '
-                'which is not ported yet; save with '
-                'paddle_tpu_torch.jit.save and pass its path prefix')
         self._device = self._config.device()
+        if self._is_fluid_artifact(path):
+            self._load_fluid(path)
+            return
         self._translated = jit_mod.load(path, device=self._device)
         layer = self._translated._layer
         if layer is None:

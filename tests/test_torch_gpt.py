@@ -163,11 +163,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # the walk reached the serving and monitor modules of slice 4, the
-    # registry and fabric modules of slice 6, the training shell of slice 9
-    # and the compiled mode and inference engine of slice 10
+    # registry and fabric modules of slice 6, the training shell of slice 9,
+    # the compiled mode and inference engine of slice 10 and the static
+    # graph of slice 11
     imported = set(res.stdout.split())
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
-            SLICE9_MODULES + SLICE10_MODULES:
+            SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -195,6 +196,8 @@ SLICE9_MODULES = ('io', 'io.dataset', 'io.sampler', 'io.dataloader',
 SLICE10_MODULES = ('autograd', 'jit', 'jit.error', 'static',
                    'static.input_spec', 'inference', 'inference.predictor',
                    'framework.op_version')
+SLICE11_MODULES = ('static', 'static.nn', 'framework.recorder',
+                   'inference.fluid_program')
 
 
 def _port_files():
@@ -223,7 +226,7 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
     assert len(_port_files()) > 10
     scanned = {os.path.relpath(f, REPO) for f in _port_files()}
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
-            SLICE9_MODULES + SLICE10_MODULES:
+            SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod

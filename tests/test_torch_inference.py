@@ -268,14 +268,25 @@ def test_model_save_for_inference_then_predictor(tmp_path):
                                .copy_to_cpu(), want, **F32)
 
 
-def test_reference_format_artifact_names_fluid_program(tmp_path):
-    model_dir = tmp_path / 'fluid'
-    model_dir.mkdir()
-    (model_dir / '__model__').write_bytes(b'')
-    with pytest.raises(NotImplementedError, match='fluid_program'):
-        tinf.create_predictor(_cpu_config(str(model_dir)))
-    with pytest.raises(NotImplementedError, match='fluid_program'):
-        tinf.create_paddle_predictor(_cpu_config(str(tmp_path / 'm.pdmodel')))
+def test_reference_format_artifact_served_by_predictor(tmp_path):
+    """A reference-format artifact (a __model__ directory, or a .pdmodel
+    ProgramDesc with its combined .pdiparams) is served through
+    inference/fluid_program.py, as by the JAX package's Predictor."""
+    from test_torch_fluid import _fit_a_line_dir
+    d, w, b = _fit_a_line_dir(tmp_path, combined=False)
+    comb = _fit_a_line_dir(tmp_path, combined=True)[0]
+    (comb / 'm.pdmodel').write_bytes((comb / '__model__').read_bytes())
+    (comb / 'm.pdiparams').write_bytes((comb / '__params__').read_bytes())
+    x = np.random.RandomState(2).randn(3, 13).astype(np.float32)
+    for pred in (
+            tinf.create_predictor(_cpu_config(str(d))),
+            tinf.create_paddle_predictor(
+                _cpu_config(str(comb / 'm.pdmodel')))):
+        assert pred.get_input_names() == ['x']
+        out, = pred.run([x])
+        np.testing.assert_allclose(out, x @ w + b, rtol=1e-5, atol=1e-5)
+    jout, = jinf.create_predictor(jinf.Config(str(d))).run([x])
+    np.testing.assert_allclose(out, jout, rtol=1e-5, atol=1e-5)
 
 
 def test_config_surface(tmp_path, monkeypatch):
