@@ -184,8 +184,39 @@ Phases, each printed as it finishes; any failure exits non-zero:
                and through load_inference_model + Executor on the card,
                each within 1e-5 of the op table on the CPU. The phase
                prints its own seconds.
+ 21. slice 12, the parameter server and the graph engine - (a) CTR at the
+               shape of PaddleRec's Criteo DNN: 60 batches x 512 of 26
+               Zipf-skewed slots (one table of 1,000,001 ids of dim 9) and
+               a label, written as MultiSlot files and parsed by the native
+               datafeed (the Python parser refused), 2 EmbeddingServer
+               shards on the native table (server-side adagrad) behind
+               sockets, an AsyncCommunicator, DownpourTrainer with 2
+               threads and its dense half (26 x 9 -> 512 -> 1) on the card:
+               examples/s, the p50 of a batch's pull / device step / push,
+               rows held per shard, a falling loss, one batch's pooling and
+               dense step on the card against the CPU (f32, TF32 off,
+               1e-5); (b) HeterEmbedding over the 26 slots into the same
+               MLP under the port's Adam: one step's pushed rows against an
+               nn.Embedding's gradient (1e-6), then every batch through
+               the communicator; PassCachedEmbedding over a pass of 20
+               batches: end_pass pushes exactly the touched rows' deltas;
+               examples/s of each and peak memory; (c) a graph of
+               ogbn-arxiv's shape (169,343 nodes, 1,166,243 edges both
+               ways, 128-dim features, 40 classes, communities from the
+               seed) in 2 GraphPyServer shards on the native store, a
+               2-layer GraphSAGE mean (hidden 256, fan-outs 25 / 10, 512
+               seeds) under Adam on the card for 10 steps: seeds/s, the
+               p50 of sampling / feature gather / copy to the card /
+               device step, the load time, a falling loss, the first
+               batch's forward against the CPU (1e-5); (d) bench_extra's
+               supervisor rung: a journaled PS shard snapshotted, killed
+               and recovered by ShardSupervisor.poll() (rows bitwise
+               equal, MTTR, the journal's replays and dedup hits), then a
+               graph shard the same way (degrees and seeded samples
+               equal). Every line carries the card's name and power
+               limit. The phase prints its own seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19 and 20 in main().)
+18, 19, 20 and 21 in main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
@@ -2750,6 +2781,685 @@ def slice11_phases():
     return out
 
 
+# ---- phase 21 (slice 12): the parameter server and the graph engine -------
+# CTR at the shape of PaddleRec's Criteo DNN (models/rank/dnn/config.yaml):
+# 26 categorical slots hashed into one sparse table of 1,000,001 ids of dim
+# 9, batch 512; the JAX DownpourTrainer's one hidden layer makes the dense
+# half 26 x 9 -> 512 -> 1. The ids are Zipf-skewed draws made from SEED.
+CTR_SLOTS = 26
+CTR_IDS = 1000001
+CTR_DIM = 9
+CTR_HIDDEN = 512
+CTR_BATCH = 512
+CTR_BATCHES = 60
+CTR_FILES = 4
+PASS_BATCHES = 20
+# the graph at ogbn-arxiv's shape (nodes, undirected edges loaded both ways,
+# 128-dim f32 features, 40 classes), made from SEED as communities; a
+# 2-layer GraphSAGE mean, hidden 256, fan-outs 25 then 10, 512 seeds a
+# batch (Hamilton et al., 2017)
+GNN_NODES = 169343
+GNN_EDGES = 1166243
+GNN_FEAT = 128
+GNN_CLASSES = 40
+GNN_HIDDEN = 256
+GNN_FANOUTS = (25, 10)
+GNN_BATCH = 512
+GNN_STEPS = 10
+
+
+def _ctr_data(seed, n_inst):
+    """One id a slot, Zipf-skewed (a = 1.2) and hashed into CTR_IDS per
+    slot; the label draws from a logistic of hidden per-id scores of the
+    first 4 slots, so it is learnable from the embeddings."""
+    rng = np.random.RandomState(seed)
+    z = rng.zipf(1.2, (n_inst, CTR_SLOTS)) % CTR_IDS
+    ids = (z * 2654435761 + np.arange(CTR_SLOTS) * 1000003) % CTR_IDS
+    score = ((ids[:, :4] * 7919) % 1000) / 500.0 - 1.0
+    p = 1.0 / (1.0 + np.exp(-3.0 * score.sum(axis=1)))
+    return ids.astype(np.int64), (rng.rand(n_inst) < p).astype(np.float32)
+
+
+def _write_multislot(ids, labels, root, n_files):
+    """MultiSlot text: '1 <id>' per slot, then '1 <label>'."""
+    files = []
+    for f, part in enumerate(np.array_split(np.arange(len(ids)), n_files)):
+        path = os.path.join(root, 'part-%03d' % f)
+        with open(path, 'w') as fh:
+            fh.write('\n'.join(
+                ' '.join('1 %d' % v for v in row) + ' 1 %.1f' % y
+                for row, y in zip(ids[part].tolist(),
+                                  labels[part].tolist())))
+            fh.write('\n')
+        files.append(path)
+    return files
+
+
+def _sync(dev):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _timed_trainer(base):
+    """The trainer with its three parts timed per batch and the device of
+    every dense step recorded."""
+    import threading
+
+    class TimedTrainer(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.parts = {'pull': [], 'step': [], 'push': []}
+            self.dense_devices = []
+            self._parts_lock = threading.Lock()
+
+        def _timed(self, part, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            with self._parts_lock:
+                self.parts[part].append(time.perf_counter() - t0)
+            return out
+
+        def _pull(self, batch):
+            return self._timed('pull', super()._pull, batch)
+
+        def _device_step(self, *args):
+            return self._timed('step', super()._device_step, *args)
+
+        def _push(self, *args):
+            return self._timed('push', super()._push, *args)
+
+        def _dense_step(self, dense, pooled, labels):
+            with self._parts_lock:
+                self.dense_devices.append((pooled.device.type,
+                                           dense['w1'].device.type))
+            return super()._dense_step(dense, pooled, labels)
+
+    return TimedTrainer
+
+
+def _drain(dataset):
+    channel = dataset.start_channel()
+    out = []
+    while True:
+        batch = channel.get()
+        if batch is None:
+            return out
+        out.append(batch)
+
+
+def ps_ctr_phase(card, dev):
+    """(a) CTR through the PS: MultiSlot files parsed by the native
+    datafeed, 2 EmbeddingServer shards (native tables, server-side
+    adagrad) behind sockets, an AsyncCommunicator, DownpourTrainer with 2
+    threads and its dense half on the card."""
+    import tempfile
+    import threading
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.native import datafeed
+    from paddle_tpu_torch.distributed.ps import (AsyncCommunicator,
+                                                 DownpourTrainer,
+                                                 EmbeddingClient,
+                                                 EmbeddingServer,
+                                                 MultiSlotDataset)
+    t0 = time.perf_counter()
+    n_inst = CTR_BATCH * CTR_BATCHES
+    ids, labels = _ctr_data(SEED, n_inst)
+    root = tempfile.mkdtemp(prefix='ctr_')
+    files = _write_multislot(ids, labels, root, CTR_FILES)
+    _check(native.available('datafeed'), 'the native datafeed did not build')
+    # the native parser must parse every file: the Python one refuses
+    calls = collections.Counter()
+    lock = threading.Lock()
+    real = datafeed._parse_native, datafeed._parse_python
+
+    def native_parse(*args):
+        with lock:
+            calls['native'] += 1
+        return real[0](*args)
+
+    def python_parse(*args):
+        with lock:
+            calls['python'] += 1
+        raise RuntimeError('the Python MultiSlot parser ran')
+
+    datafeed._parse_native, datafeed._parse_python = native_parse, \
+        python_parse
+    try:
+        slots = ['s%d' % s for s in range(CTR_SLOTS)]
+        ds = MultiSlotDataset()
+        ds.set_use_var([(s, 'int64') for s in slots] +
+                       [('label', 'float32')])
+        ds.set_filelist(files)
+        ds.set_batch_size(CTR_BATCH)
+        ds.set_thread(CTR_FILES)
+        ds.load_into_memory()
+    finally:
+        datafeed._parse_native, datafeed._parse_python = real
+    _check(calls == {'native': CTR_FILES},
+           'MultiSlot parsers run: %s' % dict(calls))
+    _check(ds.get_memory_data_size() == n_inst,
+           'dataset holds %d of %d instances'
+           % (ds.get_memory_data_size(), n_inst))
+    setup_s = time.perf_counter() - t0
+
+    servers = []
+    for _ in range(2):
+        srv = EmbeddingServer()
+        for table in (0, 1):       # 0: the Downpour run, 1: the heter runs
+            srv.create_table(table, CTR_DIM, backend='native',
+                             optimizer='adagrad', lr=0.05, init_scale=0.01,
+                             seed=SEED)
+        srv.start()
+        servers.append(srv)
+    _check(all(type(s.table(t)).__name__ == 'NativeEmbeddingTable'
+               for s in servers for t in (0, 1)),
+           'a table is not on the native backend')
+    client = EmbeddingClient(endpoints=['127.0.0.1:%d' % s.port
+                                        for s in servers])
+    comm = AsyncCommunicator(client)
+    comm.start()
+    trainer = _timed_trainer(DownpourTrainer)(
+        client, comm, slots, {s: 0 for s in slots}, CTR_DIM,
+        hidden=CTR_HIDDEN, lr=0.05, n_threads=2, seed=SEED, device=dev)
+    t1 = time.perf_counter()
+    losses = trainer.train_from_dataset(ds)
+    wall = time.perf_counter() - t1
+    comm.stop()
+    _check(len(losses) == CTR_BATCHES, '%d losses' % len(losses))
+    _check(all(np.isfinite(losses)), 'a loss is not finite')
+    _check(trainer.dense_devices == [(dev.type, dev.type)] * CTR_BATCHES,
+           'dense steps ran on %s' % sorted(set(trainer.dense_devices)))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    _check(last < first, 'the CTR loss did not fall: %.4f -> %.4f'
+           % (first, last))
+
+    # one batch's pooling and dense step on the card against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = _drain(ds)
+    batch = batches[0]
+    rows, index, segment, _ = trainer._pull(batch)
+    y = np.asarray(batch['label'], np.float32)
+    outs = []
+    for d in (dev, torch.device('cpu')):
+        pooled, _, _ = trainer._pool(CTR_BATCH, rows, index, segment, d)
+        dense = {k: v.to(d) for k, v in trainer.dense.items()}
+        loss, d_pooled, d_dense = trainer._dense_step(
+            dense, pooled, torch.from_numpy(y).to(d))
+        outs.append([pooled, loss, d_pooled] + [d_dense[k]
+                                                for k in sorted(d_dense)])
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(*outs))
+    _check(err <= 1e-5, 'CTR dense step card vs CPU: %.3g > 1e-5' % err)
+
+    rows_held = [len(s.table(0)) for s in servers]
+    ex_s = n_inst / wall
+    p50 = {k: _p50(v) * 1e3 for k, v in trainer.parts.items()}
+    print('phase 21 (a) CTR through the PS [%s]: %d batches x %d, 26 '
+          'slots, 2 threads, 2 native shards: %.0f examples/s; p50 a '
+          'batch: pull %.2f ms, device step %.2f ms, push %.2f ms; rows '
+          'held per shard %s; loss %.4f -> %.4f (mean of the first / last '
+          '10); card vs CPU pooling + dense step max err %.3g (f32, TF32 '
+          'off); data set-up %.1f s'
+          % (card, CTR_BATCHES, CTR_BATCH, ex_s, p50['pull'], p50['step'],
+             p50['push'], rows_held, first, last, err, setup_s), flush=True)
+    return {'servers': servers, 'client': client, 'batches': batches,
+            'slots': slots, 'root': root, 'examples_s': ex_s, 'p50_ms': p50,
+            'rows_held': rows_held, 'loss': (losses[0], losses[-1]),
+            'err': err}
+
+
+class _RecordingClient:
+    """An EmbeddingClient's pull / push / push_delta, recorded; pushes and
+    deltas go on to the service only when `forward`."""
+
+    def __init__(self, client, forward):
+        self.client = client
+        self.forward = forward
+        self.pulls, self.pushes, self.deltas = [], [], []
+
+    def pull(self, table_id, ids):
+        rows = self.client.pull(table_id, ids)
+        self.pulls.append((np.asarray(ids).copy(), rows.copy()))
+        return rows
+
+    def push(self, table_id, ids, grads):
+        self.pushes.append((np.asarray(ids).copy(), np.asarray(grads).copy()))
+        if self.forward:
+            self.client.push(table_id, ids, grads)
+
+    def push_delta(self, table_id, ids, deltas):
+        self.deltas.append((np.asarray(ids).copy(),
+                            np.asarray(deltas).copy()))
+        if self.forward:
+            self.client.push_delta(table_id, ids, deltas)
+
+
+def _ctr_net(emb, dev):
+    from paddle_tpu_torch.nn.layer.common import Linear
+
+    class CTRNet(torch.nn.Module):
+        """The heter model: the embedding over the 26 slots into the
+        Downpour trainer's MLP (26 x 9 -> 512 -> 1, tanh)."""
+
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(SEED)
+            self.emb = emb
+            self.fc1 = Linear(CTR_SLOTS * CTR_DIM, CTR_HIDDEN, device=dev,
+                              generator=gen)
+            self.fc2 = Linear(CTR_HIDDEN, 1, device=dev, generator=gen)
+
+        def forward(self, ids):
+            e = self.emb(ids)
+            return self.fc2(torch.tanh(self.fc1(
+                e.reshape(e.shape[0], -1))))[:, 0]
+
+    return CTRNet()
+
+
+def _batch_ids(batch, slots):
+    """[B, 26] ids (one id a slot in this data) and the labels."""
+    for s in slots:
+        _check(np.array_equal(batch[s][1], np.arange(batch['__size__'] + 1)),
+               'slot %s does not hold one id an instance' % s)
+    return (np.stack([batch[s][0] for s in slots], axis=1),
+            np.asarray(batch['label'], np.float32))
+
+
+def heter_phase(card, dev, ps):
+    """(b) HeterEmbedding (rows pulled to the card each step, grads pushed
+    back through the communicator) and PassCachedEmbedding (a pass's rows
+    on the card as a Parameter, deltas pushed at end_pass), each under the
+    port's Adam."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.distributed.ps import (AsyncCommunicator,
+                                                 HeterEmbedding,
+                                                 PassCachedEmbedding)
+    bce = torch.nn.functional.binary_cross_entropy_with_logits
+    client, slots, batches = ps['client'], ps['slots'], ps['batches']
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # one step's pushed rows against an nn.Embedding holding the same rows
+    rec = _RecordingClient(client, forward=False)
+    net = _ctr_net(HeterEmbedding(rec, 1, CTR_DIM, device=dev), dev)
+    ids, y = _batch_ids(batches[0], slots)
+    y_d = torch.from_numpy(y).to(dev)
+    bce(net(torch.from_numpy(ids)), y_d).backward()
+    _check(len(rec.pulls) == 1 and len(rec.pushes) == 1,
+           'heter step: %d pulls, %d pushes' % (len(rec.pulls),
+                                                 len(rec.pushes)))
+    flat = ids.reshape(-1)
+    uniq, first_at, inv = np.unique(flat, return_index=True,
+                                    return_inverse=True)
+    ref = torch.nn.Embedding(len(uniq), CTR_DIM, device=dev)
+    with torch.no_grad():
+        ref.weight.copy_(torch.from_numpy(rec.pulls[0][1][first_at]))
+    e = ref(torch.from_numpy(inv.reshape(ids.shape)).to(dev))
+    bce(net.fc2(torch.tanh(net.fc1(e.reshape(e.shape[0], -1))))[:, 0],
+        y_d).backward()
+    pushed_ids, pushed = rec.pushes[0]
+    _check(np.array_equal(pushed_ids, flat), 'pushed ids differ')
+    merged = np.zeros((len(uniq), CTR_DIM), np.float32)
+    np.add.at(merged, inv, pushed)
+    push_err = float(np.abs(merged - ref.weight.grad.cpu().numpy()).max())
+    _check(push_err <= 1e-6, 'pushed rows vs nn.Embedding grad: %.3g > '
+           '1e-6' % push_err)
+
+    # HeterEmbedding training over every batch
+    comm = AsyncCommunicator(client)
+    comm.start()
+    net = _ctr_net(HeterEmbedding(client, 1, CTR_DIM, communicator=comm,
+                                  device=dev), dev)
+    opt = tpt.optimizer.Adam(learning_rate=1e-3,
+                             parameters=list(net.parameters()))
+    losses, on_dev = [], 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    for batch in batches:
+        ids, y = _batch_ids(batch, slots)
+        logit = net(torch.from_numpy(ids))
+        on_dev += logit.device.type == dev.type
+        loss = bce(logit, torch.from_numpy(y).to(dev))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    comm.flush()
+    heter_s = time.perf_counter() - t0
+    comm.stop()
+    _check(on_dev == len(batches), 'heter forwards off the card')
+    _check(all(np.isfinite(losses)), 'a heter loss is not finite')
+    heter_ex_s = len(batches) * CTR_BATCH / heter_s
+
+    # PassCachedEmbedding over one pass
+    pass_batches = [_batch_ids(b, slots) for b in batches[:PASS_BATCHES]]
+    pass_ids = np.concatenate([i.reshape(-1) for i, _ in pass_batches])
+    rec = _RecordingClient(client, forward=True)
+    emb = PassCachedEmbedding(rec, 1, CTR_DIM, device=dev)
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    n_rows = emb.begin_pass(pass_ids)
+    net = _ctr_net(emb, dev)
+    opt = tpt.optimizer.Adam(learning_rate=1e-3,
+                             parameters=list(net.parameters()))
+    pass_losses = []
+    for ids, y in pass_batches:
+        logit = net(torch.from_numpy(emb.lookup_slots(ids)).to(dev))
+        loss = bce(logit, torch.from_numpy(y).to(dev))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        pass_losses.append(loss.item())
+    final = emb.table.detach().cpu().numpy()
+    base = emb._base.copy()
+    n_pushed = emb.end_pass()
+    pass_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if dev.type == 'cuda' else 0
+    _check(len(rec.deltas) == 1, '%d end_pass pushes' % len(rec.deltas))
+    d_ids, d_rows = rec.deltas[0]
+    touched = np.unique(pass_ids)
+    _check(n_pushed == len(touched) == n_rows
+           and np.array_equal(d_ids, touched),
+           'end_pass pushed %d rows for %d touched' % (n_pushed,
+                                                       len(touched)))
+    _check(np.array_equal(d_rows, (final - base)[np.searchsorted(
+        touched, d_ids)]), 'end_pass deltas are not the pass deltas')
+    pass_ex_s = PASS_BATCHES * CTR_BATCH / pass_s
+    print('phase 21 (b) heter paths [%s]: HeterEmbedding %d batches x %d: '
+          '%.0f examples/s, loss %.4f -> %.4f, one step\'s pushed rows vs '
+          'an nn.Embedding\'s grad max err %.3g; PassCachedEmbedding, a pass '
+          'of %d batches over %d rows: %.0f examples/s (begin_pass and '
+          'end_pass included), loss %.4f -> %.4f, end_pass pushed exactly '
+          'the %d touched rows\' deltas; peak memory %.1f MiB'
+          % (card, len(batches), CTR_BATCH, heter_ex_s, losses[0],
+             losses[-1], push_err, PASS_BATCHES, n_rows, pass_ex_s,
+             pass_losses[0], pass_losses[-1], n_pushed, peak / 2 ** 20),
+          flush=True)
+    return {'heter_examples_s': heter_ex_s, 'pass_examples_s': pass_ex_s,
+            'push_err': push_err, 'pass_rows': n_rows,
+            'peak_mib': peak / 2 ** 20}
+
+
+def _gnn_graph(seed):
+    """Communities: each node's label is its community; 80% of edges stay
+    inside a community; features are the community's centroid (scaled by
+    0.5) plus unit noise."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, GNN_CLASSES, GNN_NODES).astype(np.int64)
+    order = np.argsort(labels, kind='stable')
+    counts = np.bincount(labels, minlength=GNN_CLASSES)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    src = rng.randint(0, GNN_NODES, GNN_EDGES).astype(np.int64)
+    c = labels[src]
+    inside = order[starts[c] + (rng.rand(GNN_EDGES) * counts[c]).astype(
+        np.int64)]
+    dst = np.where(rng.rand(GNN_EDGES) < 0.8, inside,
+                   rng.randint(0, GNN_NODES, GNN_EDGES)).astype(np.int64)
+    centroids = rng.randn(GNN_CLASSES, GNN_FEAT).astype(np.float32)
+    feats = (0.5 * centroids[labels] +
+             rng.randn(GNN_NODES, GNN_FEAT).astype(np.float32))
+    return src, dst, feats.astype(np.float32), labels
+
+
+def _load_graph(client, src, dst, feats, chunk=500000):
+    both_src = np.concatenate([src, dst])
+    both_dst = np.concatenate([dst, src])
+    for lo in range(0, len(both_src), chunk):
+        client.add_edges('default', both_src[lo:lo + chunk],
+                         both_dst[lo:lo + chunk])
+    for lo in range(0, len(feats), chunk // 10):
+        hi = min(lo + chunk // 10, len(feats))
+        client.set_node_feat('default', np.arange(lo, hi), feats[lo:hi])
+
+
+def gnn_phase(card, dev):
+    """(c) GraphSAGE through the graph engine: the graph in 2 GraphPyServer
+    shards, neighborhoods sampled and features gathered over the sockets,
+    one copy of each hop's features to the card, Adam on the card."""
+    import copy
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.distributed.graph_learning import (
+        GraphSageLayer, gather_features, neighbor_sample, sample_and_gather)
+    from paddle_tpu_torch.distributed.graph_service import GraphPyService
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    src, dst, feats, labels = _gnn_graph(SEED + 1)
+    _check(native.available('graph_store'), 'the native graph store did '
+           'not build')
+    svc = GraphPyService()
+    client = svc.set_up(num_servers=2)
+    try:
+        stores = [s._srv.stores['default'] for s in svc._servers]
+        _check(all(type(st).__name__ == '_NativeStore' for st in stores),
+               'a graph shard is not on the native store')
+        t0 = time.perf_counter()
+        _load_graph(client, src, dst, feats)
+        load_s = time.perf_counter() - t0
+        edges = sum(st.edge_count() for st in stores)
+        _check(edges == 2 * GNN_EDGES, '%d edges loaded' % edges)
+
+        gen = torch.Generator().manual_seed(SEED)
+        sage1 = GraphSageLayer(GNN_FEAT, GNN_HIDDEN, device=dev,
+                               generator=gen)
+        sage2 = GraphSageLayer(GNN_HIDDEN, GNN_CLASSES, act=None,
+                               device=dev, generator=gen)
+
+        def forward(l1, l2, f0, f1, f2):
+            return l2(l1(f0, f1), l1(f1, f2))
+
+        opt = tpt.optimizer.Adam(learning_rate=1e-2, parameters=list(
+            sage1.parameters()) + list(sage2.parameters()))
+        rng = np.random.RandomState(SEED + 2)
+        parts = {'sample': [], 'gather': [], 'to_card': [], 'step': []}
+        losses, err = [], None
+        _sync(dev)
+        t_all = time.perf_counter()
+        for step in range(GNN_STEPS):
+            seeds = rng.choice(GNN_NODES, GNN_BATCH, replace=False)
+            t0 = time.perf_counter()
+            hop1 = neighbor_sample(client, 'default', seeds, GNN_FANOUTS[0])
+            hop2 = neighbor_sample(client, 'default', hop1.reshape(-1),
+                                   GNN_FANOUTS[1]).reshape(
+                                       hop1.shape + (GNN_FANOUTS[1],))
+            t1 = time.perf_counter()
+            host = [gather_features(client, 'default', a, GNN_FEAT)
+                    for a in (seeds, hop1, hop2)]
+            t2 = time.perf_counter()
+            x = [torch.from_numpy(a).to(dev) for a in host]
+            y = torch.from_numpy(labels[seeds]).to(dev)
+            _sync(dev)
+            t3 = time.perf_counter()
+            if step == 0:
+                # the first batch's forward on the card against the CPU
+                with torch.no_grad():
+                    got = forward(sage1, sage2, *x).cpu()
+                    want = forward(copy.deepcopy(sage1).cpu(),
+                                   copy.deepcopy(sage2).cpu(),
+                                   *[torch.from_numpy(a) for a in host])
+                err = float((got - want).abs().max())
+                _check(err <= 1e-5, 'GraphSAGE card vs CPU: %.3g > 1e-5'
+                       % err)
+                t3 = time.perf_counter()
+            logits = forward(sage1, sage2, *x)
+            _check(logits.device.type == dev.type, 'GraphSAGE off the card')
+            loss = cross_entropy(logits, y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+            t4 = time.perf_counter()
+            for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[k].append(v)
+        wall = time.perf_counter() - t_all
+        _check(all(np.isfinite(losses)), 'a GraphSAGE loss is not finite')
+        _check(losses[-1] < losses[0], 'the GraphSAGE loss did not fall: '
+               '%.4f -> %.4f' % (losses[0], losses[-1]))
+        self_f, hops = sample_and_gather(client, 'default', seeds[:4],
+                                         GNN_FANOUTS, GNN_FEAT)
+        _check(self_f.shape == (4, GNN_FEAT) and hops[1].shape == (
+            4, GNN_FANOUTS[0], GNN_FANOUTS[1], GNN_FEAT),
+            'sample_and_gather shapes')
+    finally:
+        svc.stop()
+    seeds_s = GNN_STEPS * GNN_BATCH / wall
+    p50 = {k: _p50(v) * 1e3 for k, v in parts.items()}
+    rows = GNN_BATCH * (1 + GNN_FANOUTS[0] * (1 + GNN_FANOUTS[1]))
+    print('phase 21 (c) GraphSAGE through the graph engine [%s]: %d nodes, '
+          '%d edges both ways, %d-dim features in 2 native shards, loaded '
+          'in %.1f s; %d steps of %d seeds (fan-outs %s, %d feature rows, '
+          '%.1f MB a batch): %.0f seeds/s; p50 a step: sample %.1f ms, '
+          'gather %.1f ms, to the card %.1f ms, device step %.1f ms; loss '
+          '%.4f -> %.4f; first batch card vs CPU max err %.3g (f32, TF32 '
+          'off)'
+          % (card, GNN_NODES, 2 * GNN_EDGES, GNN_FEAT, load_s, GNN_STEPS,
+             GNN_BATCH, '/'.join(map(str, GNN_FANOUTS)), rows,
+             rows * GNN_FEAT * 4 / 1e6, seeds_s, p50['sample'],
+             p50['gather'], p50['to_card'], p50['step'], losses[0],
+             losses[-1], err), flush=True)
+    return {'seeds_s': seeds_s, 'p50_ms': p50, 'load_s': load_s,
+            'loss': (losses[0], losses[-1]), 'err': err}
+
+
+def recovery_phase(card):
+    """(d) bench_extra.py's supervisor rung on the port: a journaled PS
+    shard snapshotted, killed and recovered by ShardSupervisor.poll();
+    then the same for one graph shard."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.distributed.graph_service import (GraphPyClient,
+                                                            GraphPyServer)
+    from paddle_tpu_torch.distributed.ps import (EmbeddingClient,
+                                                 EmbeddingServer)
+    from paddle_tpu_torch.distributed.supervisor import (PushJournal,
+                                                         ShardSpec,
+                                                         ShardSupervisor)
+    from paddle_tpu_torch.testing import chaos
+    snap_dir = tempfile.mkdtemp(prefix='shards_')
+    dim, n_ids, pushes = 16, 256, 8
+    holder = {}
+
+    def make_ps(port=0):
+        s = EmbeddingServer(port=port)
+        s.create_table(0, dim=dim, optimizer='sgd', lr=0.1)
+        s.start()
+        holder['ps'] = s
+
+    make_ps()
+    port = holder['ps'].port
+    journal = PushJournal('trainer-0')
+    cli = EmbeddingClient(endpoints=['127.0.0.1:%d' % port],
+                          journal=journal)
+    rng = np.random.RandomState(SEED)
+    ids = list(range(n_ids))
+    cli.pull(0, ids)
+    for _ in range(pushes):
+        cli.push(0, ids, rng.randn(n_ids, dim).astype(np.float32))
+    sup = ShardSupervisor(miss_threshold=1, restart_budget=3,
+                          ping_timeout=0.5)
+    sup.add_shard(ShardSpec('emb0', '127.0.0.1:%d' % port, role='ps',
+                            restart=lambda: make_ps(port),
+                            snapshot_dir=snap_dir, clients=(cli,)))
+    sup.snapshot_all()
+    for _ in range(2):
+        cli.push(0, ids, rng.randn(n_ids, dim).astype(np.float32))
+    want = cli.pull(0, ids)
+    chaos.kill_server(holder['ps'])
+    t0 = time.perf_counter()
+    alive = sup.poll()
+    ps_mttr = time.perf_counter() - t0
+    got = cli.pull(0, ids)
+    holder['ps'].stop()
+    _check(alive == {'emb0': True}, 'the PS shard did not recover')
+    _check(np.array_equal(want, got), 'the recovered PS rows differ')
+    ps_journal = (journal.replayed, journal.dedup_hits)
+
+    # one graph shard: the GNN graph's first 200,000 edges, the last
+    # 20,000 of them sent after the snapshot
+    src, dst, _, _ = _gnn_graph(SEED + 1)
+    src, dst = src[:200000], dst[:200000]
+
+    def make_graph(port=0):
+        s = GraphPyServer(rank=0, port=port)
+        s.start_server()
+        holder['graph'] = s
+
+    make_graph()
+    gport = holder['graph'].port
+    gjournal = PushJournal('loader-0')
+    gcli = GraphPyClient(['127.0.0.1:%d' % gport], journal=gjournal)
+    gcli.add_edges('default', src[:180000], dst[:180000])
+    gsup = ShardSupervisor(miss_threshold=1, restart_budget=3,
+                           ping_timeout=0.5)
+    gsup.add_shard(ShardSpec('graph0', '127.0.0.1:%d' % gport,
+                             role='graph', restart=lambda: make_graph(gport),
+                             snapshot_dir=snap_dir, clients=(gcli,)))
+    gsup.snapshot_all()
+    gcli.add_edges('default', src[180000:], dst[180000:])
+    nodes = np.unique(src[:4096])
+    degrees = gcli.get_degree('default', nodes)
+
+    def seeded_samples():
+        # drawn on this thread from the shard's store after seeding this
+        # thread's generator: the handler threads draw unseeded
+        store = holder['graph']._srv.stores['default']
+        store._lib.gs_seed(SEED)
+        return store.sample_neighbors(nodes, 10)
+
+    before = seeded_samples()
+    chaos.kill_server(holder['graph'])
+    t0 = time.perf_counter()
+    galive = gsup.poll()
+    graph_mttr = time.perf_counter() - t0
+    try:
+        _check(galive == {'graph0': True}, 'the graph shard did not '
+               'recover')
+        _check(np.array_equal(gcli.get_degree('default', nodes), degrees),
+               'the recovered graph degrees differ')
+        _check(np.array_equal(seeded_samples(), before),
+               'the recovered graph samples differ')
+    finally:
+        gcli.close()
+        holder['graph'].stop_server()
+    graph_journal = (gjournal.replayed, gjournal.dedup_hits)
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    print('phase 21 (d) shard recovery [%s]: PS shard (%d rows x %d, %d + '
+          '2 journaled pushes) killed and recovered by poll() in %.4f s '
+          '(MTTR), rows bitwise equal, journal replayed %d, dedup hits %d; '
+          'graph shard (%d edges, the last %d after the snapshot) in %.4f s, '
+          'degrees and seeded samples of %d nodes equal, journal replayed '
+          '%d, dedup hits %d'
+          % (card, n_ids, dim, pushes, ps_mttr, ps_journal[0],
+             ps_journal[1], len(src), 20000, graph_mttr, len(nodes),
+             graph_journal[0], graph_journal[1]), flush=True)
+    return {'ps_mttr_s': ps_mttr, 'ps_journal': ps_journal,
+            'graph_mttr_s': graph_mttr, 'graph_journal': graph_journal}
+
+
+def slice12_phases(card, dev=None):
+    """Phase 21: the parameter server and the graph engine on the card."""
+    import shutil
+    dev = torch.device('cuda' if dev is None else dev)
+    t0 = time.time()
+    ps = ps_ctr_phase(card, dev)
+    try:
+        out = {'ctr': ps, 'heter': heter_phase(card, dev, ps)}
+    finally:
+        for srv in ps['servers']:
+            srv.stop()
+        shutil.rmtree(ps['root'], ignore_errors=True)
+    out['gnn'] = gnn_phase(card, dev)
+    out['recovery'] = recovery_phase(card)
+    out['seconds'] = time.time() - t0
+    print('phase 21 (slice 12) [%s]: %.1f s' % (card, out['seconds']),
+          flush=True)
+    return out
+
+
 # (b, h, n, m, d, dtype, causal): the d = 192 / 256 instantiations (CUDA
 # cores, operands staged as their own type) of every entry, at one short
 # causal shape and one ragged non-causal cross-length shape. No path of this
@@ -4140,6 +4850,7 @@ def main():
     slice9 = timed(slice9_phases, card, train)
     slice10 = timed(slice10_phases, sku, train)
     slice11 = timed(slice11_phases)
+    timed(slice12_phases, card)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows

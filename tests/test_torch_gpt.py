@@ -164,11 +164,13 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     assert res.returncode == 0, res.stderr
     # the walk reached the serving and monitor modules of slice 4, the
     # registry and fabric modules of slice 6, the training shell of slice 9,
-    # the compiled mode and inference engine of slice 10 and the static
-    # graph of slice 11
+    # the compiled mode and inference engine of slice 10, the static
+    # graph of slice 11 and the parameter server and graph engine of
+    # slice 12
     imported = set(res.stdout.split())
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
-            SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES:
+            SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
+            SLICE12_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -198,6 +200,14 @@ SLICE10_MODULES = ('autograd', 'jit', 'jit.error', 'static',
                    'framework.op_version')
 SLICE11_MODULES = ('static', 'static.nn', 'framework.recorder',
                    'inference.fluid_program')
+SLICE12_MODULES = ('native', 'native.datafeed', 'native.embedding_table',
+                   'native.graph_store', 'distributed.ps',
+                   'distributed.ps.embedding_service', 'distributed.ps.tables',
+                   'distributed.ps.communicator', 'distributed.ps.dataset',
+                   'distributed.ps.trainer', 'distributed.ps.heter',
+                   'distributed.ps.runtime', 'distributed.graph_service',
+                   'distributed.graph_learning', 'distributed.index_dataset',
+                   'distributed.fleet', 'distributed.fleet.data_generator')
 
 
 def _port_files():
@@ -226,11 +236,53 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
     assert len(_port_files()) > 10
     scanned = {os.path.relpath(f, REPO) for f in _port_files()}
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
-            SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES:
+            SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
+            SLICE12_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod
     assert not offenders, offenders
+
+
+def test_native_loader_builds_in_the_port_only():
+    """The port's g++ loader compiles its own copies of the three sources
+    into paddle_tpu_torch/_build/native/ and opens, runs and loads nothing
+    under paddle_tpu/ (an audit hook records every open, subprocess and
+    dlopen of a fresh interpreter)."""
+    code = (
+        'import os, sys\n'
+        'seen = []\n'
+        'def hook(event, args):\n'
+        '    if event in ("open", "subprocess.Popen", "ctypes.dlopen"):\n'
+        '        seen.append(repr(args))\n'
+        'sys.addaudithook(hook)\n'
+        'from paddle_tpu_torch import native\n'
+        'for name in ("datafeed", "embedding_table", "graph_store"):\n'
+        '    lib = native.load_library(name)\n'
+        '    print("LIB", lib._name)\n'
+        'with open("/proc/self/maps") as f:\n'
+        '    print("MAPS", " ".join(l.split()[-1] for l in f '
+        'if ".so" in l))\n'
+        'print("SEEN", " ".join(seen))\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    build = os.path.join(REPO, 'paddle_tpu_torch', '_build', 'native') + \
+        os.sep
+    libs = [l.split(' ', 1)[1] for l in res.stdout.splitlines()
+            if l.startswith('LIB ')]
+    assert len(libs) == 3 and all(l.startswith(build) for l in libs), libs
+    jax_pkg = os.path.join(REPO, 'paddle_tpu') + os.sep
+    for line in res.stdout.splitlines():
+        assert jax_pkg not in line, line
+    for name in ('datafeed', 'embedding_table', 'graph_store'):
+        # the port's sources are copies of the JAX package's
+        with open(os.path.join(REPO, 'paddle_tpu', 'native',
+                               name + '.cc'), 'rb') as a, \
+                open(os.path.join(REPO, 'paddle_tpu_torch', 'native',
+                                  name + '.cc'), 'rb') as b:
+            assert a.read() == b.read(), name
 
 
 # ---- the JAX package's signatures ---------------------------------------

@@ -212,8 +212,26 @@ def test_sigterm_preemption_checkpoints_and_resumes(tmp_path, reference):
 
 
 def test_shard_supervisor_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match='ShardSupervisor'):
-        TrainingSupervisor(str(tmp_path), shard_supervisor=object())
+    """The shard supervisor is ported now: TrainingSupervisor takes one and
+    makes every periodic checkpoint of a fit a snapshot barrier of its
+    shards (the urgent ones are not). The name is the test's from before
+    the port of the shard supervisor."""
+    class Shards:
+        barriers = 0
+
+        def snapshot_all(self):
+            self.barriers += 1
+
+    shards = Shards()
+    sup = TrainingSupervisor(str(tmp_path), save_every_steps=6,
+                             shard_supervisor=shards)
+    assert sup.shards is shards
+    _fit(_build(), TRows(), supervisor=sup)     # 24 steps
+    assert shards.barriers == 4
+    off = TrainingSupervisor(str(tmp_path / 'off'), save_every_steps=6,
+                             shard_supervisor=shards, snapshot_shards=False)
+    _fit(_build(), TRows(), supervisor=off)
+    assert shards.barriers == 4
 
 
 def test_checkpoint_snapshots_before_the_next_step_mutates(tmp_path):
