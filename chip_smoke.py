@@ -215,8 +215,25 @@ Phases, each printed as it finishes; any failure exits non-zero:
                graph shard the same way (degrees and seeded samples
                equal). Every line carries the card's name and power
                limit. The phase prints its own seconds.
+ 22. slice 13, collective training, at world 1 over NCCL - the collective
+               API on CUDA tensors; (a) phase 6's bench GPT (bf16, batch
+               32 x 512, AdamW lr 1e-4) for 5 steps through
+               fleet.fleet_train_step under dp, sharding stage 3 (FSDP2,
+               amp, per-block recompute), mp (the TP placements as
+               DTensors) and sp in ring and Ulysses mode, each beside the
+               plain TrainStep from the same weights: losses within 2e-2,
+               12 + 12 flash launches a step (24 forward under
+               recompute), the parameters after the steps within 0.05 of
+               the plain step's update (update_rel), step p50 and peak
+               memory; (b)
+               the ring attention's forward and backward block steps over
+               every block of a P-block ring (bf16, b=2 h=12 d=64, seq
+               1024 / P=2, 8192 / 4, 8192 / 2, causal and not): merged o
+               and lse, dq, dk, dv against plain f32 attention at the
+               kernel rows' tolerances, each entry's launches. The phase
+               prints its own seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20 and 21 in main().)
+18, 19, 20, 21 and 22 in main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
@@ -4778,6 +4795,365 @@ def multimodel_phase():
     torch.cuda.empty_cache()
 
 
+# Slice 13: collective training. (a) phase 6's bench GPT through
+# fleet.fleet_train_step under each strategy on the one-rank mesh (NCCL),
+# against the plain TrainStep from the same initial weights; (b) the ring
+# attention's block steps over every block of a P-block ring in one
+# process, against plain full attention.
+FLEET_STEPS = 5
+FLEET_STRATEGIES = ('dp', 'sharding3', 'mp', 'sp_ring', 'sp_ulysses')
+# (seq, P, causal): blocks of 512 (fused backward), 2048 (two-pass), 4096
+# (the long entries)
+RING_CASES = [(n, p, causal) for n, p in ((1024, 2), (8192, 4), (8192, 2))
+              for causal in (True, False)]
+RING_B, RING_H, RING_D = 2, 12, 64
+# the merged loss against the plain step's: the bf16 tolerance of the
+# kernel rows (TOLERANCE) as a share of the loss
+FLEET_LOSS_RTOL = 2e-2
+# the parameters after FLEET_STEPS steps against the plain step's, as a
+# share of the plain step's update: AdamW moves each parameter by ~lr
+# whatever its grad's size, so a grad near 0 that flips sign under
+# another order of sums moves it 2 lr; 0.05 of the update allows a few
+FLEET_UPDATE_RTOL = 5e-2
+
+
+def _fleet_strategy(name, world=1):
+    """fleet's strategy `name` over `world` ranks: its axis takes them all
+    ('dp', 'sharding1' / 'sharding3', 'mp', 'sp_<mode>'); a 'dp_' before
+    the name puts dp 2 beside it, the axis taking the rest. Phase 22's
+    'sharding3' adds amp and recompute."""
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    deg = {'dp_degree': 1, 'mp_degree': 1, 'pp_degree': 1,
+           'sharding_degree': 1, 'sp_degree': 1}
+    base = name
+    if name.startswith('dp_'):
+        deg['dp_degree'], world, base = 2, world // 2, name[3:]
+    axis = ('dp' if base == 'dp' else 'mp' if base == 'mp' else
+            'sharding' if base.startswith('sharding') else 'sp')
+    deg[axis + '_degree'] = world
+    s.hybrid_configs = deg
+    if axis == 'sharding':
+        s.sharding = True
+        s.sharding_configs['stage'] = int(base[-1])
+        if name == 'sharding3':
+            s.amp = True
+            s.recompute = True
+    elif axis == 'mp':
+        s.tensor_parallel = True
+    elif axis == 'sp':
+        s.sequence_parallel = True
+        s.sequence_parallel_configs['mode'] = base[3:]
+    return s
+
+
+def _fresh_bench_model(base):
+    """A copy of `base` (phase 6's initial bf16 weights) with its
+    parameters' placement hints (a deep copy drops Parameter attributes)."""
+    import copy
+    model = copy.deepcopy(base)
+    hints = {n: p.placement for n, p in base.named_parameters()
+             if hasattr(p, 'placement')}
+    for n, p in model.named_parameters():
+        if n in hints:
+            p.placement = hints[n]
+    return model
+
+
+def _whole(p):
+    from torch.distributed.tensor import DTensor
+    return (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+
+
+def _fleet_run(name, base, ids, labels, hcg=None, ref=None, world=1):
+    """FLEET_STEPS steps of `name` ('plain': the bare TrainStep) over
+    `world` ranks from a copy of `base`: losses, per-step launches, p50
+    step ms, peak GiB; the final parameters, or (with the plain run's
+    final parameters `ref`) their _update_rel against them. Without
+    `hcg`, fleet.init makes the strategy's."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from torch.distributed.tensor import DTensor
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = _fresh_bench_model(base)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    if name == 'plain':
+        step = TrainStep(model, model.loss, opt)
+    else:
+        strategy = _fleet_strategy(name, world)
+        if hcg is None:
+            fleet.init(is_collective=True, strategy=strategy)
+            hcg = fleet.get_hybrid_communicate_group()
+        step = fleet.fleet_train_step(model, model.loss, opt,
+                                      strategy=strategy, hcg=hcg)
+    placed = {n: p.placements for n, p in model.named_parameters()
+              if isinstance(p, DTensor)}
+    losses, step_ms, launches = [], [], []
+    for _ in range(FLEET_STEPS):
+        _reset_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(_launches(fa))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {'losses': losses, 'launches': launches, 'placed': placed,
+           'p50_ms': sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+           'first_ms': step_ms[0], 'peak_gib': peak}
+    final = {n: _whole(p) for n, p in model.named_parameters()}
+    if ref is None:
+        out['final'] = final
+    else:
+        out.update(_update_rel(final, ref, base))
+    del step, model, opt, final
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_rel(final, ref, base):
+    """update_rel of parameters `final` against `ref`, both grown from
+    `base`'s: |final - ref| / |ref - base| over all parameters, and the
+    three parameters with the largest share of their own update."""
+    init = dict(base.named_parameters())
+    num = {n: (final[n].float() - ref[n].float()).square().sum()
+           for n in ref}
+    den = {n: (ref[n].float() - init[n].float()).square().sum()
+           for n in ref}
+    worst = sorted(((n, (num[n] / den[n].clamp_min(1e-30)).sqrt().item())
+                    for n in ref), key=lambda x: -x[1])[:3]
+    return {'update_rel': (sum(num.values()) / sum(den.values())).sqrt()
+            .item(), 'worst_params': worst}
+
+
+def _fleet_check(name, run, plain, update_rtol=FLEET_UPDATE_RTOL):
+    """Hold a strategy's run against the plain step's: the losses within
+    FLEET_LOSS_RTOL, the parameters within update_rtol (update_rel)."""
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(run['losses'], plain['losses']))
+    run['loss_rel'] = worst
+    _check(worst <= FLEET_LOSS_RTOL and
+           all(math.isfinite(x) for x in run['losses']),
+           '%s losses %s vs the plain step %s (rtol %g)'
+           % (name, run['losses'], plain['losses'], FLEET_LOSS_RTOL))
+    _check(run['update_rel'] <= update_rtol,
+           '%s parameters after %d steps off the plain step\'s: '
+           'update_rel %.4g (tol %g; the largest shares %s)'
+           % (name, FLEET_STEPS, run['update_rel'], update_rtol,
+              run['worst_params']))
+
+
+def _collectives_check():
+    """The collective API over NCCL at world 1 on CUDA tensors."""
+    import paddle_tpu_torch.distributed as dist
+    x = torch.arange(4.0, device='cuda')
+    dist.all_reduce(x)
+    got = []
+    dist.all_gather(got, x)
+    dist.broadcast(x, src=0)
+    parts = dist.alltoall([x.clone()])
+    y = dist.collective.p2p_shift(x, dist.get_group(0))
+    dist.barrier()
+    ok = (x.tolist() == [0.0, 1.0, 2.0, 3.0] and len(got) == 1 and
+          torch.equal(parts[0], x) and torch.equal(y, x))
+    _check(ok, 'collectives over NCCL at world 1')
+    return torch.distributed.get_backend()
+
+
+def fleet_phase(card):
+    """Phase 22 (a): the bench GPT under fleet on the one-rank mesh."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**BENCH_CFG)
+    base = GPTForCausalLM(cfg, device='cuda', seed=SEED).to(torch.bfloat16)
+    n_params = len(list(base.parameters()))
+    gen = torch.Generator().manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=gen).cuda()
+    labels = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen).cuda()
+    fleet.init(is_collective=True, strategy=_fleet_strategy('dp'))
+    hcg = fleet.get_hybrid_communicate_group()
+    backend = _collectives_check()
+    runs = {'plain': _fleet_run('plain', base, ids, labels, hcg)}
+    layers = cfg.num_layers
+    ref = runs['plain'].pop('final')
+    for name in FLEET_STRATEGIES:
+        run = runs[name] = _fleet_run(name, base, ids, labels, hcg, ref)
+        # per-block recompute runs each block's forward twice
+        fwd = 2 * layers if name == 'sharding3' else layers
+        want = _want(1, flash_fwd=fwd, flash_bwd_fused=layers)
+        _check(all(x == want for x in run['launches']),
+               '%s launches %s a step, want %s' % (name, run['launches'],
+                                                   want))
+        _fleet_check(name, run, runs['plain'])
+    mp_placed = runs['mp']['placed']
+    _check(len(mp_placed) == 6 * layers + 1 and
+           all('Shard' in str(pl) for pl in mp_placed.values()),
+           'mp: %d DTensor parameters (want the %d hinted ones sharded)'
+           % (len(mp_placed), 6 * layers + 1))
+    _check(len(runs['sharding3']['placed']) == n_params,
+           'sharding3: %d of %d parameters laid out by FSDP2'
+           % (len(runs['sharding3']['placed']), n_params))
+    del base
+    torch.cuda.empty_cache()
+    for name in ('plain',) + FLEET_STRATEGIES:
+        run = runs[name]
+        print('fleet %s [%s]: losses %s (worst rel vs plain %.3g, tol %g), '
+              'parameters after %d steps vs the plain step\'s: update_rel '
+              '%.4g (tol %g), launches a step %s, step p50 %.2f ms (first '
+              '%.1f ms), peak %.2f GiB, DTensor params %d'
+              % (name, card, ['%.4f' % x for x in run['losses']],
+                 run.get('loss_rel', 0.0), FLEET_LOSS_RTOL, FLEET_STEPS,
+                 run.get('update_rel', 0.0), FLEET_UPDATE_RTOL,
+                 {k: v for k, v in run['launches'][-1].items() if v},
+                 run['p50_ms'], run['first_ms'], run['peak_gib'],
+                 len(run['placed'])), flush=True)
+    return {'runs': runs, 'backend': backend, 'layers': layers}
+
+
+def _attention_ref(q, k, v, do, causal, scale):
+    """Plain full attention in f32 (heads in groups of 4 to bound memory):
+    (o, lse, dq, dk, dv) from q, k, v, do [b, h, n, d]."""
+    outs = [[] for _ in range(5)]
+    for h0 in range(0, q.shape[1], 4):
+        qs, ks, vs = (t[:, h0:h0 + 4].float().requires_grad_()
+                      for t in (q, k, v))
+        s = torch.matmul(qs, ks.transpose(-1, -2)) * scale
+        if causal:
+            n = s.shape[-1]
+            keep = torch.ones(n, n, dtype=torch.bool,
+                              device=s.device).tril()
+            s = s.masked_fill(~keep, -1e30)
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        o = torch.matmul(torch.exp(s - lse), vs)
+        o.backward(do[:, h0:h0 + 4].float())
+        for acc, t in zip(outs, (o.detach(), lse.detach(), qs.grad, ks.grad,
+                                 vs.grad)):
+            acc.append(t)
+        del s, o, lse
+    return [torch.cat(t, dim=1) for t in outs]
+
+
+def ring_block_phase():
+    """Phase 22 (b): the ring's forward and backward block steps over every
+    block of a P-block ring (the blocks the distributed ring rotates are
+    indexed here), merged o and lse, dq, dk, dv against plain attention."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ring_attention as ra
+
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 22)
+    rows, total = [], collections.Counter()
+    for n, parts, causal in RING_CASES:
+        c = n // parts
+        scale = 1.0 / math.sqrt(RING_D)
+        q, k, v, do = (torch.randn(RING_B, RING_H, n, RING_D, device='cuda',
+                                   generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+
+        def blk(t, i):
+            return t[:, :, i * c:(i + 1) * c]
+
+        def seen(r):
+            # the other blocks rank r's queries see
+            return [s for s in range(parts) if s != r and
+                    (not causal or s < r)]
+        _reset_counts(fa)
+        o_parts, lse_parts = [], []
+        for r in range(parts):
+            o, lse = ra.ring_flash_fwd_block(blk(q, r), blk(k, r), blk(v, r),
+                                             None, None, causal, scale)
+            for s in seen(r):
+                o, lse = ra.ring_flash_fwd_block(blk(q, r), blk(k, s),
+                                                 blk(v, s), o, lse, False,
+                                                 scale)
+            o_parts.append(o.to(torch.bfloat16))
+            lse_parts.append(lse)
+        dq_parts, dk_acc, dv_acc = [], [None] * parts, [None] * parts
+        for r in range(parts):
+            o_r, lse_r, do_r = o_parts[r], lse_parts[r], blk(do, r)
+            dq, dk_acc[r], dv_acc[r] = ra.ring_flash_bwd_block(
+                blk(q, r), blk(k, r), blk(v, r), o_r, lse_r, do_r, causal,
+                scale, None, dk_acc[r], dv_acc[r])
+            for s in seen(r):
+                dq, dk_acc[s], dv_acc[s] = ra.ring_flash_bwd_block(
+                    blk(q, r), blk(k, s), blk(v, s), o_r, lse_r, do_r, False,
+                    scale, dq, dk_acc[s], dv_acc[s])
+            dq_parts.append(dq)
+        torch.cuda.synchronize()
+        launches = {k_: v_ for k_, v_ in _launches(fa).items() if v_}
+        total.update(launches)
+        o_ref, lse_ref, dq_ref, dk_ref, dv_ref = _attention_ref(
+            q, k, v, do, causal, scale)
+        got_o = torch.cat(o_parts, dim=2).float()
+        got_lse = torch.cat(lse_parts, dim=2)
+        # the accumulators are [b, rows, h, d]
+        grads = [torch.cat(g, dim=1).transpose(1, 2)
+                 for g in (dq_parts, dk_acc, dv_acc)]
+        # o, dq, dk, dv as shares of the largest element of their
+        # reference (at n = 8192 a typical |o| is near 0.02, the bf16
+        # kernels' absolute o tolerance)
+        err_o, *errs = [((g - ref).abs().max() / ref.abs().max()).item()
+                        for g, ref in zip([got_o] + grads,
+                                          (o_ref, dq_ref, dk_ref, dv_ref))]
+        err_lse = (got_lse - lse_ref).abs().max().item()
+        tol_lse = TOLERANCE[torch.bfloat16][1]
+        tol_g = BWD_TOLERANCE[torch.bfloat16]
+        _check(err_o <= tol_g and err_lse <= tol_lse and max(errs) <= tol_g,
+               'ring blocks n=%d P=%d causal=%s: o err %.3g, dq/dk/dv %s '
+               '(tol %g of the largest), lse %.3g (tol %g)'
+               % (n, parts, causal, err_o, ['%.3g' % e for e in errs],
+                  tol_g, err_lse, tol_lse))
+        blocks = sum(1 + len(seen(r)) for r in range(parts))
+        fwd = 'flash_fwd_long' if c >= fa.LONG_SEQ else 'flash_fwd'
+        bwd = (('flash_bwd_dq_long', 'flash_bwd_dkv_long')
+               if c >= fa.LONG_SEQ else ('flash_bwd_fused',)
+               if c <= fa.FUSED_BWD_MAX_SEQ
+               else ('flash_bwd_dq', 'flash_bwd_dkv'))
+        want = {fwd: blocks}
+        want.update({name: blocks for name in bwd})
+        _check(launches == want, 'ring blocks n=%d P=%d causal=%s launched '
+               '%s, want %s' % (n, parts, causal, launches, want))
+        row = {'n': n, 'P': parts, 'block': c, 'causal': causal,
+               'blocks': blocks, 'err_o': err_o, 'err_lse': err_lse,
+               'err_dq_dk_dv': errs, 'launches': launches}
+        rows.append(row)
+        print('ring blocks: n=%d P=%d (blocks of %d) causal=%s: %d blocks, '
+              'o err %.3g of the largest, lse err %.3g, dq/dk/dv err %s of '
+              'the largest, '
+              'launches %s' % (n, parts, c, causal, blocks, err_o, err_lse,
+                               ['%.3g' % e for e in errs], launches),
+              flush=True)
+        del q, k, v, do, o_ref, dq_ref, dk_ref, dv_ref, grads
+        torch.cuda.empty_cache()
+    return {'rows': rows, 'launches': dict(total)}
+
+
+def slice13_phases(card):
+    """Phase 22: collective training on the one-rank mesh and the ring's
+    block math."""
+    t0 = time.time()
+    out = {'fleet': fleet_phase(card), 'ring': ring_block_phase()}
+    out['seconds'] = time.time() - t0
+    runs = out['fleet']['runs']
+    print('phase 22 (slice 13) [%s]: %s' % (card, json.dumps({
+        'backend': out['fleet']['backend'],
+        'step_p50_ms': {k: round(r['p50_ms'], 2) for k, r in runs.items()},
+        'peak_gib': {k: round(r['peak_gib'], 2) for k, r in runs.items()},
+        'loss_rel_vs_plain': {k: r.get('loss_rel', 0.0)
+                              for k, r in runs.items()},
+        'update_rel_vs_plain': {k: r.get('update_rel', 0.0)
+                                for k, r in runs.items()},
+        'ring_launches': out['ring']['launches'],
+        'seconds': round(out['seconds'], 1)})), flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -4851,6 +5227,7 @@ def main():
     slice10 = timed(slice10_phases, sku, train)
     slice11 = timed(slice11_phases)
     timed(slice12_phases, card)
+    slice13 = timed(slice13_phases, card)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -4963,6 +5340,18 @@ def main():
     for k in kernels[:2]:
         k['append_backward_launches'] = \
             slice11['backward']['launches'][k['name']]
+    # slice 13: the fleet strategies' launches a step (the forward and the
+    # fused backward) and the ring block check's launches of every entry
+    fleet_runs = slice13['fleet']['runs']
+    for k in kernels[:2]:
+        k['fleet_launches_per_step'] = {
+            name: fleet_runs[name]['launches'][-1][k['name']]
+            for name in FLEET_STRATEGIES}
+    for k in kernels:
+        # the ring check runs in bf16 and counts by entry, not by dtype:
+        # its counts go on the bf16 rows alone (the rows without 'dtype')
+        if 'dtype' not in k:
+            k['ring_launches'] = slice13['ring']['launches'].get(k['name'], 0)
     pairs = {'flash_bwd_dq': pair(bwd('dq', BWD_SECOND_SHAPE),
                                   bwd('dkv', BWD_SECOND_SHAPE)),
              'flash_bwd_dq_long': pair(long_rows['dq', LONG_MAIN_SHAPE],

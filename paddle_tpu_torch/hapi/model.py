@@ -15,8 +15,8 @@ Differences from the JAX package, each on purpose:
   CUDA step and hide a kernel fault. The port falls back to the eager loop
   only on the NotImplementedError that TrainStep raises when it is built
   with an option it refuses, and re-raises everything else. prepare()
-  passes TrainStep no such option yet, so the eager loop waits for the
-  options of the distributed slice.
+  passes TrainStep no such option yet (pp_state is one, ROADMAP Queue 1
+  item 3(c)), so the eager loop waits for prepare() to pass one.
 - fit has no CompileWatchdog: the port compiles no XLA program, so there
   is no steady-state recompile to watch. fit keeps the StepTimeline
   (data_wait / host_dispatch / device_block); the last fit's timeline

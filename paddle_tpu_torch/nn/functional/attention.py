@@ -1,6 +1,8 @@
 """Attention (counterpart of paddle_tpu/nn/functional/attention.py).
 
-Routing as in the JAX package: flash attention (ops/flash_attention.py)
+Routing as in the JAX package: under an active sequence-parallel state
+(distributed/sp.py) ring or Ulysses attention over the sp group; else
+flash attention (ops/flash_attention.py)
 for sequences of 512 or more with head_dim <= 256, no mask and no dropout;
 otherwise the plain quadratic path `_sdpa_ref`, which also applies
 attention-probability dropout in training mode. The flash entry sends a
@@ -18,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...amp.auto_cast import cast as amp_cast
 from ...ops import flash_attention as fa
+from ...ops import ring_attention as ra
 from .common import dropout
 
 
@@ -98,6 +101,19 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     scale = 1.0 / math.sqrt(query.shape[-1])
     if not training:
         dropout_p = 0.0
+    # sequence-parallel routing: when a TrainStep's sp state is active,
+    # attention is the one op that mixes tokens across the sequence
+    # shards; it runs as ring / Ulysses over the sp group
+    sp_state = ra.SP_STATE['active']
+    if sp_state is not None and query.dim() == 4:
+        from ...distributed.sp import sp_attention
+        if attn_mask is not None:
+            raise ValueError('sequence-parallel attention supports causal/'
+                             'full masks only (attn_mask must be None)')
+        query, key, value = amp_cast('sp_attention', query, key, value)
+        return sp_attention(query, key, value, causal=is_causal, scale=scale,
+                            state=sp_state, dropout_p=dropout_p,
+                            generator=generator)
     use_flash = (query.dim() == 4 and query.shape[1] >= 512
                  and query.shape[-1] <= 256)
     if use_flash and attn_mask is None and dropout_p == 0.0:

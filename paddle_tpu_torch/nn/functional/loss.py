@@ -105,7 +105,14 @@ def linear_cross_entropy(input, weight, label, bias=None, ignore_index=-100,
     input, weight, bias = amp_cast('linear_cross_entropy', input, weight,
                                     bias)
     d = input.shape[-1]
-    w = weight.t() if transpose_weight else weight
     chunk = _fce.DEFAULT_CHUNK_ROWS if chunk_rows is None else chunk_rows
+    from ...distributed.meta_parallel import mp_layers
+    group = mp_layers.mp_group_of(weight)
+    if group is not None:
+        # a head sharded over 'mp' (tensor parallelism)
+        return mp_layers.parallel_linear_cross_entropy(
+            input.reshape(-1, d), weight, label.reshape(-1), bias,
+            ignore_index, transpose_weight, chunk)
+    w = weight.t() if transpose_weight else weight
     return _fce.linear_cross_entropy_arrays(
         input.reshape(-1, d), w, label.reshape(-1), bias, ignore_index, chunk)

@@ -11,15 +11,24 @@ autograd), and its products are cuBLAS matmuls on the card.
 
 Chunks are contiguous row ranges. The JAX package takes strided chunks
 (rows i, i + n, ...) so that every chunk spans all data-parallel shards;
-the port has no data parallelism yet, and contiguous chunks are views,
-with no copy and no padding. Rows are independent, so only the order of
-the f32 sums differs.
+the port's data-parallel ranks each hold their own rows, and contiguous
+chunks are views, with no copy and no padding. Rows are independent, so
+only the order of the f32 sums differs.
+
+Under tensor parallelism the head weight is sharded on the vocabulary
+(`linear_cross_entropy_vocab_parallel`): each rank takes its columns'
+logits chunk by chunk, and the rows' logsumexp and picked logits come
+from a max and two sums over the mp ranks of [rows] vectors (the
+reference's c_softmax_with_cross_entropy); the [rows, vocab] logits are
+never gathered. Its backward sums dx over the ranks and keeps dw local.
 """
 from typing import Optional
 
 import torch
 
-__all__ = ['linear_cross_entropy_arrays', 'DEFAULT_CHUNK_ROWS']
+__all__ = ['linear_cross_entropy_arrays', 'DEFAULT_CHUNK_ROWS',
+           'linear_cross_entropy_vocab_parallel', 'logits_sharding',
+           'active_logits_sharding']
 
 DEFAULT_CHUNK_ROWS = 4096
 _MAX_CHUNKS = 64
@@ -162,3 +171,104 @@ def linear_cross_entropy_arrays(x, w, labels, bias=None, ignore_index=-100,
     chunk, _ = _chunk_plan(x.shape[0], chunk)
     return linear_ce_fwd_op(x, w, labels.long(), bias, int(ignore_index),
                             chunk)[0]
+
+
+def _mp_sum(t, group, op=None):
+    import torch.distributed as dist
+    if group.size > 1:
+        dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group.pg)
+    return t
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The mean CE of x @ w_local (+ bias_local) with w_local this rank's
+    vocabulary columns [vocab_start, vocab_start + cols) of the head."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, bias, ignore_index, chunk, start, group):
+        import torch.distributed as dist
+        rows, cols = x.shape[0], w.shape[1]
+        valid = labels != ignore_index
+        inside = (labels >= start) & (labels < start + cols)
+        local = torch.where(inside, labels - start, 0)
+        lse_parts, picked_parts = [], []
+        for c0 in range(0, rows, chunk):
+            af = _tile_logits(x[c0:c0 + chunk], w, bias)
+            lse_parts.append(torch.logsumexp(af, dim=-1))
+            picked_parts.append(af.gather(1, local[c0:c0 + chunk, None])[:, 0])
+        local_lse = torch.cat(lse_parts)
+        top = _mp_sum(local_lse.clone(), group, dist.ReduceOp.MAX)
+        total = _mp_sum(torch.exp(local_lse - top), group)
+        lse = top + torch.log(total)
+        picked = _mp_sum(torch.where(inside, torch.cat(picked_parts), 0.0),
+                         group)
+        per_row = torch.where(valid, lse - picked, 0.0)
+        denom = valid.sum().float().clamp_min(1.0)
+        ctx.save_for_backward(x, w, local, inside, valid, bias, lse, denom)
+        ctx.chunk, ctx.group = chunk, group
+        return (per_row.sum() / denom).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, local, inside, valid, bias, lse, denom = ctx.saved_tensors
+        chunk, group = ctx.chunk, ctx.group
+        scale = g.float() / denom * valid.float()
+        dx = torch.empty_like(x)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        db = (torch.zeros(bias.shape, dtype=torch.float32, device=w.device)
+              if bias is not None else None)
+        for c0 in range(0, x.shape[0], chunk):
+            sl = slice(c0, c0 + chunk)
+            xc = x[sl]
+            p = torch.exp(_tile_logits(xc, w, bias) - lse[sl, None])
+            p.scatter_add_(1, local[sl, None],
+                           -inside[sl, None].to(p.dtype))
+            p.mul_(scale[sl, None])
+            pc = p.to(w.dtype)
+            dx[sl] = torch.matmul(pc, w.t())
+            dw += _mm_f32(xc.t(), pc)
+            if db is not None:
+                db += p.sum(dim=0)
+        dx = _mp_sum(dx, group)
+        return (dx, dw.to(w.dtype), None,
+                None if db is None else db.to(bias.dtype), None, None, None,
+                None)
+
+
+def linear_cross_entropy_vocab_parallel(x, w_local, labels, vocab_start,
+                                        group, bias=None, ignore_index=-100,
+                                        chunk=DEFAULT_CHUNK_ROWS):
+    """linear_cross_entropy_arrays with the head's vocabulary split over
+    the ranks of `group` (an MPGroup): w_local [d, cols] holds this rank's
+    columns from vocab_start, bias its entries. Every rank returns the
+    whole mean CE."""
+    chunk, _ = _chunk_plan(x.shape[0], chunk)
+    return _VocabParallelCE.apply(x, w_local, labels.long(), bias,
+                                  int(ignore_index), chunk, int(vocab_start),
+                                  group)
+
+
+_LOGITS = {'sharding': None}
+
+
+class logits_sharding:
+    """Context in which a vocabulary-sharded head takes the vocab-parallel
+    loss (TrainStep's fce_sharding, as the JAX package's context
+    constrains its logits tiles); outside it such a head is gathered and
+    the plain loss runs."""
+
+    def __init__(self, sharding):
+        self._sharding = sharding
+
+    def __enter__(self):
+        self._saved = _LOGITS['sharding']
+        _LOGITS['sharding'] = self._sharding
+        return self
+
+    def __exit__(self, *exc):
+        _LOGITS['sharding'] = self._saved
+        return False
+
+
+def active_logits_sharding():
+    return _LOGITS['sharding']

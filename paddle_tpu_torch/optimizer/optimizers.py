@@ -97,6 +97,9 @@ class Optimizer:
         self._weight_decay = weight_decay
         self._grad_clip = grad_clip
         self._slots = {}  # id(param) -> {slot name: tensor}
+        # id(param) -> the view of a parameter that a sharded TrainStep
+        # updates through its local shard (framework/functional.py)
+        self._slot_views = {}
         self._step_count = 0
         self._multi_precision = False
 
@@ -238,29 +241,37 @@ class Optimizer:
 
     def state_dict(self):
         """{'step': n, '<name>_<slot>': tensor, 'LR_Scheduler': {...}} (slots:
-        moment1, moment2, velocity, ..., master), the JAX package's keys."""
+        moment1, moment2, velocity, ..., master), the JAX package's keys.
+        A parameter that a sharded TrainStep updates through its local
+        shard has its slots gathered to the parameter's global shape (a
+        collective: every rank of the step calls state_dict)."""
         state = {'step': self._step_count}
         for p in self._parameter_list or []:
-            for slot, value in self._get_slots(p).items():
-                state['%s_%s' % (self._names[id(p)], slot)] = value
+            view = self._slot_views.get(id(p))
+            for slot, value in self._get_slots(
+                    p if view is None else view.local).items():
+                state['%s_%s' % (self._names[id(p)], slot)] = \
+                    value if view is None else view.gather(value)
         if isinstance(self._lr, LRScheduler):
             state['LR_Scheduler'] = self._lr.state_dict()
         return state
 
     def set_state_dict(self, state_dict):
         """Load what state_dict() gave (its tensors copied onto each
-        parameter's device)."""
+        parameter's device; a sharded step's parameter keeps its shard)."""
         self._step_count = int(state_dict.get('step', 0))
         if isinstance(self._lr, LRScheduler) and \
                 'LR_Scheduler' in state_dict:
             self._lr.set_state_dict(state_dict['LR_Scheduler'])
         for p in self._parameter_list or []:
-            slots = self._get_slots(p)
+            view = self._slot_views.get(id(p))
+            slots = self._get_slots(p if view is None else view.local)
             for slot in list(slots):
                 key = '%s_%s' % (self._names[id(p)], slot)
                 if key in state_dict:
-                    slots[slot] = torch.as_tensor(state_dict[key]).to(
-                        p.device).clone()
+                    value = torch.as_tensor(state_dict[key]).to(p.device)
+                    slots[slot] = value.clone() if view is None else \
+                        view.scatter(value)
 
     set_dict = set_state_dict
 

@@ -8,8 +8,13 @@ the training contract (`loss()`, the fused-loss forward,
 Causal attention goes through nn.functional.scaled_dot_product_attention,
 which sends a sequence of 512 tokens or more to the flash kernels.
 Parameter names match the JAX package's state_dict, so
-`load_paddle_tpu_state` carries its weights across as they are. MoE
-blocks and pipeline stages are not ported yet.
+`load_paddle_tpu_state` carries its weights across as they are. The
+parameters carry the JAX package's tensor-parallel placement hints; once
+distributed/strategy.py has laid them out as DTensors over 'mp', the
+attention, the MLP, the embedding and the head run on their shards
+(distributed/meta_parallel/mp_layers.py). Under an active sequence-
+parallel state the positions are the rank's shard's (distributed/sp.py).
+MoE blocks and pipeline stages are not ported yet.
 """
 import numpy as np
 import torch
@@ -20,6 +25,8 @@ from ...framework import random as random_mod
 from ...framework.dtype import to_torch_dtype
 from ... import nn as pnn
 from ...distributed.fleet.utils import recompute as _recompute
+from ...distributed.meta_parallel import mp_layers
+from ...ops import ring_attention
 from ...nn import functional as F
 
 __all__ = ['GPTConfig', 'GPTStaticCache', 'GPTSlotCache', 'GPTPagedCache',
@@ -70,6 +77,12 @@ class GPTConfig:
     def bert_base_equiv():
         return GPTConfig(vocab_size=30522, hidden_size=768, num_layers=12,
                          num_heads=12, max_position_embeddings=512)
+
+    @staticmethod
+    def gpt3_13b():
+        raise NotImplementedError(
+            'GPTConfig.gpt3_13b is not ported yet (ROADMAP Queue 1 item '
+            '3(c): it waits for the pipeline and MoE)')
 
 
 class GPTStaticCache:
@@ -265,16 +278,46 @@ class GPTAttention(nn.Module):
         self.out_proj = pnn.Linear(config.hidden_size, config.hidden_size,
                                    device=device, generator=generator)
         self.dropout = config.dropout
+        # tensor-parallel placement hints (distributed/strategy.py)
+        self.qkv_proj.weight.placement = (None, 'mp')
+        self.qkv_proj.bias.placement = ('mp',)
+        self.out_proj.weight.placement = ('mp', None)
+
+    def _attend(self, q, k, v):
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.dropout if self.training else 0.0,
+            training=self.training)
+
+    def _forward_tp(self, x):
+        """The no-cache forward with the projections sharded over 'mp'
+        (DTensors): this rank's heads' columns of the gathered QKV weight,
+        attention on those heads, the row-parallel output projection."""
+        b, n = x.shape[0], x.shape[1]
+        w, bias, heads = mp_layers.qkv_head_columns(
+            self.qkv_proj.weight, self.qkv_proj.bias, self.num_heads)
+        group = mp_layers.mp_group_of(self.qkv_proj.weight)
+        qkv = torch.matmul(mp_layers.copy_to_mp(x, group), w)
+        if bias is not None:
+            qkv = qkv + bias
+        qkv = qkv.reshape(b, n, 3, heads, self.head_dim)
+        out = self._attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        return mp_layers.row_linear(out.reshape(b, n, heads * self.head_dim),
+                                    self.out_proj.weight, self.out_proj.bias)
 
     def forward(self, x, cache=None):
         b, n = x.shape[0], x.shape[1]
+        if mp_layers.mp_group_of(self.qkv_proj.weight) is not None:
+            if cache is not None:
+                raise NotImplementedError(
+                    'cached decode with tensor-parallel weights is not '
+                    'ported yet (ROADMAP Queue 1 item 3, tensor-parallel '
+                    'decode)')
+            return self._forward_tp(x)
         qkv = self.qkv_proj(x).reshape(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is None:
-            out = F.scaled_dot_product_attention(
-                q, k, v, is_causal=True,
-                dropout_p=self.dropout if self.training else 0.0,
-                training=self.training)
+            out = self._attend(q, k, v)
             return self.out_proj(out.reshape(b, n, self.hidden_size))
         if isinstance(cache, tuple):
             # the growing cache: past (k, v) [B, t, H, Dh] in, the
@@ -401,8 +444,18 @@ class GPTMLP(nn.Module):
         self.fc_out = pnn.Linear(config.intermediate_size, config.hidden_size,
                                  device=device, generator=generator)
         self.dropout = pnn.Dropout(config.dropout)
+        self.fc_in.weight.placement = (None, 'mp')
+        self.fc_in.bias.placement = ('mp',)
+        self.fc_out.weight.placement = ('mp', None)
 
     def forward(self, x):
+        if mp_layers.mp_group_of(self.fc_in.weight) is not None:
+            # column-parallel fc_in, row-parallel fc_out
+            h = F.gelu(mp_layers.column_linear(x, self.fc_in.weight,
+                                               self.fc_in.bias),
+                       approximate=True)
+            return self.dropout(mp_layers.row_linear(
+                h, self.fc_out.weight, self.fc_out.bias))
         return self.dropout(self.fc_out(F.gelu(self.fc_in(x),
                                                approximate=True)))
 
@@ -440,8 +493,8 @@ class GPTModel(nn.Module):
         config = config or GPTConfig(**kwargs)
         if config.num_experts:
             raise NotImplementedError(
-                'MoE blocks (num_experts > 0) are not ported yet; they come '
-                'with the distributed slice')
+                'MoE blocks (num_experts > 0) are not ported yet (ROADMAP '
+                'Queue 1 item 3(c): incubate/moe.py over the ep axis)')
         self.config = config
         self.wte = pnn.Embedding(config.vocab_size, config.hidden_size,
                                  device=device, generator=generator)
@@ -453,7 +506,14 @@ class GPTModel(nn.Module):
                                          generator=generator)
                                 for _ in range(config.num_layers)])
         self.ln_f = _norm(config, device)
+        self.wte.weight.placement = ('mp', None)
         self._recompute = config.recompute
+
+    def _embed(self, input_ids):
+        if mp_layers.mp_group_of(self.wte.weight) is not None:
+            return mp_layers.vocab_parallel_embedding(input_ids,
+                                                      self.wte.weight)
+        return self.wte(input_ids)
 
     def enable_recompute(self, flag=True):
         """Per-block activation recompute in training: each block's
@@ -478,6 +538,11 @@ class GPTModel(nn.Module):
                 position_ids = (_on_device(c0.lengths, dev)[:, None] +
                                 torch.arange(n, device=dev)[None, :]).clamp_(
                     max=self.config.max_position_embeddings - 1)
+            elif caches is None and ring_attention.SP_STATE['active']:
+                # this rank's sequence shard under sequence parallelism
+                from ...distributed.sp import local_positions
+                position_ids = local_positions(
+                    ring_attention.SP_STATE['active'], n, dev)[None, :]
             else:
                 if isinstance(c0, GPTStaticCache):
                     start = c0.length
@@ -489,7 +554,7 @@ class GPTModel(nn.Module):
                                             device=dev)[None, :]
         else:
             position_ids = torch.as_tensor(position_ids, device=dev).long()
-        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        x = self.drop(self._embed(input_ids) + self.wpe(position_ids))
         if caches is not None:
             new_caches = []
             for block, c in zip(self.h, caches):
@@ -525,7 +590,15 @@ class GPTForCausalLM(nn.Module):
 
     def _logits(self, hidden):
         if self.lm_head is None:
-            return F.linear(hidden, self.gpt.wte.weight.t())
+            w = self.gpt.wte.weight
+            group = mp_layers.mp_group_of(w)
+            if group is not None:
+                # this rank's vocabulary columns, gathered
+                local = torch.matmul(mp_layers.copy_to_mp(hidden, group),
+                                     mp_layers.local_of(w).t())
+                return mp_layers.gather_replicated(local, local.dim() - 1,
+                                                   group)
+            return F.linear(hidden, w.t())
         return self.lm_head(hidden)
 
     def forward(self, input_ids, position_ids=None, caches=None):
@@ -563,8 +636,8 @@ class GPTForCausalLM(nn.Module):
 
     def pp_decompose(self, loss_fn=None):
         raise NotImplementedError(
-            'pipeline stages are not ported yet; they come with the '
-            'distributed slice')
+            'pipeline stages are not ported yet (ROADMAP Queue 1 item '
+            '3(c): the pipeline)')
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
@@ -637,7 +710,8 @@ def load_paddle_tpu_state(model, arrays):
     state_dict() gives it (keys like 'gpt.h.0.attn.qkv_proj.weight', and
     'lm_head.weight' for an untied head).
     Raises on a missing key, an extra key or a shape mismatch, before
-    anything is copied."""
+    anything is copied. A parameter laid out over a device mesh (a
+    DTensor) takes this rank's shard of the value."""
     own = model.state_dict()
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
@@ -653,7 +727,15 @@ def load_paddle_tpu_state(model, arrays):
         if arr.dtype.name == 'bfloat16':  # numpy has no torch bridge for it
             arr = arr.astype(np.float32)
         host[key] = torch.tensor(arr)
+    from torch.distributed.tensor import DTensor, distribute_tensor
     with torch.no_grad():
         for key, target in own.items():
-            target.copy_(host[key])
+            if isinstance(target, DTensor):
+                # a parameter laid out over a mesh (tensor or ZeRO-3
+                # parallelism) takes this rank's shard of the value
+                target.to_local().copy_(distribute_tensor(
+                    host[key].to(target.dtype), target.device_mesh,
+                    target.placements).to_local())
+            else:
+                target.copy_(host[key])
     return model

@@ -165,12 +165,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     # the walk reached the serving and monitor modules of slice 4, the
     # registry and fabric modules of slice 6, the training shell of slice 9,
     # the compiled mode and inference engine of slice 10, the static
-    # graph of slice 11 and the parameter server and graph engine of
-    # slice 12
+    # graph of slice 11, the parameter server and graph engine of slice
+    # 12 and the collective training of slice 13
     imported = set(res.stdout.split())
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
-            SLICE12_MODULES:
+            SLICE12_MODULES + SLICE13_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -200,6 +200,16 @@ SLICE10_MODULES = ('autograd', 'jit', 'jit.error', 'static',
                    'framework.op_version')
 SLICE11_MODULES = ('static', 'static.nn', 'framework.recorder',
                    'inference.fluid_program')
+SLICE13_MODULES = ('distributed', 'distributed.env', 'distributed.spawn',
+                   'distributed.collective', 'distributed.topology',
+                   'distributed.parallel', 'distributed.strategy',
+                   'distributed.sp', 'distributed.meta_parallel',
+                   'distributed.meta_parallel.mp_layers',
+                   'distributed.meta_parallel.random_ctrl',
+                   'distributed.meta_parallel.parallel_base',
+                   'distributed.fleet.distributed_strategy',
+                   'distributed.fleet.meta_optimizers',
+                   'ops.ring_attention')
 SLICE12_MODULES = ('native', 'native.datafeed', 'native.embedding_table',
                    'native.graph_store', 'distributed.ps',
                    'distributed.ps.embedding_service', 'distributed.ps.tables',
@@ -211,7 +221,8 @@ SLICE12_MODULES = ('native', 'native.datafeed', 'native.embedding_table',
 
 
 def _port_files():
-    files = [os.path.join(REPO, 'chip_smoke.py')]
+    files = [os.path.join(REPO, n) for n in ('chip_smoke.py',
+                                             'fleet_probe.py')]
     for root, _, names in os.walk(os.path.join(REPO, 'paddle_tpu_torch')):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     return files
@@ -237,7 +248,7 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
     scanned = {os.path.relpath(f, REPO) for f in _port_files()}
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
-            SLICE12_MODULES:
+            SLICE12_MODULES + SLICE13_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod

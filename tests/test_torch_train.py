@@ -348,15 +348,21 @@ def _check_losses(losses, rtol):
         np.testing.assert_allclose(got, want, rtol=rtol)
 
 
-# Three of these options raised NotImplementedError until the training
-# slice ported them (k_steps, amp_dtype, remat); each of those cases now
-# holds the port to the JAX TrainStep with it. The sharded options still
-# raise.
+def _halve_grads(grads):
+    # a grad_sync hook both packages take: {name: grad} -> {name: grad}
+    return {name: g * 0.5 for name, g in grads.items()}
+
+
+# These options raised NotImplementedError until a slice ported them
+# (k_steps, amp_dtype, remat: the training slice; grad_sync: the
+# collective slice); each of those cases now holds the port to the JAX
+# TrainStep with it. The pipeline's pp_state still raises.
 @pytest.mark.parametrize('kwargs', [{'k_steps': 2}, {'amp_dtype': 'bfloat16'},
-                                    {'remat': True}, {'mesh': object()},
-                                    {'grad_sync': lambda g: g}])
+                                    {'remat': True},
+                                    {'pp_state': {'n_stages': 2}},
+                                    {'grad_sync': _halve_grads}])
 def test_train_step_unported_options_raise(kwargs):
-    if 'mesh' in kwargs or 'grad_sync' in kwargs:
+    if 'pp_state' in kwargs:
         _, tm = _pair(16)
         with pytest.raises(NotImplementedError, match='not ported'):
             TrainStep(tm, tm.loss, AdamW(parameters=tm.parameters()),
