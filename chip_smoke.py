@@ -155,25 +155,27 @@ Phases, each printed as it finishes; any failure exits non-zero:
                seconds, 2 warm-up and 10 timed steps beside phase 6's
                eager step, a profiled step's busy share and top kernels,
                the _rows_aligned copies, peak memory; (4) path (b):
-               jit.save of GPT-2 small with InputSpec([8, 768], 'int64'),
+               jit.save of GPT-2 small cut to 6 layers (to make room
+               for phase 23) with InputSpec([8, 768], 'int64'),
                jit.load, the exported program against the eager model,
                then a Predictor on the card in f32 and in bf16, run() on
-               8 x 768 ids: the first run compiles, 3 more do not, 12
-               flash forward launches a run, logits against the eager
+               8 x 768 ids: the first run compiles, 3 more do not, one
+               flash forward launch a layer and run, logits against the eager
                model (f32 within 1e-4), run() p50 beside the eager
                forward. The phase prints its own seconds.
- 20. slice 11, the static graph - (a) GPT-2 small (seeded, dropout 0)
-               built under static.program_guard from static.data('ids',
-               [8, 768], 'int64') in f32 and bf16, Executor.run on the
+ 20. slice 11, the static graph - (a) GPT-2 small (seeded, dropout 0,
+               cut to 6 layers to make room for phase 23) built under
+               static.program_guard from static.data('ids', [8, 768],
+               'int64') in f32 and bf16, Executor.run on the
                card with 3 fresh feeds: logits against the eager f32
                forward (f32 within 1e-4, bf16 within 0.1 of the range),
-               different feeds give different fetches, 12 flash forward
-               launches a run, one compile, the first run's compile
+               different feeds give different fetches, one flash forward
+               launch a layer and run, one compile, the first run's compile
                seconds, run() p50 with numpy out and with tensors on the
                card, a profiled run's busy share; (b) save_inference_model
                of the f32 Program (a torch.export program, weights
                inside), load_inference_model and Executor.run on the card:
-               fetches within 1e-5 of (a)'s, 12 launches a run, its size
+               fetches within 1e-5 of (a)'s, a launch a layer, its size
                and load seconds; (c) phase 6's bf16 model and batch under
                program_guard with its fused loss: append_backward's
                (parameter, grad) pairs against loss.backward() of the same
@@ -232,8 +234,31 @@ Phases, each printed as it finishes; any failure exits non-zero:
                and lse, dq, dk, dv against plain f32 attention at the
                kernel rows' tolerances, each entry's launches. The phase
                prints its own seconds.
+ 23. slice 14, BERT-class training - (a) BertForPretraining at BERT-base
+               (vocab 30522, 768 x 12 x 12, intermediate 3072, gelu,
+               dropout 0.1) with the fused MLM loss, bf16, batch 32 x 512
+               without padding (~15% MLM labels, seeded NSP labels), AdamW
+               lr 1e-4 through TrainStep, 2 warm-up and 10 timed steps:
+               step ms, tokens/s, MFU, busy share, peak memory, a profile;
+               BertModel's pad mask keeps attention on the masked path (0
+               flash launches, asserted) and the loss falls. (b) the same
+               model at 2 layers, dropout 0, f32: 3 steps on the card
+               against the CPU (losses within 1e-5) and the sequence
+               classifier's logits (1e-5). (c) nn.TransformerEncoder at
+               BERT-base width without a mask (attn_dropout 0), bf16, batch
+               32 x 512, a mean-square loss, AdamW: 12 non-causal forward
+               and 12 fused backward launches a step, a profile;
+               nn.Transformer at Transformer-base width (512, 8 heads,
+               ff 2048, relu), 2 + 2 layers, f32, source 1024 and target
+               512 with the causal target mask: the encoder's and the
+               cross-attention's non-causal forward and two-pass backward
+               (4 + 4 + 4 launches), output and gradients within 1e-4 of
+               the CPU (the ReLU branches pinned to the CPU run's;
+               gradients against the model's largest). The kernel
+               phases time #1 and #3 at the encoder's non-causal shape and
+               the f32 rows of nn.Transformer's calls.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20, 21 and 22 in main().)
+18, 19, 20, 21, 22 and 23 in main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
@@ -416,6 +441,8 @@ PREFILL_SHAPE = (8, 12, 768, 768, 64, torch.bfloat16, True, True)
 TRAIN_SHAPE = (32, 12, 512, 512, 64, torch.bfloat16, True, True)
 TRAIN_SHAPE_F16 = (32, 12, 512, 512, 64, torch.float16, True, True)
 TRAIN_SHAPE_F32 = (32, 12, 512, 512, 64, torch.float32, True, True)
+ENCODER_SHAPE = (32, 12, 512, 512, 64, torch.bfloat16, False, False)
+XF_CROSS_SHAPE = (2, 8, 512, 1024, 64, torch.float32, False, False)
 KERNEL_SHAPES = [
     PREFILL_SHAPE,
     TRAIN_SHAPE,
@@ -437,6 +464,12 @@ KERNEL_SHAPES = [
     # the split-TF32 kernels at the seq-1024 shape and at d = 128
     (8, 12, 1024, 1024, 64, torch.float32, True, True),
     (2, 8, 1024, 1024, 128, torch.float32, True, False),
+    # slice 14: the unmasked encoder's non-causal call at BERT-base's
+    # shape; nn.Transformer's f32 cross-attention (n = 512, m = 1024) and
+    # encoder self-attention (1024)
+    ENCODER_SHAPE,
+    XF_CROSS_SHAPE,
+    (2, 8, 1024, 1024, 64, torch.float32, False, False),
 ]
 
 # f32 at these head dims runs the split-TF32 kernels (flash_*_tf32_kernel);
@@ -589,6 +622,11 @@ BWD_SHAPES = [
     TRAIN_SHAPE_F32,
     # the split-TF32 kernels at the seq-1024 two-pass shape
     (8, 12, 1024, 1024, 64, torch.float32, True, True),
+    # slice 14: the unmasked encoder's fused backward; nn.Transformer's
+    # cross-attention and encoder backward (two-pass, f32)
+    ENCODER_SHAPE,
+    XF_CROSS_SHAPE,
+    (2, 8, 1024, 1024, 64, torch.float32, False, False),
 ]
 
 # the split-TF32 kernels each backward entry launches
@@ -671,7 +709,8 @@ def bwd_kernel_phase(sku):
                 b, h, n, m, d, dtype, causal, which, sku,
                 cuda_cores=True)[0], call, TF32_BWD_KERNELS[which], what)
             if which == 'fused' and shape_key in (BWD_MAIN_SHAPE,
-                                                  TRAIN_SHAPE_F32):
+                                                  TRAIN_SHAPE_F32,
+                                                  ENCODER_SHAPE):
                 # the dk/dv kernel and the dq kernel apart
                 row['kernels_ms'] = _kernels_ms(call)
             print('kernel flash_bwd_%s %s' % (which, json.dumps(row)),
@@ -1982,6 +2021,14 @@ OP_ROUTES = [
 ]
 
 
+# GPT-2 small as phase 19 (b) and phase 20 (a, b) compile it: its width,
+# vocabulary and sequence, cut to 6 of its 12 layers. Inductor's
+# compile of the Predictor's and the Executor's programs grows with the
+# depth (34-40 s each at 12 layers), and the cut makes room for phase 23
+# in chip_smoke's time limit.
+COMPILED_GPT2_LAYERS = 6
+
+
 def op_registration_phase():
     """(1) The custom ops on the card: torch.library.opcheck (schema, fake,
     autograd registration, the AOT dispatch) of both ops on each route,
@@ -2200,9 +2247,10 @@ def static_train_phase(sku, main):
 
 
 def predictor_phase():
-    """(4) Path (b): jit.save of GPT-2 small (seeded weights) with
-    InputSpec([8, 768], 'int64'), jit.load, then a Predictor on the card
-    in f32 and in PrecisionType.Bfloat16, run on 8 x 768 token ids."""
+    """(4) Path (b): jit.save of GPT-2 small (seeded weights,
+    COMPILED_GPT2_LAYERS layers) with InputSpec([8, 768], 'int64'),
+    jit.load, then a Predictor on the card in f32 and in
+    PrecisionType.Bfloat16, run on 8 x 768 token ids."""
     import shutil
     import tempfile
 
@@ -2214,6 +2262,7 @@ def predictor_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = GPTConfig.gpt2_small()
+    cfg.num_layers = COMPILED_GPT2_LAYERS
     layers = cfg.num_layers
     model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
     gen = torch.Generator().manual_seed(SEED + 19)
@@ -2349,14 +2398,15 @@ def _timed_runs(fn, count):
 
 
 def static_program_phase():
-    """(a) GPT-2 small (seeded weights, dropout 0) built under
-    static.program_guard from static.data('ids', [8, 768], 'int64'), in
-    f32 and in bf16, then Executor.run on the card with three fresh feeds:
-    each run's logits against the eager f32 forward on the same ids, 12
-    flash forward launches a run, one compile, run() p50 with and without
-    the host copy, a profiled run's busy share. (b) save_inference_model of
-    the f32 Program, load_inference_model and Executor.run on the card:
-    the fetches against (a)'s, 12 launches a run."""
+    """(a) GPT-2 small (seeded weights, dropout 0, COMPILED_GPT2_LAYERS
+    layers) built under static.program_guard from static.data('ids', [8,
+    768], 'int64'), in f32 and in bf16, then Executor.run on the card with
+    three fresh feeds: each run's logits against the eager f32 forward on
+    the same ids, one flash forward launch a layer and run, one compile,
+    run() p50 with and without the host copy, a profiled run's busy share.
+    (b) save_inference_model of the f32 Program, load_inference_model and
+    Executor.run on the card: the fetches against (a)'s, a launch a layer
+    and run."""
     import shutil
     import tempfile
 
@@ -2368,6 +2418,7 @@ def static_program_phase():
     torch.backends.cudnn.allow_tf32 = False
     cfg = GPTConfig.gpt2_small()
     cfg.dropout = 0.0
+    cfg.num_layers = COMPILED_GPT2_LAYERS
     layers, batch, seq = cfg.num_layers, 8, 768
     feeds = _static_feeds(cfg.vocab_size, batch, seq, 3)
     model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
@@ -2426,14 +2477,16 @@ def static_program_phase():
             'run_p50_ms': _p50(numpy_ms), 'device_p50_ms': _p50(tensor_ms),
             'busy': dev / wall, 'max_abs_err': err,
             'recorded_calls': len(prog._ops), 'launches_a_run': layers}
-        print('static Executor %s (a): GPT-2 small Program on ids [%d, %d], '
-              '%d recorded torch calls, build %.2f s, first run (compile) '
-              '%.1f s, then runs of %.2f / %.2f s; 3 feeds: logits max abs '
+        print('static Executor %s (a): GPT-2 small Program (%d layers) on '
+              'ids [%d, %d], %d recorded torch calls, build %.2f s, first '
+              'run (compile) %.1f s, then runs of %.2f / %.2f s; 3 feeds: '
+              'logits max abs '
               'err vs eager f32 %.3g, %d flash forward launches a run, 1 '
               'compile; run() p50 %.2f ms (numpy out), %.2f ms (tensors on '
               'the card); a profiled run: wall %.2f ms, kernels %.2f ms, '
               'busy %.3f; top kernels: %s' % (
-                  label, batch, seq, len(prog._ops), build_s, run_s[0],
+                  label, layers, batch, seq, len(prog._ops), build_s,
+                  run_s[0],
                   run_s[1], run_s[2], err, layers, rows[label]['run_p50_ms'],
                   rows[label]['device_p50_ms'], wall, dev, dev / wall,
                   '; '.join('%s %.2f ms x%d' % t for t in top)), flush=True)
@@ -4848,16 +4901,10 @@ def _fleet_strategy(name, world=1):
 
 
 def _fresh_bench_model(base):
-    """A copy of `base` (phase 6's initial bf16 weights) with its
-    parameters' placement hints (a deep copy drops Parameter attributes)."""
-    import copy
-    model = copy.deepcopy(base)
-    hints = {n: p.placement for n, p in base.named_parameters()
-             if hasattr(p, 'placement')}
-    for n, p in model.named_parameters():
-        if n in hints:
-            p.placement = hints[n]
-    return model
+    """A copy of `base` (phase 6's initial bf16 weights) whose parameters
+    keep their placement hints (copy_layer)."""
+    from paddle_tpu_torch.nn.layer.layers import copy_layer
+    return copy_layer(base)
 
 
 def _whole(p):
@@ -5154,6 +5201,333 @@ def slice13_phases(card):
     return out
 
 
+# -- slice 14: BERT-class training ------------------------------------------
+# BERT-base (Devlin et al. 2018, §3 and App. A.2: L=12, H=768, A=12,
+# intermediate 4H, gelu, vocab 30522 (WordPiece), 512 positions, 2 segment
+# types, dropout 0.1 on the hidden states and the attention probabilities)
+BERT_CFG = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, intermediate_size=3072,
+                hidden_act='gelu', hidden_dropout_prob=0.1,
+                attention_probs_dropout_prob=0.1, max_position_embeddings=512,
+                type_vocab_size=2)
+BERT_BATCH, BERT_SEQ, BERT_LR = 32, 512, 1e-4
+BERT_MLM_SHARE = 0.15
+# Transformer-base (Vaswani et al. 2017, Table 3): d_model 512, 8 heads,
+# ff 2048, relu; cut to 2 + 2 layers
+XF_CFG = dict(d_model=512, nhead=8, dim_feedforward=2048, activation='relu',
+              num_encoder_layers=2, num_decoder_layers=2, dropout=0.0)
+XF_SRC, XF_TGT, XF_BATCH = 1024, 512, 2
+
+
+def _bert_batch(vocab, batch, seq, seed):
+    """BERT pretraining inputs without padding: ids in [1, vocab) (0 is the
+    pad id), sentence A then B, MLM labels at ~15% of the positions (-100
+    elsewhere) and NSP labels."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, vocab, (batch, seq), generator=gen)
+    types = torch.zeros(batch, seq, dtype=torch.long)
+    types[:, seq // 2:] = 1
+    picked = torch.rand(batch, seq, generator=gen) < BERT_MLM_SHARE
+    mlm = torch.where(picked, torch.randint(1, vocab, (batch, seq),
+                                            generator=gen), -100)
+    nsp = torch.randint(0, 2, (batch,), generator=gen)
+    return ids, types, mlm, nsp
+
+
+def _kernel_modes(fa, seen):
+    """Wrap the flash launch helpers so each launch adds (entry, causal) to
+    the Counter `seen`; returns the undo."""
+    fwd, bwd = fa._fwd_launch, fa._bwd_launch
+
+    def fwd_seen(entry, q, k, v, causal, scale):
+        seen[entry, bool(causal)] += 1
+        return fwd(entry, q, k, v, causal, scale)
+
+    def bwd_seen(entry, operands, dims, outs, ds, scale, causal):
+        seen[entry, bool(causal)] += 1
+        return bwd(entry, operands, dims, outs, ds, scale, causal)
+
+    fa._fwd_launch, fa._bwd_launch = fwd_seen, bwd_seen
+
+    def undo():
+        fa._fwd_launch, fa._bwd_launch = fwd, bwd
+    return undo
+
+
+def _timed_train(step, inputs, labels, warmup, steps):
+    """(losses, step ms of the timed steps, peak bytes, launches) of
+    `warmup` + `steps` calls of `step`; launches and the peak are the
+    timed steps' own."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    losses = [step(inputs, labels).item() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa)
+    ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(inputs, labels)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    return losses, ms, torch.cuda.max_memory_allocated(), _launches(fa)
+
+
+def bert_pretrain_phase(card, sku):
+    """23 (a): BertForPretraining at BERT-base, the fused MLM loss, bf16,
+    batch 32 x 512, AdamW lr 1e-4 through TrainStep."""
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.bert import BertForPretraining
+
+    # phase 22's FSDP2 run leaves tensors whose storage it freed among the
+    # garbage, so _collect_garbage's census cannot read them
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = BertForPretraining(fused_mlm=True, device='cuda', seed=SEED,
+                               **BERT_CFG).to(torch.bfloat16)
+    step = TrainStep(model, model.loss,
+                     AdamW(learning_rate=BERT_LR,
+                           parameters=model.parameters()))
+    ids, types, mlm, nsp = (t.cuda() for t in _bert_batch(
+        BERT_CFG['vocab_size'], BERT_BATCH, BERT_SEQ, SEED))
+    inputs, labels = (ids, types), (mlm, nsp)
+    steps = 10
+    losses, ms, peak, launches = _timed_train(step, inputs, labels, 2, steps)
+    # BertModel builds its pad mask on every call, so attention takes the
+    # masked path: no flash kernel launches
+    _check(launches == _want(steps),
+           'BERT launches %s over %d steps, want none' % (launches, steps))
+    _check(all(math.isfinite(x) for x in losses), 'BERT losses finite')
+    _check(losses[-1] < losses[0], 'BERT loss %.4f after %d steps not below '
+           'the first %.4f' % (losses[-1], len(losses), losses[0]))
+    median = sorted(ms)[steps // 2]
+    tokens = BERT_BATCH * BERT_SEQ
+    flops_tok = model.flops_per_token(BERT_SEQ)
+    peak_flops = sku[2]['bfloat16']
+    wall, dev, top, ops = _profile(lambda: step(inputs, labels))
+    out = {'params': sum(p.numel() for p in model.parameters()),
+           'median_ms': median, 'min_ms': min(ms), 'max_ms': max(ms),
+           'tokens_per_s': tokens / median * 1e3,
+           'samples_per_s': BERT_BATCH / median * 1e3,
+           'mflop_per_token': flops_tok / 1e6,
+           'mfu': flops_tok * tokens / (median / 1e3) / peak_flops,
+           'peak_gib': peak / 2 ** 30, 'busy': dev / wall,
+           'mlm_positions': int((mlm != -100).sum()),
+           'launches': launches, 'steps': steps,
+           'losses': [round(x, 4) for x in losses]}
+    print('phase 23a BERT-base pretraining [%s]: %s' % (card, json.dumps(
+        out)), flush=True)
+    print('profile BERT step: wall %.2f ms, device kernels %.2f ms, busy '
+          'share %.3f; top kernels: %s; top aten ops: %s'
+          % (wall, dev, dev / wall,
+             '; '.join('%s %.2f ms x%d' % t for t in top),
+             '; '.join('%s %.2f ms x%d' % t for t in ops)), flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_parity_phase(card):
+    """23 (b): BERT-base cut to 2 layers, dropout 0, f32 (TF32 off): 3
+    TrainStep calls on the card against the same steps on the CPU, and the
+    sequence classifier's logits."""
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.bert import (
+        BertForPretraining, BertForSequenceClassification)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(BERT_CFG, num_hidden_layers=2, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+    batch = _bert_batch(cfg['vocab_size'], 2, BERT_SEQ, SEED + 2)
+    losses = {}
+    for dev in ('cuda', 'cpu'):
+        model = BertForPretraining(fused_mlm=True, device=dev, seed=SEED,
+                                   **cfg)
+        step = TrainStep(model, model.loss,
+                         AdamW(learning_rate=BERT_LR,
+                               parameters=model.parameters()))
+        ids, types, mlm, nsp = (t.to(dev) for t in batch)
+        losses[dev] = [step((ids, types), (mlm, nsp)).item()
+                       for _ in range(3)]
+        del model, step
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses['cuda'],
+                                                 losses['cpu']))
+    _check(rel <= 1e-5, 'BERT f32 losses %s vs CPU %s (rel %.3g > 1e-5)'
+           % (losses['cuda'], losses['cpu'], rel))
+    logits = {}
+    for dev in ('cuda', 'cpu'):
+        clf = BertForSequenceClassification(num_classes=3, device=dev,
+                                            seed=SEED, **cfg).eval()
+        with torch.no_grad():
+            logits[dev] = clf(batch[0].to(dev), batch[1].to(dev)).cpu()
+    err = (logits['cuda'] - logits['cpu']).abs().max().item()
+    _check(err <= 1e-5, 'classifier logits differ by %.3g > 1e-5' % err)
+    out = {'losses': losses['cuda'], 'cpu_losses': losses['cpu'],
+           'loss_rel': rel, 'logits_err': err}
+    print('phase 23b BERT f32 parity [%s]: %s' % (card, json.dumps(out)),
+          flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_phase(card):
+    """23 (c): nn.TransformerEncoder at BERT-base width without a mask
+    (attn_dropout 0): the non-causal flash forward and fused backward, 12
+    of each a step, bf16, batch 32 x 512; then nn.Transformer at
+    Transformer-base width, f32, against the CPU."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gen = torch.Generator().manual_seed(SEED)
+    layers, hidden = BERT_CFG['num_hidden_layers'], BERT_CFG['hidden_size']
+    enc = tnn.TransformerEncoder(tnn.TransformerEncoderLayer(
+        hidden, BERT_CFG['num_attention_heads'],
+        BERT_CFG['intermediate_size'], dropout=0.1, activation='gelu',
+        attn_dropout=0.0, device='cuda', generator=gen),
+        layers).to(torch.bfloat16)
+    src = torch.randn(BERT_BATCH, BERT_SEQ, hidden, generator=gen).to(
+        'cuda', torch.bfloat16)
+    target = torch.randn(BERT_BATCH, BERT_SEQ, hidden, generator=gen).cuda()
+
+    def mse(out, want):
+        return ((out.float() - want) ** 2).mean()
+
+    step = TrainStep(enc, mse, AdamW(learning_rate=BERT_LR,
+                                     parameters=enc.parameters()))
+    modes = collections.Counter()
+    undo = _kernel_modes(fa, modes)
+    try:
+        steps = 5
+        losses, ms, peak, launches = _timed_train(step, (src,), (target,), 2,
+                                                  steps)
+    finally:
+        undo()
+    _check(launches == _want(steps, flash_fwd=layers,
+                             flash_bwd_fused=layers),
+           'encoder launches %s over %d steps, want %d forward and %d fused '
+           'backward a step' % (launches, steps, layers, layers))
+    _check(set(modes) == {('flash_fwd', False), ('flash_bwd_fused', False)},
+           'encoder launches were not all non-causal: %s' % dict(modes))
+    _check(losses[-1] < losses[0], 'encoder loss did not fall: %s' % losses)
+    wall, dev, top, ops = _profile(lambda: step((src,), (target,)))
+    encoder = {'median_ms': sorted(ms)[steps // 2], 'peak_gib': peak / 2 ** 30,
+               'busy': dev / wall, 'launches': launches, 'steps': steps,
+               'losses': [round(x, 5) for x in losses]}
+    print('profile encoder step: wall %.2f ms, device kernels %.2f ms, busy '
+          'share %.3f; top kernels: %s; top aten ops: %s'
+          % (wall, dev, dev / wall,
+             '; '.join('%s %.2f ms x%d' % t for t in top),
+             '; '.join('%s %.2f ms x%d' % t for t in ops)), flush=True)
+    del enc, step, src, target
+    torch.cuda.empty_cache()
+
+    # nn.Transformer, f32: the unmasked encoder self-attention at 1024 and
+    # the cross-attention (n = 512, m = 1024) take flash forward and the
+    # two-pass backward; the decoder's self-attention is masked. The CPU
+    # runs first. A ReLU input within f32 rounding of 0 may take the other
+    # branch on the card, and one such element moves a weight gradient's
+    # entry by a few percent (a sum over 1024 tokens), so the card's run
+    # takes each ReLU's branches from the CPU run (a * [a_cpu > 0]): both
+    # then compute one piecewise-linear function, whose gradients the
+    # kernels must give within their tolerance. The branches the card's
+    # own inputs would have taken otherwise are counted (flips).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    branches = []
+
+    def recording(a):
+        branches.append(a.detach() > 0)
+        return torch.relu(a)
+
+    def pinned(a):
+        keep = branches[pinned.calls].to(a.device)
+        pinned.calls += 1
+        pinned.flips += int((keep != (a.detach() > 0)).sum())
+        return a * keep
+
+    pinned.calls = pinned.flips = 0
+    for dev in ('cpu', 'cuda'):
+        g = torch.Generator().manual_seed(SEED + 3)
+        model = tnn.Transformer(**XF_CFG, device=dev, generator=g)
+        for layer in list(model.encoder.layers) + list(model.decoder.layers):
+            layer.activation = recording if dev == 'cpu' else pinned
+        d = XF_CFG['d_model']
+        s = torch.randn(XF_BATCH, XF_SRC, d, generator=g).to(dev)
+        t = torch.randn(XF_BATCH, XF_TGT, d, generator=g).to(dev)
+        w = torch.randn(XF_BATCH, XF_TGT, d, generator=g).to(dev)
+        mask = model.generate_square_subsequent_mask(XF_TGT)
+        _reset_counts(fa)
+        modes.clear()
+        undo = _kernel_modes(fa, modes)
+        try:
+            out = model(s, t, tgt_mask=mask)
+            (out * w).mean().backward()
+        finally:
+            undo()
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+            runs['launches'] = _launches(fa)
+            runs['modes'] = dict(modes)
+        runs[dev] = (out.detach().cpu(), {
+            k: p.grad.cpu() for k, p in model.named_parameters()})
+        del model
+    want = _want(1, flash_fwd=4, flash_bwd_dq=4, flash_bwd_dkv=4)
+    _check(runs['launches'] == want,
+           'nn.Transformer launches %s, want %s' % (runs['launches'], want))
+    _check(all(not causal for _, causal in runs['modes']),
+           'nn.Transformer flash launches not all non-causal: %s'
+           % runs['modes'])
+    (out_c, g_c), (out_h, g_h) = runs['cuda'], runs['cpu']
+    scale = out_h.abs().max().item()
+    out_err = (out_c - out_h).abs().max().item() / scale
+    # The gradients as one output, as a kernel row holds its dq, dk, dv: the
+    # largest error over the largest reference gradient of the model.
+    # Each parameter's error over its own largest entry is reported beside
+    # it: where a gradient is a cancellation it reads higher (a key
+    # projection's weight gradient is X^T dk with dk summing to 0 over the
+    # keys; its bias's exact gradient is 0, so that ratio is noise over
+    # noise and is left out).
+    top = max(g.abs().max().item() for g in g_h.values())
+    grad_err = max((g_c[k] - g_h[k]).abs().max().item() for k in g_h) / top
+    own = {k: (g_c[k] - g_h[k]).abs().max().item() /
+           g_h[k].abs().max().item()
+           for k in g_h if not k.endswith('k_proj.bias')}
+    worst = max(own, key=own.get)
+    _check(out_err <= 1e-4 and grad_err <= 1e-4,
+           'nn.Transformer card vs CPU: output %.3g, gradients %.3g of the '
+           'largest (tol 1e-4)' % (out_err, grad_err))
+    transformer = {'launches': runs['launches'], 'out_err': out_err,
+                   'grad_err': grad_err, 'worst_param': worst,
+                   'worst_param_err': own[worst], 'relu_flips': pinned.flips,
+                   'relu_elements': sum(b.numel() for b in branches),
+                   'modes': {'%s causal=%s' % k: v
+                             for k, v in runs['modes'].items()}}
+    out = {'encoder': encoder, 'transformer': transformer}
+    print('phase 23c encoder / Transformer [%s]: %s' % (card, json.dumps(
+        out)), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice14_phases(card, sku):
+    """Phase 23: BERT-class training."""
+    t0 = time.time()
+    out = {'bert': bert_pretrain_phase(card, sku),
+           'parity': bert_parity_phase(card),
+           'encoder': encoder_phase(card)}
+    out['seconds'] = time.time() - t0
+    print('phase 23 (slice 14) [%s]: %.1f s' % (card, out['seconds']),
+          flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -5228,6 +5602,7 @@ def main():
     slice11 = timed(slice11_phases)
     timed(slice12_phases, card)
     slice13 = timed(slice13_phases, card)
+    slice14 = timed(slice14_phases, card, sku)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -5352,6 +5727,30 @@ def main():
         # its counts go on the bf16 rows alone (the rows without 'dtype')
         if 'dtype' not in k:
             k['ring_launches'] = slice13['ring']['launches'].get(k['name'], 0)
+    # slice 14: nn.Transformer's non-causal launches a step of #1, #4 and
+    # #5 (the cross-attention n = 512, m = 1024, the encoder at 1024), and
+    # the unmasked encoder's #1 and #3 as rows of their own
+    xf = slice14['encoder']['transformer']['launches']
+    for k in kernels:
+        if 'dtype' not in k and k['name'] in ('flash_fwd', 'flash_bwd_dq',
+                                              'flash_bwd_dkv'):
+            k['transformer_launches_per_step'] = xf[k['name']]
+        if 'dtype' not in k:
+            k['bert_launches_per_step'] = \
+                slice14['bert']['launches'][k['name']] // \
+                slice14['bert']['steps']
+    enc = slice14['encoder']['encoder']
+    encoder_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 non-causal'
+    for kernel, source, line, row in (
+            ('flash_fwd', 'flash_fwd', 137, next(
+                r for r in fwd_rows if r['shape'] == list(ENCODER_SHAPE[:5])
+                and not r['causal'] and r['dtype'] == 'bfloat16')),
+            ('flash_bwd_fused', 'flash_bwd', 659,
+             bwd('fused', ENCODER_SHAPE))):
+        kernels.append(dict(entry(kernel, source, line, row,
+                                  enc['launches'][kernel], enc['steps'],
+                                  'slice 14 (c) encoder, no mask',
+                                  encoder_shape), causal=False))
     pairs = {'flash_bwd_dq': pair(bwd('dq', BWD_SECOND_SHAPE),
                                   bwd('dkv', BWD_SECOND_SHAPE)),
              'flash_bwd_dq_long': pair(long_rows['dq', LONG_MAIN_SHAPE],

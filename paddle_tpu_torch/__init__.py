@@ -4,16 +4,151 @@ It imports torch and never jax or paddle_tpu. Entry points run on the card
 (device='cuda') unless the caller passes device='cpu' or set_device('cpu')
 changed the default. Kernels are built from csrc/ by nvcc at first use
 (see _build.py).
+
+The top-level names are the JAX package's (`import paddle_tpu_torch as
+paddle`): the tensor functions, `to_tensor`, the dtypes (as torch dtypes),
+`seed`, `save` / `load`, the flags and the rest. A tensor is a
+torch.Tensor and a parameter an nn.Parameter. Names of the JAX package
+that are not here raise an AttributeError that says why and which ROADMAP
+item brings them (`_ABSENT` below): Tensor-method patching (the port's
+tensors are torch's, and patching torch.Tensor would change every torch
+program in the process), the XPU / NPU places, and the subpackages not
+ported yet.
 """
+import sys as _sys
+
+import torch as _torch
+
 __version__ = '0.1.0'
 
-from . import amp, framework, nn, ops, optimizer, text  # noqa: F401
-from . import data, hapi, io, metric, regularizer  # noqa: F401
-from . import autograd, inference, jit, static  # noqa: F401
-from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
+from . import amp, framework, nn, ops, optimizer, text  # noqa: F401,E402
+from . import data, hapi, io, metric, regularizer  # noqa: F401,E402
+from . import autograd, inference, jit, static  # noqa: F401,E402
+from . import distributed, monitor, tensor  # noqa: F401,E402
+from .tensor import *  # noqa: F401,F403,E402
+from .tensor import einsum  # noqa: F401,E402
+from .tensor.creation import to_tensor  # noqa: F401,E402
+from .tensor.logic import is_tensor  # noqa: F401,E402
+from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401,E402
                        no_grad, set_grad_enabled)
-from .framework.device import (device_count, get_device,  # noqa: F401
-                               set_device)
-from .framework.random import get_rng_state, set_rng_state  # noqa: F401
-from .hapi import Model  # noqa: F401
-from .nn.layer.layers import ParamAttr  # noqa: F401
+from .distributed import DataParallel  # noqa: F401,E402
+from .framework import device  # noqa: F401,E402
+from .framework.device import (CPUPlace, CUDAPinnedPlace,  # noqa: F401,E402
+                               CUDAPlace, device_count, get_cudnn_version,
+                               get_device, is_compiled_with_cuda,
+                               is_compiled_with_npu, is_compiled_with_rocm,
+                               is_compiled_with_xpu, set_device)
+from .framework.dtype import (get_default_dtype,  # noqa: F401,E402
+                              set_default_dtype)
+from .framework.flags import get_flags, set_flags  # noqa: F401,E402
+from .framework.io_save import load, save  # noqa: F401,E402
+from .framework.random import get_rng_state, set_rng_state  # noqa: F401,E402
+from .framework.random import manual_seed as seed  # noqa: F401,E402
+from .hapi import Model, callbacks, flops, summary  # noqa: F401,E402
+from .nn.layer.layers import ParamAttr  # noqa: F401,E402
+from .static import (disable_static, enable_static,  # noqa: F401,E402
+                     in_dynamic_mode)
+from .static import create_parameter  # noqa: F401,E402
+
+get_cuda_rng_state = get_rng_state
+set_cuda_rng_state = set_rng_state
+
+# `import paddle_tpu_torch.callbacks` / `.device` work as statements too
+_sys.modules[__name__ + '.callbacks'] = callbacks
+_sys.modules[__name__ + '.device'] = device
+
+# the dtypes, as torch dtypes
+float16 = _torch.float16
+bfloat16 = _torch.bfloat16
+float32 = _torch.float32
+float64 = _torch.float64
+int8 = _torch.int8
+int16 = _torch.int16
+int32 = _torch.int32
+int64 = _torch.int64
+uint8 = _torch.uint8
+bool = _torch.bool
+complex64 = _torch.complex64
+complex128 = _torch.complex128
+dtype = _torch.dtype
+
+Tensor = _torch.Tensor
+VarBase = _torch.Tensor
+Parameter = _torch.nn.Parameter
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     linewidth=None, sci_mode=None):
+    """torch.set_printoptions with the reference's arguments."""
+    _torch.set_printoptions(precision=precision, threshold=threshold,
+                            edgeitems=edgeitems, linewidth=linewidth,
+                            sci_mode=sci_mode)
+
+
+class version:
+    full_version = __version__
+    major, minor, patch = 0, 1, 0
+    rc = 0
+    istaged = True
+    commit = 'cuda-port'
+
+    @staticmethod
+    def show():
+        print('paddle_tpu_torch', version.full_version)
+
+
+# dygraph is the only mode of execution; the reference's switches are
+# constants, as in the JAX package
+def in_dygraph_mode():
+    return True
+
+
+def enable_dygraph(place=None):
+    pass
+
+
+def disable_dygraph():
+    pass
+
+
+enable_imperative = enable_dygraph
+disable_imperative = disable_dygraph
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    return tensor.manipulation.crop(x, shape=shape, offsets=offsets)
+
+
+_BREADTH = 'is not ported yet (ROADMAP Queue 1 item 5, breadth: %s)'
+_ABSENT = {
+    'monkey_patch_math_varbase': (
+        'is absent: the port\'s tensors are torch tensors with torch\'s '
+        'methods, and patching torch.Tensor would change every torch '
+        'program in the process (ROADMAP Queue 1 item 5, the tensor '
+        'methods); call the paddle_tpu_torch.tensor functions'),
+    'monkey_patch_variable': (
+        'is absent: static Variables are recorded torch tensors (ROADMAP '
+        'Queue 1 item 5, the tensor methods)'),
+    'XPUPlace': 'is absent: the port runs on CUDA GPUs and the CPU '
+                '(ROADMAP Queue 1 item 5, breadth)',
+    'NPUPlace': 'is absent: the port runs on CUDA GPUs and the CPU '
+                '(ROADMAP Queue 1 item 5, breadth)',
+    'vision': _BREADTH % 'vision/',
+    'onnx': _BREADTH % 'onnx.py',
+    'slim': _BREADTH % 'slim/',
+    'hub': _BREADTH % 'hub.py',
+    'distribution': _BREADTH % 'distribution/',
+    'utils': _BREADTH % 'utils/',
+    'sysconfig': _BREADTH % 'sysconfig.py',
+    'dataset': _BREADTH % 'dataset/',
+    'batch': _BREADTH % 'batch.py',
+    'incubate': _BREADTH % 'the rest of incubate/',
+    'profiler': ('is not ported yet (ROADMAP Queue 1 item 4, observability '
+                 'and planning: profiler/)'),
+}
+
+
+def __getattr__(name):
+    if name in _ABSENT:
+        raise AttributeError('paddle_tpu_torch.%s %s' % (name, _ABSENT[name]))
+    raise AttributeError('module %r has no attribute %r' % (__name__, name))

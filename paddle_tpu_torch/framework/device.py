@@ -3,8 +3,9 @@
 Entry points run on the current device unless the caller passes one; the
 current device is the card ('cuda') until set_device changes it. With no
 CUDA present a CUDA device raises instead of dropping to the CPU. Paddle's
-names are accepted: 'gpu', 'gpu:1', 'cpu' (and torch's 'cuda', 'cuda:1').
-The Place classes and the is_compiled_with_* probes are not ported.
+names are accepted: 'gpu', 'gpu:1', 'cpu' (and torch's 'cuda', 'cuda:1'),
+and the Place classes, whose `device` is the torch.device they name.
+XPUPlace and NPUPlace are absent: torch here runs on CUDA and the CPU.
 """
 import torch
 
@@ -63,3 +64,55 @@ def device_count(backend=None):
     if backend is not None and _torch_name(backend) == 'cpu':
         return 1
     return torch.cuda.device_count()
+
+
+class CPUPlace:
+    def __init__(self):
+        self.device = torch.device('cpu')
+
+    def __repr__(self):
+        return 'CPUPlace'
+
+
+class CUDAPlace:
+    def __init__(self, id=0):
+        self.device = torch.device('cuda', id)
+
+    def get_device_id(self):
+        return self.device.index
+
+    def __repr__(self):
+        return 'CUDAPlace(%d)' % self.device.index
+
+
+class CUDAPinnedPlace:
+    """Host memory that CUDA copies read directly; tensors placed here live
+    on the CPU."""
+
+    def __init__(self):
+        self.device = torch.device('cpu')
+
+    def __repr__(self):
+        return 'CUDAPinnedPlace'
+
+
+def is_compiled_with_cuda():
+    return torch.version.cuda is not None
+
+
+def is_compiled_with_rocm():
+    return torch.version.hip is not None
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def is_compiled_with_npu():
+    return False
+
+
+def get_cudnn_version():
+    """cuDNN's version as an int (e.g. 90100), None without cuDNN."""
+    return torch.backends.cudnn.version() \
+        if torch.backends.cudnn.is_available() else None

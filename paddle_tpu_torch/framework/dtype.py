@@ -59,3 +59,24 @@ def convert_dtype(dtype):
 def torch_dtype(dtype):
     """The torch dtype of any dtype convert_dtype takes."""
     return _ALL_NAMES[convert_dtype(dtype)]
+
+
+# the floating dtype that creation functions and to_tensor give Python
+# floats when no dtype is named (the JAX package's get_default_dtype);
+# torch's own default dtype is left alone
+_DEFAULT = {'dtype': 'float32'}
+
+
+def set_default_dtype(d):
+    """Make `d` (float16, bfloat16, float32 or float64, any spelling
+    convert_dtype takes) the default floating dtype."""
+    name = convert_dtype(d)
+    if name not in ('float16', 'bfloat16', 'float32', 'float64'):
+        raise TypeError('set_default_dtype only supports floating dtypes, '
+                        'got %r' % (d,))
+    _DEFAULT['dtype'] = name
+
+
+def get_default_dtype():
+    """The default floating dtype's name."""
+    return _DEFAULT['dtype']

@@ -34,3 +34,11 @@ def set_rng_state(state):
     torch.set_rng_state(state['cpu'])
     if state.get('cuda') is not None:
         torch.cuda.set_rng_state_all(state['cuda'])
+
+
+def manual_seed(s):
+    """Seed torch's default generators (the CPU one and every CUDA
+    device's), the streams that draws without an explicit generator
+    consume; returns the CPU one (the top-level `seed`, Paddle's
+    paddle.seed)."""
+    return torch.manual_seed(int(s))

@@ -1,5 +1,6 @@
 from . import clip, functional, initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
+from .layer import *  # noqa: F401,F403
 from .layer import (CrossEntropyLoss, Dropout, Embedding,  # noqa: F401
-                    LayerNorm, Linear, ParamAttr, RMSNorm)
+                    LayerNorm, Linear, PairwiseDistance, ParamAttr, RMSNorm)

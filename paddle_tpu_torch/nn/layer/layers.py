@@ -11,9 +11,16 @@ reserves `Tensor.name`). The optimizers read them with the JAX package's
 defaults, so a parameter built without a ParamAttr behaves as one built
 with the default attribute.
 """
+import copy
+
 from torch import nn
 
-__all__ = ['ParamAttr', 'create_parameter', 'param_meta']
+__all__ = ['ParamAttr', 'create_parameter', 'param_meta', 'copy_layer']
+
+# the attributes a parameter carries beside its value: the metadata above,
+# and the tensor-parallel placement hint (distributed/strategy.py)
+_META = ('param_name', 'trainable', 'optimize_attr', 'regularizer',
+         'need_clip', 'placement')
 
 
 class ParamAttr:
@@ -69,3 +76,16 @@ def param_meta(p):
     with the defaults for a tensor that carries no metadata."""
     return (getattr(p, 'optimize_attr', {}).get('learning_rate', 1.0),
             getattr(p, 'regularizer', None), getattr(p, 'need_clip', True))
+
+
+def copy_layer(layer):
+    """A deep copy of `layer` whose parameters keep their metadata: torch's
+    deep copy of an nn.Parameter drops its Python attributes, where the
+    JAX package's copy of a Parameter keeps them."""
+    out = copy.deepcopy(layer)
+    for (_, src), (_, dst) in zip(layer.named_parameters(),
+                                  out.named_parameters()):
+        for key in _META:
+            if hasattr(src, key):
+                setattr(dst, key, copy.deepcopy(getattr(src, key)))
+    return out

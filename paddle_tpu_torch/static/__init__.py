@@ -46,6 +46,23 @@ __all__ = ['InputSpec', 'data', 'Program', 'Executor', 'default_main_program',
            'device_guard', 'amp_guard']
 
 
+# paddle.enable_static / disable_static: a flag, as in the JAX package.
+# Programs are recordings made under program_guard in either mode.
+_MODE = {'static': False}
+
+
+def enable_static():
+    _MODE['static'] = True
+
+
+def disable_static(place=None):
+    _MODE['static'] = False
+
+
+def in_dynamic_mode():
+    return not _MODE['static']
+
+
 def _static_function(module):
     from ..jit import StaticFunction
     return StaticFunction(module.forward, layer=module)

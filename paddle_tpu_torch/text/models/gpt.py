@@ -80,9 +80,11 @@ class GPTConfig:
 
     @staticmethod
     def gpt3_13b():
-        raise NotImplementedError(
-            'GPTConfig.gpt3_13b is not ported yet (ROADMAP Queue 1 item '
-            '3(c): it waits for the pipeline and MoE)')
+        """GPT-3 13B (Brown et al. 2020): hidden 5120, 40 layers of 40
+        heads (d = 128), 2048 positions. A full-size step needs sharding
+        across cards."""
+        return GPTConfig(vocab_size=50304, hidden_size=5120, num_layers=40,
+                         num_heads=40, max_position_embeddings=2048)
 
 
 class GPTStaticCache:

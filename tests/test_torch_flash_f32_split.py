@@ -172,14 +172,20 @@ def test_split_emulation_matches_plain_versions_and_pallas(causal,
     g_j = jfa._bwd_impl_fused(jq, jk, jv, lse_j, jdo,
                               jnp.sum(jdo * o_j, axis=-1, keepdims=True),
                               causal, scale)
-    for want_o, want_lse, want_g in ((o_t.numpy(), lse_t.numpy(),
-                                      [g.numpy() for g in g_t]),
-                                     (np.asarray(o_j), np.asarray(lse_j),
-                                      [np.asarray(g) for g in g_j])):
-        assert np.abs(o - want_o).max() <= SPLIT_TOL
-        assert np.abs(lse - want_lse).max() <= SPLIT_TOL
-        for g, w in zip(grads, want_g):
-            assert np.abs(g - w).max() <= SPLIT_TOL * np.abs(w).max()
+    refs = {'torch plain versions': (o_t.numpy(), lse_t.numpy(),
+                                     [g.numpy() for g in g_t]),
+            'JAX interpret-mode kernels': (np.asarray(o_j),
+                                           np.asarray(lse_j),
+                                           [np.asarray(g) for g in g_j])}
+    for ref, (want_o, want_lse, want_g) in refs.items():
+        err = np.abs(o - want_o).max()
+        assert err <= SPLIT_TOL, (ref, 'o', err)
+        err = np.abs(lse - want_lse).max()
+        assert err <= SPLIT_TOL, (ref, 'lse', err)
+        for name, g, w in zip(('dq', 'dk', 'dv'), grads, want_g):
+            err = np.abs(g - w).max()
+            assert err <= SPLIT_TOL * np.abs(w).max(), \
+                (ref, name, err, np.abs(w).max())
 
 
 def _read(name):

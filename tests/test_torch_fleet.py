@@ -332,8 +332,6 @@ def test_pipeline_and_left_out_options_raise():
     with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
         m.pp_decompose()
     with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
-        GPTConfig.gpt3_13b()
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
         GPTForCausalLM(GPTConfig(**dict(CONFIG, num_experts=2)),
                        device='cpu')
 

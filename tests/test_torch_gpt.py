@@ -166,11 +166,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     # registry and fabric modules of slice 6, the training shell of slice 9,
     # the compiled mode and inference engine of slice 10, the static
     # graph of slice 11, the parameter server and graph engine of slice
-    # 12 and the collective training of slice 13
+    # 12, the collective training of slice 13 and slice 14's nn, text and
+    # tensor modules
     imported = set(res.stdout.split())
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
-            SLICE12_MODULES + SLICE13_MODULES:
+            SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -210,6 +211,14 @@ SLICE13_MODULES = ('distributed', 'distributed.env', 'distributed.spawn',
                    'distributed.fleet.distributed_strategy',
                    'distributed.fleet.meta_optimizers',
                    'ops.ring_attention')
+SLICE14_MODULES = ('nn.functional.activation', 'nn.layer.activation',
+                   'nn.layer.container', 'nn.layer.distance',
+                   'nn.layer.transformer', 'text.models.bert', 'tensor',
+                   'tensor._helpers', 'tensor.attribute', 'tensor.creation',
+                   'tensor.einsum', 'tensor.inplace', 'tensor.linalg',
+                   'tensor.logic', 'tensor.manipulation', 'tensor.math',
+                   'tensor.random', 'tensor.search', 'tensor.stat',
+                   'framework.flags', 'framework.dtype')
 SLICE12_MODULES = ('native', 'native.datafeed', 'native.embedding_table',
                    'native.graph_store', 'distributed.ps',
                    'distributed.ps.embedding_service', 'distributed.ps.tables',
@@ -248,7 +257,7 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
     scanned = {os.path.relpath(f, REPO) for f in _port_files()}
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
-            SLICE12_MODULES + SLICE13_MODULES:
+            SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod
@@ -438,3 +447,14 @@ def test_fleet_recompute_of_module_and_function():
     y = torch.randn(3, requires_grad=True)
     recompute(lambda a, k=1.0: (a * k).exp(), y, k=2.0).sum().backward()
     torch.testing.assert_close(y.grad, 2 * (2 * y.detach()).exp())
+
+
+def test_gpt3_13b_is_the_jax_packages_configuration():
+    from paddle_tpu.text.models.gpt import GPTConfig as JConfig
+    want, got = vars(JConfig.gpt3_13b()), vars(tgpt.GPTConfig.gpt3_13b())
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert got[key] == value, key
+    assert (got['vocab_size'], got['hidden_size'], got['num_layers'],
+            got['num_heads'], got['max_position_embeddings']) == \
+        (50304, 5120, 40, 40, 2048)
