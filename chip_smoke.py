@@ -147,13 +147,14 @@ Phases, each printed as it finishes; any failure exits non-zero:
                plain versions; (2) f32, the bench GPT cut to 2 layers,
                batch 2 x 512: 3 AdamW steps with the forward and the loss
                under jit.to_static against the same steps eager; (3) path
-               (a): the bench's bf16 step (phase 6's model, batch and
-               AdamW) with the forward and the loss as one to_static
-               program, then loss.backward() and the update: one graph
-               and no break, one compile, 12 forward and 12 fused
-               backward launches every step, a falling loss, the compile
-               seconds, 2 warm-up and 10 timed steps beside phase 6's
-               eager step, a profiled step's busy share and top kernels,
+               (a): the bench's bf16 step (phase 6's model cut to 6
+               layers to make room for phase 24, its batch and AdamW)
+               with the forward and the loss as one to_static program,
+               then loss.backward() and the update: one graph and no
+               break, one compile, 6 forward and 6 fused backward
+               launches every step, a falling loss, the compile seconds,
+               2 warm-up and 10 timed steps beside the same step eager,
+               a profiled step's busy share and top kernels,
                the _rows_aligned copies, peak memory; (4) path (b):
                jit.save of GPT-2 small cut to 6 layers (to make room
                for phase 23) with InputSpec([8, 768], 'int64'),
@@ -257,8 +258,31 @@ Phases, each printed as it finishes; any failure exits non-zero:
                gradients against the model's largest). The kernel
                phases time #1 and #3 at the encoder's non-causal shape and
                the f32 rows of nn.Transformer's calls.
+ 24. slice 15, the observability plane - (a) paddle_tpu_torch.profiler's
+               Profiler around two of phase 6's bf16 bench steps: the
+               device trace holds the flash kernels by name, 12 + 12 a
+               step (the fused backward's two kernels each), a RecordEvent
+               region is in the trace and in the tracer's FlightRecorder,
+               merge_traces of the trace and the recorder's export loads
+               back. (b) Model.summary_perf of the bench GPT (bf16, 32 x
+               512), priced on fake tensors: FLOPs within 1% of the hand
+               count (GEMMs, the fused LM head, the flash products as the
+               kernel bounds count them), mfu_est from phase 6's median
+               step, both it and the roofline share at most 1.05. (c) a
+               CompileWatchdog on phase 19 (b)'s f32 Predictor: 0
+               recompiles over same-shape runs after the barrier, 1 for a
+               new batch size, attributed to this file, RecompileError
+               under strict. (d) two GPT-2 small replicas (f32) behind a
+               gateway wired to a FleetCollector, an AlertManager, a
+               rotating RequestLog sink, a Tracer with a recorder and
+               retention and a MetricsServer: replica 1 partitioned
+               mid-flight, the threshold rule fires once with one flight
+               dump, the failed-over traces are retained, /fleet /alerts
+               /requests answer, tokens equal one engine's, no flash
+               launch. (e) the fleet simulator fitted on (d)'s wide
+               events: K-S and p50 / p99 TTFT errors.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20, 21, 22 and 23 in main().)
+18, 19, 20, 21, 22, 23 and 24 in main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
@@ -279,24 +303,9 @@ import torch
 
 SEED = 1234
 
-# Datasheet peaks (dense, no sparsity) by SKU, matched against the card's
-# name: (memory bytes/s, {dtype: operations/s}). The H100 SXM figures are
-# the default for an H100 whose name matches no other row. f32 products at
-# f32 accuracy run as three TF32 tensor-core products each (split TF32, the
-# f32 kernels at d = 64 / 128), so the card's f32 rate is its TF32 peak over
-# 3 (H100 SXM: 495e12 / 3 = 165e12); 'float32_cuda_cores' is the FFMA rate
-# of the CUDA cores, the yardstick of the rows' bound_ms_cuda_cores.
-_SKUS = [
-    ('H100 PCIe', 2.0e12, {'bfloat16': 756e12, 'float16': 756e12,
-                           'float32': 378e12 / 3,
-                           'float32_cuda_cores': 51e12}),
-    ('H100 NVL', 3.9e12, {'bfloat16': 835e12, 'float16': 835e12,
-                          'float32': 417.5e12 / 3,
-                          'float32_cuda_cores': 60e12}),
-    ('H100', 3.35e12, {'bfloat16': 989e12, 'float16': 989e12,
-                       'float32': 495e12 / 3,
-                       'float32_cuda_cores': 67e12}),
-]
+# The card's datasheet peaks (dense, no sparsity) come from the port's cost
+# model (paddle_tpu_torch/monitor/perf/costmodel.py, SKUS), the one table
+# both the kernel bounds below and the cost model's MFU read.
 
 # A kernel timed below its bound means the bound's count is wrong: any row
 # whose bound_ms / ms exceeds this raises.
@@ -309,10 +318,9 @@ def _check(ok, msg):
 
 
 def _sku(name):
-    for key, bw, ops in _SKUS:
-        if key in name:
-            return key, bw, ops
-    raise RuntimeError('no datasheet figures for %r' % name)
+    """(key, bytes/s, {dtype: ops/s}) of the card's datasheet row."""
+    from paddle_tpu_torch.monitor.perf import costmodel
+    return costmodel.sku(name)
 
 
 def _nvidia_smi():
@@ -377,8 +385,11 @@ def _profile(fn):
     The wall time is taken on a call without the profiler, which slows the
     host; the kernel times on a second call under torch.profiler. Their
     ratio is the card's busy share. An aten op's device time includes the
-    kernels of the ops it calls."""
+    kernels of the ops it calls. The trace opens on the port profiler's
+    pad (a trace can lose its first launches), left out of the sums."""
     from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.profiler import pad_window
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -387,10 +398,12 @@ def _profile(fn):
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_window()
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and 'spin_kernel' not in e.key]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     ops = sorted((e for e in prof.key_averages()
@@ -423,11 +436,11 @@ def _flash_bound_ms(b, h, n, m, d, dtype, causal, sku, cuda_cores=False):
     these inputs need (causal: the visible pairs only) over the peak rate
     for their type (f32: split TF32, or with cuda_cores the FFMA rate).
     Returns (ms, 'bytes' or 'operations')."""
+    from paddle_tpu_torch.monitor.perf import costmodel
     _, bw, ops = sku
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * b * h * n * d + 2 * b * h * m * d) * item + 4 * b * h * n
-    pairs = (sum(min(i + 1, m) for i in range(n)) if causal else n * m)
-    flops = 4 * d * b * h * pairs
+    flops = costmodel.flash_fwd_flops(b, h, n, m, d, causal)
     t_bytes = nbytes / bw * 1e3
     t_ops = flops / ops[_rate_name(dtype, cuda_cores)] * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else
@@ -506,7 +519,7 @@ def _qkv(gen, b, h, n, m, d, dtype, strided):
 
 def _check_kernel_names(fn, want, what):
     """The flash kernels fn launches, by name from the profiler over 3
-    calls (a single profiled call can miss its first kernel): every name
+    calls after its pad (a trace can lose its first launches): every name
     in `want` and no CUDA-core kernel (flash_*_cc_kernel). Returns the
     names."""
     flash = sorted(n for n in _kernels_ms(fn, calls=3)
@@ -585,15 +598,14 @@ def _bwd_bound_ms(b, h, n, m, d, dtype, causal, which, sku, cuda_cores=False):
     each visible pair) over the peak rate for their type (f32: split TF32,
     or with cuda_cores the FFMA rate). Returns (ms, 'bytes' or
     'operations')."""
+    from paddle_tpu_torch.monitor.perf import costmodel
     _, bw, ops = sku
     item = torch.empty((), dtype=dtype).element_size()
     q_elems, k_elems = b * h * n * d, b * h * m * d
     written = {'fused': q_elems + 2 * k_elems, 'dq': q_elems,
                'dkv': 2 * k_elems}[which]
     nbytes = (2 * q_elems + 2 * k_elems + written) * item + 2 * 4 * b * h * n
-    pairs = (sum(min(i + 1, m) for i in range(n)) if causal else n * m)
-    products = {'fused': 5, 'dq': 3, 'dkv': 4}[which]
-    flops = products * 2 * d * b * h * pairs
+    flops = costmodel.flash_bwd_flops(b, h, n, m, d, causal, which)
     t_bytes = nbytes / bw * 1e3
     t_ops = flops / ops[_rate_name(dtype, cuda_cores)] * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else
@@ -733,19 +745,25 @@ def _check_same_dq(call, dq, name, shape):
 
 def _kernels_ms(fn, calls=10):
     """{kernel name: mean device ms a launch} over `calls` calls of fn
-    under torch.profiler: the fused backward's two kernels apart."""
+    under torch.profiler: the fused backward's two kernels apart. The
+    trace opens on the port profiler's pad (a trace can lose its first
+    launches: cupti_probe.py), left out."""
     from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.profiler import pad_window
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_window()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     return {e.key.split('<')[0].split('::')[-1]:
             e.self_device_time_total / 1e3 / e.count
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and 'spin_kernel' not in e.key}
 
 
 def _sdpa_bwd_ms(q, k, v, do, causal, scale):
@@ -2021,11 +2039,12 @@ OP_ROUTES = [
 ]
 
 
-# GPT-2 small as phase 19 (b) and phase 20 (a, b) compile it: its width,
-# vocabulary and sequence, cut to 6 of its 12 layers. Inductor's
-# compile of the Predictor's and the Executor's programs grows with the
-# depth (34-40 s each at 12 layers), and the cut makes room for phase 23
-# in chip_smoke's time limit.
+# GPT-2 small as phase 19 (b) and phase 20 (a, b) compile it, and the
+# bench GPT as phase 19 (a) compiles it: their width, vocabulary and
+# sequence, cut to 6 of their 12 layers. Inductor's compile of the
+# Predictor's and the Executor's programs grows with the depth (34-40 s
+# each at 12 layers), as does the to_static bench step's (53.6 s at 12):
+# the cuts make room for phases 23 and 24 in chip_smoke's time limit.
 COMPILED_GPT2_LAYERS = 6
 
 
@@ -2164,17 +2183,46 @@ def static_parity_phase():
     torch.cuda.empty_cache()
 
 
+def _eager_median_ms(cfg, steps=10):
+    """Median ms of the eager forward + loss + backward + AdamW step of
+    the bench model at `cfg` (bf16, the bench batch), after 2 warm-up
+    steps: the to_static step's yardstick at the same depth."""
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model, _, ids, labels = _train_setup(
+        cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    model.train()
+
+    def fn(i, l):
+        return model.loss(model(i), l)
+    _eager_or_static_steps(model, opt, fn, ids, labels, 2)
+    step_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _eager_or_static_steps(model, opt, fn, ids, labels, 1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del model, opt
+    torch.cuda.empty_cache()
+    return sorted(step_ms)[steps // 2]
+
+
 def static_train_phase(sku, main):
     """(3) Path (a): the bench's training step with the forward and the
-    loss under to_static, at full width."""
+    loss under to_static, at full width cut to COMPILED_GPT2_LAYERS
+    layers (Inductor's compile of the 12-layer step took 53.6 s on an
+    H100), against the same step eager at that depth."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.models.gpt import GPTConfig
 
-    cfg = GPTConfig(**BENCH_CFG)
+    cfg = GPTConfig(**dict(BENCH_CFG, num_layers=COMPILED_GPT2_LAYERS))
     layers = cfg.num_layers
     gc.collect()
     torch.cuda.empty_cache()
+    eager_ms = _eager_median_ms(cfg)
     model, _, ids, labels = _train_setup(
         cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
     opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
@@ -2223,13 +2271,14 @@ def static_train_phase(sku, main):
         _eager_or_static_steps(model, opt, step, ids, labels, 1)
     wall, dev, top, ops = _profile(one_step)
     clones = sum(c for name, _, c in ops if name == 'aten::clone')
-    print('to_static train bf16 (path a): compile %.1f s forward + %.1f s '
-          'backward, 1 graph, 0 breaks, median step %.2f ms (min %.2f, max '
-          '%.2f) against phase 6\'s eager TrainStep %.2f ms in this run, '
-          'peak memory %.2f GiB (phase 6: %.2f), launches a step %s, '
+    print('to_static train bf16 (path a, %d layers): compile %.1f s '
+          'forward + %.1f s backward, 1 graph, 0 breaks, median step %.2f '
+          'ms (min %.2f, max %.2f) against the same step eager %.2f ms '
+          '(phase 6\'s 12-layer TrainStep %.2f ms) in this run, peak '
+          'memory %.2f GiB (phase 6: %.2f), launches a step %s, '
           '_rows_aligned copies over %d steps %d, losses %s'
-          % (fwd_compile_s, bwd_compile_s, median, min(step_ms),
-             max(step_ms), main['median_ms'], peak / 2 ** 30,
+          % (layers, fwd_compile_s, bwd_compile_s, median, min(step_ms),
+             max(step_ms), eager_ms, main['median_ms'], peak / 2 ** 30,
              main['peak'] / 2 ** 30, per_step[0], steps, copies,
              ['%.4f' % x for x in losses]), flush=True)
     print('profile to_static train step: wall %.2f ms, device kernels %.2f '
@@ -2241,7 +2290,8 @@ def static_train_phase(sku, main):
     del model, opt, step
     torch.cuda.empty_cache()
     return {'launches': {k: steps * v for k, v in per_step[0].items()},
-            'steps': steps, 'median_ms': median, 'busy': dev / wall,
+            'steps': steps, 'median_ms': median, 'eager_ms': eager_ms,
+            'layers': layers, 'busy': dev / wall,
             'peak': peak, 'compile_s': fwd_compile_s + bwd_compile_s,
             'aligned_copies': copies}
 
@@ -2250,7 +2300,8 @@ def predictor_phase():
     """(4) Path (b): jit.save of GPT-2 small (seeded weights,
     COMPILED_GPT2_LAYERS layers) with InputSpec([8, 768], 'int64'),
     jit.load, then a Predictor on the card in f32 and in
-    PrecisionType.Bfloat16, run on 8 x 768 token ids."""
+    PrecisionType.Bfloat16, run on 8 x 768 token ids. The f32 Predictor
+    (its program compiled) is kept for phase 24 (c)'s watchdog."""
     import shutil
     import tempfile
 
@@ -2349,6 +2400,8 @@ def predictor_phase():
                       label, compile_s, rows[label]['run_p50_ms'],
                       cfg.vocab_size, rows[label]['program_p50_ms'],
                       sorted(eager_ms)[2], err, layers), flush=True)
+            if label == 'f32':
+                kept = (pred, ids_np)
             del pred, out, got, tensor
             torch.cuda.empty_cache()
     finally:
@@ -2359,7 +2412,7 @@ def predictor_phase():
     del model, want
     torch.cuda.empty_cache()
     return {'rows': rows, 'eager_p50_ms': sorted(eager_ms)[2],
-            'save_s': save_s, 'exported_err': err_exported}
+            'save_s': save_s, 'exported_err': err_exported, 'keep': kept}
 
 
 def slice10_phases(sku, main):
@@ -5528,6 +5581,464 @@ def slice14_phases(card, sku):
     return out
 
 
+# -- phase 24: slice 15, the observability plane ------------------------------
+
+# the bench step's flash kernels by name, as _check_kernel_names reads them:
+# the forward's, and the fused backward's two (dk/dv, then dq)
+FLASH_TRAIN_KERNELS = ('flash_fwd_tma_kernel', 'flash_bwd_kv_tma_kernel',
+                       'flash_bwd_dq_tma_kernel')
+# phase 24 (c): a batch no earlier phase compiles GPT-2 small at
+WATCHDOG_BATCH = 3
+
+
+def _lost_launches(trace):
+    """(launches, lost) of a Chrome trace: the host's kernel launches
+    (runtime or driver events named *LaunchKernel*), and those whose
+    correlation id has no device kernel, as (position in launch order,
+    host us after the first launch)."""
+    events = trace['traceEvents']
+    launches = sorted((e for e in events
+                       if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                       and 'LaunchKernel' in e.get('name', '')),
+                      key=lambda e: e['ts'])
+    found = {e['args'].get('correlation') for e in events
+             if e.get('cat') == 'kernel'}
+    t0 = launches[0]['ts'] if launches else 0.0
+    lost = [(i, e['ts'] - t0) for i, e in enumerate(launches)
+            if e['args'].get('correlation') not in found]
+    return len(launches), lost
+
+
+def profiler_phase(card):
+    """(a) paddle_tpu_torch.profiler.Profiler around two steps of phase 6's
+    bf16 bench TrainStep: the device trace holds 12 + 12 flash launches a
+    step by kernel name, a RecordEvent region lands both in the trace and
+    in the tracer's FlightRecorder, and merge_traces of the trace and the
+    recorder's Chrome export loads back through load_profiler_result."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import profiler as prof_mod
+    from paddle_tpu_torch.monitor import tracing
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    t0 = time.time()
+    cfg = GPTConfig(**BENCH_CFG)
+    model, step, ids, labels = _train_setup(
+        cfg, 'cuda', SEED, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
+    step(ids, labels).item()                       # warm-up
+    tracer = tracing.Tracer(registry=MetricRegistry())
+    prev = tracing.set_default_tracer(tracer)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_prof_')
+    try:
+        rank_dir = os.path.join(tmp, 'rank0')
+        host_dir = os.path.join(tmp, 'host')
+        # step 0 is the trace's warm-up, steps 1 and 2 are recorded after
+        # the profiler's pad (the launches a trace can lose at the start
+        # of its window, cupti_probe.py)
+        _reset_counts(fa)
+        prof = prof_mod.Profiler(log_dir=rank_dir, scheduler=(1, 3))
+        with prof:
+            for _ in range(3):
+                with prof_mod.RecordEvent('chip_smoke.train_step'):
+                    loss = step(ids, labels)
+                loss.item()
+                prof.step()
+        launches = _launches(fa)
+        steps, layers = 2, cfg.num_layers
+        _check(launches == _want(steps + 1, flash_fwd=layers,
+                                 flash_bwd_fused=layers),
+               'profiled steps launched %s' % launches)
+        device = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        flash = {k: sum(n for name, n in device.items() if k in name)
+                 for k in FLASH_TRAIN_KERNELS}
+        _check(all(v == steps * layers for v in flash.values()),
+               'the profiled trace holds %s flash kernels over %d steps, '
+               'want %d of each (its device events: %s)'
+               % (flash, steps, steps * layers,
+                  [(n[:80], c) for n, c in device.most_common(12)]))
+        with open(prof.trace_path) as fh:
+            trace = json.load(fh)
+        n_launch, lost = _lost_launches(trace)
+        regions = [e for e in trace['traceEvents']
+                   if e.get('name') == 'chip_smoke.train_step']
+        spans = [sp for sp in tracer.recorder.spans()
+                 if sp['name'] == 'chip_smoke.train_step']
+        _check(len(regions) >= steps and len(spans) == steps + 1,
+               'RecordEvent: %d trace events (want %d recorded steps), %d '
+               'flight spans (want %d)' % (len(regions), steps, len(spans),
+                                           steps + 1))
+        tracer.recorder.export_chrome(os.path.join(host_dir,
+                                                   'host.trace.json'))
+        merged = prof_mod.merge_traces(
+            [rank_dir, host_dir], os.path.join(tmp, 'merged', 'all.json'))
+        (found,) = prof_mod.load_profiler_result(os.path.dirname(merged))
+        with open(found) as fh:
+            lanes = {e['args']['name'] for e in json.load(fh)['traceEvents']
+                     if e.get('name') == 'process_name'}
+        _check(any(n.startswith('rank 0: ') for n in lanes) and
+               any(n.startswith('rank 1: ') for n in lanes),
+               'merged lanes %s' % sorted(lanes))
+        # the steps' kernels alone: the trace's kernel events without the
+        # profiler's pad of device sleeps (spin_kernel)
+        kernels = [e for e in trace['traceEvents']
+                   if e.get('cat') == 'kernel']
+        pad = [e['dur'] for e in kernels if 'spin_kernel' in e['name']]
+        device_ms = (sum(e['dur'] for e in kernels) - sum(pad)) / 1e3 / steps
+    finally:
+        tracing.set_default_tracer(prev)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print('phase 24 (a) profiler: 2 bf16 bench steps recorded (after a '
+          'warm-up step) by paddle_tpu_torch.profiler on %s: flash kernels '
+          '%s (%d a step each), %d host launches (the first %d the '
+          'profiler\'s pad: %d of its kernels in the trace, %.2f ms) of '
+          'which %d have no device kernel %s, device kernels %.2f ms a '
+          'step, RecordEvent in the trace (%d events) and the flight '
+          'recorder (%d spans), merged lanes %s; %.1f s'
+          % (card, flash, layers, n_launch, prof_mod.PAD_LAUNCHES,
+             len(pad), sum(pad) / 1e3, len(lost), lost[:8], device_ms,
+             len(regions), len(spans), sorted(lanes), time.time() - t0),
+          flush=True)
+    return model, ids, labels, {'flash': flash, 'device_ms': device_ms,
+                                'launches': n_launch, 'lost': len(lost)}
+
+
+def _hand_flops(cfg, batch, seq):
+    """The bench step's FLOPs from its configuration: every layer's four
+    GEMMs (q/k/v, out, fc1, fc2: 12 h^2 multiply-adds a token) forward and
+    backward (6 a multiply-add), the fused LM head's four GEMMs (forward;
+    the logits again, dx and dw), and the flash products as the kernel
+    bounds count them (2 + 5 of 2 * d a visible pair)."""
+    from paddle_tpu_torch.monitor.perf import costmodel
+    h, layers, vocab = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    heads = cfg.num_heads
+    d = h // heads
+    tokens = batch * seq
+    gemms = layers * 6 * tokens * 12 * h * h
+    head = 4 * 2 * tokens * h * vocab
+    flash = layers * (
+        costmodel.flash_fwd_flops(batch, heads, seq, seq, d, True) +
+        costmodel.flash_bwd_flops(batch, heads, seq, seq, d, True, 'fused'))
+    return gemms + head + flash
+
+
+def costmodel_phase(card, model, ids, labels, train):
+    """(b) Model.summary_perf of the bench GPT at full width (bf16): its
+    FLOPs within 1% of the hand count, its MFU from phase 6's measured
+    step, neither MFU nor the roofline share above MAX_SHARE_OF_BOUND."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    t0 = time.time()
+    cfg = GPTConfig(**BENCH_CFG)
+    hapi = tpt.Model(model)
+    hapi.prepare(optimizer=AdamW(learning_rate=TRAIN_LR,
+                                 parameters=model.parameters()),
+                 loss=model.loss)
+    before = torch.cuda.memory_allocated()
+    reg = MetricRegistry()
+    est = hapi.summary_perf(ids, labels, step_seconds=train['median_ms'] / 1e3,
+                            registry=reg)
+    grew = (torch.cuda.memory_allocated() - before) / 2 ** 30
+    want = _hand_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    rel = abs(est['flops'] - want) / want
+    _check(rel <= 0.01, 'cost model %.6g FLOPs against the hand count '
+           '%.6g (%.4f apart)' % (est['flops'], want, rel))
+    for key in ('mfu_est', 'roofline_frac'):
+        _check(est[key] <= MAX_SHARE_OF_BOUND,
+               '%s %.4f above %.2f: the count or the peak is wrong'
+               % (key, est[key], MAX_SHARE_OF_BOUND))
+    _check(reg.get('perf_mfu_est').value() == est['mfu_est'],
+           'the perf_mfu_est gauge does not carry the estimate')
+    print('phase 24 (b) cost model: Model.summary_perf of the bench GPT '
+          '(bf16, batch %d x %d) on %s: %.6g FLOPs (hand count %.6g, %.2e '
+          'apart), %.6g bytes accessed (unfused), intensity %.1f FLOP/B '
+          '(ridge %.1f, %s-bound), ideal step %.2f ms at the %s peak (%.0f '
+          'TFLOP/s, %.2f TB/s); phase 6 median %.2f ms: mfu_est %.4f, '
+          'roofline_frac %.4f; device memory grew %.3f GiB; %.1f s' % (
+              TRAIN_BATCH, TRAIN_SEQ, card, est['flops'], want, rel,
+              est['bytes_accessed'], est['arithmetic_intensity'],
+              est['ridge_intensity'], est['roofline_bound'],
+              est['ideal_step_s'] * 1e3, est['platform'],
+              est['peak_flops'] / 1e12, est['peak_bandwidth'] / 1e12,
+              train['median_ms'], est['mfu_est'], est['roofline_frac'],
+              grew, time.time() - t0), flush=True)
+    return {k: est[k] for k in ('flops', 'bytes_accessed', 'mfu_est',
+                                'roofline_frac', 'ideal_step_s',
+                                'roofline_bound')}
+
+
+def watchdog_phase(kept):
+    """(c) A CompileWatchdog on phase 19 (b)'s f32 GPT-2 small Predictor
+    (its program compiled there): after declare_warmup() three runs of the
+    same shape count 0 recompiles; a new batch size counts 1, attributed
+    to this file, and under strict=True raises RecompileError from the
+    run."""
+    from paddle_tpu_torch.monitor import tracing
+    from paddle_tpu_torch.monitor.perf import CompileWatchdog, RecompileError
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+
+    t0 = time.time()
+    pred, ids_np = kept
+    reg = MetricRegistry()
+    tracer = tracing.Tracer(registry=reg)
+    wd = CompileWatchdog(registry=reg, tracer=tracer, name='chip_smoke')
+    try:
+        compiles = pred.compile_count()
+        wd.declare_warmup('phase 19 (b) compiled')
+        for _ in range(3):
+            pred.run([ids_np])
+        _check(wd.recompiles == 0 and pred.compile_count() == compiles,
+               'same-shape runs after the barrier: %d recompiles'
+               % wd.recompiles)
+        wd.strict = True
+        small = ids_np[:WATCHDOG_BATCH]
+        try:
+            pred.run([small])
+            raised = False
+        except RecompileError:
+            raised = True
+        _check(raised, 'strict mode did not raise on a new batch size')
+        rec = wd.records[-1] if wd.records else {}
+        _check(wd.recompiles == 1 and
+               os.path.basename(str(rec.get('callsite')).split(':')[0]) ==
+               os.path.basename(__file__),
+               'new batch: %d recompiles, attributed to %s'
+               % (wd.recompiles, rec.get('callsite')))
+        ring = [sp for sp in tracer.recorder.spans()
+                if sp['name'] == 'perf.recompile']
+        _check(len(ring) == 1, 'recompile records in the flight ring: %d'
+               % len(ring))
+        report = wd.report()
+    finally:
+        wd.close()
+    print('phase 24 (c) watchdog on the f32 GPT-2 small Predictor: 0 '
+          'recompiles over 3 same-shape runs after the barrier; batch %d: '
+          '%d recompile at %s (signature %s, %.1f s), RecompileError under '
+          'strict; stage counts %s; %.1f s' % (
+              WATCHDOG_BATCH, wd.recompiles, rec['callsite'],
+              rec['signature'], rec['duration_s'], report['counts'],
+              time.time() - t0), flush=True)
+    return {'recompiles': wd.recompiles, 'compile_s': rec['duration_s'],
+            'counts': report['counts']}
+
+
+def serving_observability_phase(card):
+    """(d) Two in-process GPT-2 small replicas (f32, full width) behind a
+    ServingGateway wired to the observability plane: attach_fleet (plus
+    the gateway's own registry) on a FleetCollector, an AlertManager with
+    a threshold rule on fleet_target_up and a burn-rate rule over the
+    merged gateway TTFT (federated_burn_source feeding the autoscaler's
+    burn), a RequestLog with a rotating sink, a Tracer with a recorder and
+    retention, a MetricsServer. A chaos partition of replica 1 (and of
+    its scrape target) mid-flight is failed over: the threshold rule fires
+    once with one flight dump, the failed-over requests' traces are
+    retained; /fleet, /alerts and /requests answer JSON; the tokens equal
+    one engine's, with no flash launch."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from paddle_tpu_torch.monitor import events, tracing
+    from paddle_tpu_torch.monitor.alerts import (AlertManager, BurnRateRule,
+                                                 ThresholdRule,
+                                                 federated_burn_source)
+    from paddle_tpu_torch.monitor.federation import FleetCollector
+    from paddle_tpu_torch.monitor.registry import MetricRegistry
+    from paddle_tpu_torch.monitor.server import MetricsServer
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          ServingGateway)
+    from paddle_tpu_torch.testing import chaos
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_obs_')
+    reg = MetricRegistry()
+    tracer = tracing.Tracer(
+        registry=reg,
+        recorder=tracing.FlightRecorder(dump_dir=os.path.join(tmp, 'flight'),
+                                        registry=reg),
+        retention=tracing.TraceRetention(registry=reg))
+    log = events.RequestLog(sink_path=os.path.join(tmp, 'requests.jsonl'),
+                            max_sink_bytes=4096, sink_backups=2,
+                            registry=reg)
+    prev_tracer = tracing.set_default_tracer(tracer)
+    prev_log = events.set_default_request_log(log)
+    srv = None
+    try:
+        cfg = GPTConfig.gpt2_small()
+        model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
+        gen = torch.Generator().manual_seed(SEED + 24)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                 generator=gen).tolist()
+                   for n in GATEWAY_PROMPT_LENS]
+        new = GATEWAY_NEW
+        kw = dict(max_len=352, prefill_chunk=32, decode_block=4)
+
+        def slot():
+            return ContinuousBatchingEngine(model, num_slots=2, **kw)
+
+        want = slot().generate(prompts, max_new_tokens=new)
+        log.clear()
+        gw = ServingGateway(slot, replicas=2, registry=reg)
+        fc = FleetCollector(registry=reg, tracer=tracer)
+        gw.attach_fleet(fc)
+        fc.add_target('gateway', registry=gw.registry)
+        slo = reg.get('gateway_ttft_seconds').buckets[10]
+        gw.burn_source = federated_burn_source(fc, slo, window_s=30.0)
+        mgr = AlertManager(
+            [ThresholdRule('replica-1-down', 'fleet_target_up', 0.5, op='<',
+                           labels={'instance': 'gw-replica-1'}),
+             BurnRateRule('gateway-ttft-burn', 'gateway_ttft_seconds', slo,
+                          objective=0.95, windows=((30.0, 5.0, 1.0),))],
+            source=fc.merged, registry=reg, recorder=tracer.recorder)
+        srv = MetricsServer(registry=reg, tracer=tracer, collector=fc,
+                            alerts=mgr, events=log).start()
+        fc.scrape()
+        mgr.evaluate()
+        _check(mgr.firing() == [], 'alerts firing before the fault: %s'
+               % mgr.firing())
+        _reset_counts(fa)
+        target = next(t for t in fc.targets()
+                      if t.instance == 'gw-replica-1')
+        kill_at = len(prompts) // 2
+        reqs, expected, faults, edges = [], None, [], []
+        try:
+            for i, p in enumerate(prompts):
+                if i == kill_at:
+                    for ep in (gw.pool[1].endpoint, target.endpoint):
+                        ctx = chaos.partition(ep)
+                        faults.append((ctx, ctx.__enter__()))
+                    expected = len([g for g in gw.pool[1].assigned
+                                    if len(g.tokens) < new])
+                reqs.append(gw.submit(p, max_new_tokens=new))
+                gw.step()
+                if i >= kill_at:
+                    fc.scrape()
+                    edges += mgr.evaluate()
+            while any(not r.done for r in reqs):
+                gw.step()
+            fc.scrape()
+            edges += mgr.evaluate()
+            burn = gw.burn_source(time.monotonic())
+        finally:
+            for ctx, _ in faults:
+                ctx.__exit__(None, None, None)
+        _check(chaos.active_faults() == 0, 'a chaos fault leaked')
+        bad = [i for i, (w, r) in enumerate(zip(want, reqs))
+               if w != r.tokens]
+        _check(not bad, 'the observed gateway diverges from one engine on '
+               'prompts %s' % bad)
+        failovers = reg.get('gateway_failover_total').value()
+        _check(expected and failovers == expected,
+               'failovers %d, replica 1 had %s in flight'
+               % (failovers, expected))
+        fired = [e for e in edges if e == ('replica-1-down', 'firing')]
+        dumps = [f for f in os.listdir(os.path.join(tmp, 'flight'))
+                 if f.startswith('flight_alert_firing_')]
+        _check(len(fired) == 1 and len(dumps) == 1,
+               'the threshold rule fired %d times with %d flight dumps '
+               '(edges %s)' % (len(fired), len(dumps), edges))
+        moved = [r for r in reqs if r.failovers]
+        kept = [tracer.retention.get(r._eng_req._span.trace_id)
+                for r in moved]
+        reasons = {x for r in moved for t in tracer.retention.traces()
+                   if t['trace_id'] == r._eng_req._span.trace_id
+                   for x in t['reasons']}
+        _check(moved and all(kept) and 'failover' in reasons,
+               'failed-over traces retained: %d of %d (reasons %s)'
+               % (sum(1 for k in kept if k), len(moved), reasons))
+        bodies = {}
+        for route in ('/fleet', '/alerts', '/requests?min_failovers=1'):
+            with urllib.request.urlopen(srv.url + route, timeout=10) as r:
+                bodies[route.split('?')[0]] = json.loads(r.read().decode())
+        _check(bodies['/fleet']['targets']['gw-replica-1']['up'] is False
+               and bodies['/alerts']['firing'] == ['replica-1-down'] and
+               bodies['/requests']['count'] == len(moved),
+               'routes: fleet %s, alerts firing %s, %d failed-over events'
+               % (bodies['/fleet']['targets'], bodies['/alerts']['firing'],
+                  bodies['/requests']['count']))
+        rotations = reg.get('request_sink_rotations_total').value()
+        _check(rotations >= 1 and len(log.events()) == len(prompts),
+               'sink rotations %d, %d events' % (rotations,
+                                                 len(log.events())))
+        launches = _launches(fa)
+        _check(launches == _want(1), 'the gateway launched a flash kernel: '
+               '%s' % launches)
+        wide = log.events()
+    finally:
+        if srv is not None:
+            srv.stop()
+        tracing.set_default_tracer(prev_tracer)
+        events.set_default_request_log(prev_log)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print('phase 24 (d) serving observability on %s: GPT-2 small f32, 2 '
+          'replicas, %d prompts, replica 1 partitioned at request %d (%d in '
+          'flight -> %d failovers), tokens identical to one engine; alert '
+          'edges %s, %d flight dump on the firing edge, %d failed-over '
+          'traces retained, %d sink rotations, federated burn %.3f; /fleet '
+          '/alerts /requests answered; flash launches %d; %.1f s' % (
+              card, len(prompts), kill_at, expected, failovers, edges,
+              len(dumps), len(moved), rotations, burn,
+              sum(launches.values()), time.time() - t0), flush=True)
+    del model, gw
+    torch.cuda.empty_cache()
+    return wide
+
+
+def simulator_phase(wide):
+    """(e) ServiceModel.from_events fitted on (d)'s wide events, then the
+    same trace simulated: the K-S statistic and the p50 / p99 TTFT errors
+    (finite; the CPU tests hold the simulator's parity)."""
+    from paddle_tpu_torch.capacity import (ServiceModel, simulate,
+                                           trace_from_events,
+                                           ttft_divergence, ttfts_of_events)
+
+    t0 = time.time()
+    ok = [e for e in wide if e['outcome'] == 'ok']
+    trace = trace_from_events(ok)
+    model = ServiceModel.from_events(ok, prefill_chunk=32, decode_block=4,
+                                     num_slots=2, trace=trace, replicas=2)
+    sim = simulate(trace, model, replicas=2)
+    div = ttft_divergence(sim.ttft(), ttfts_of_events(ok))
+    _check(all(math.isfinite(v) for v in div.values()),
+           'simulator divergence %s' % div)
+    print('phase 24 (e) simulator: fitted on %d wide events (prefill chunk '
+          '%.4f s, decode burst %.4f s), K-S %.3f, p50 TTFT error %.3f, p99 '
+          '%.3f; %.1f s' % (len(ok), model.prefill_chunk_s,
+                            model.decode_burst_s, div['ks'],
+                            div['p50_rel_err'], div['p99_rel_err'],
+                            time.time() - t0), flush=True)
+    return div
+
+
+def slice15_phases(card, train, kept):
+    """Phase 24: the observability plane on the card."""
+    t0 = time.time()
+    model, ids, labels, prof = profiler_phase(card)
+    out = {'profiler': prof}
+    out['cost'] = costmodel_phase(card, model, ids, labels, train)
+    del model, ids, labels
+    _collect_garbage()
+    torch.cuda.empty_cache()
+    out['watchdog'] = watchdog_phase(kept)
+    del kept
+    torch.cuda.empty_cache()
+    out['simulator'] = simulator_phase(serving_observability_phase(card))
+    out['seconds'] = time.time() - t0
+    print('phase 24 (slice 15): %.1f s' % out['seconds'], flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -5603,6 +6114,8 @@ def main():
     timed(slice12_phases, card)
     slice13 = timed(slice13_phases, card)
     slice14 = timed(slice14_phases, card, sku)
+    slice15 = timed(slice15_phases, card, train,
+                    slice10['predictor'].pop('keep'))
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -5739,6 +6252,13 @@ def main():
             k['bert_launches_per_step'] = \
                 slice14['bert']['launches'][k['name']] // \
                 slice14['bert']['steps']
+    # slice 15: the profiled bench step's flash kernels by name (the fused
+    # backward's two kernels each once a launch of its entry)
+    prof = slice15['profiler']['flash']
+    kernels[0]['profiled_launches_per_step'] = \
+        prof['flash_fwd_tma_kernel'] // 2
+    kernels[1]['profiled_launches_per_step'] = \
+        prof['flash_bwd_kv_tma_kernel'] // 2
     enc = slice14['encoder']['encoder']
     encoder_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 non-causal'
     for kernel, source, line, row in (

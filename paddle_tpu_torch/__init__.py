@@ -24,7 +24,7 @@ __version__ = '0.1.0'
 from . import amp, framework, nn, ops, optimizer, text  # noqa: F401,E402
 from . import data, hapi, io, metric, regularizer  # noqa: F401,E402
 from . import autograd, inference, jit, static  # noqa: F401,E402
-from . import distributed, monitor, tensor  # noqa: F401,E402
+from . import distributed, monitor, profiler, tensor  # noqa: F401,E402
 from .tensor import *  # noqa: F401,F403,E402
 from .tensor import einsum  # noqa: F401,E402
 from .tensor.creation import to_tensor  # noqa: F401,E402
@@ -143,8 +143,6 @@ _ABSENT = {
     'dataset': _BREADTH % 'dataset/',
     'batch': _BREADTH % 'batch.py',
     'incubate': _BREADTH % 'the rest of incubate/',
-    'profiler': ('is not ported yet (ROADMAP Queue 1 item 4, observability '
-                 'and planning: profiler/)'),
 }
 
 

@@ -11,8 +11,9 @@ threaded). The same `QosPolicy` object therefore drives three
 consumers without adaptation:
 
 - `ServingGateway(admission=policy)` — real traffic, real clock;
-- the reference's fleet simulator and `tools/capacity_report.py
-  --qos-policy` (not ported yet) — the same decisions in virtual time.
+- `capacity.simulator.simulate(trace, ..., qos=policy)` — the same
+  admission decisions at million-request scale in virtual time;
+- `tools/capacity_report.py --qos-policy` — policy sweeps from JSON.
 
 Vocabulary (closed sets — metrics label budgets depend on this):
 

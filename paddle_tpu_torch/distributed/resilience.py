@@ -23,9 +23,9 @@ paddle_tpu/distributed/resilience.py).
 
 With tracing on, a call runs under an ``rpc.call`` span with one
 ``rpc.attempt`` child per wire attempt, whose context rides the message
-under ``tracing.TRACE_KEY``. The reference's flight-recorder dumps
-(``maybe_dump`` on a deadline or an opened breaker) have no counterpart:
-the port's tracer keeps its ring without dumps to disk.
+under ``tracing.TRACE_KEY``. A deadline that expires and a breaker that
+opens each request a throttled flight dump of the tracer's ring
+(``maybe_dump('deadline_expired')`` / ``maybe_dump('circuit_open')``).
 
 Fault injection for tests rides through ``_fire()``: the hooks list is
 empty (zero cost) until paddle_tpu_torch.testing.chaos installs
@@ -272,8 +272,8 @@ class CircuitBreaker:
 
     def record_failure(self):
         """Count one failure; returns True exactly when this failure
-        (re)opened the breaker — one edge per failure storm, not one per
-        call (the gateway tags its failover span with it)."""
+        (re)opened the breaker — the edge the flight recorder dumps on,
+        so a failure storm yields one dump, not one per call."""
         with self._lock:
             was = self._state_locked()
             self._failures += 1
@@ -441,6 +441,7 @@ class ResilientChannel:
                 self._m_deadline.inc()
                 if span:
                     span.set_tag('deadline_expired', True)
+                    tr.recorder.maybe_dump('deadline_expired')
                 raise DeadlineExceeded(
                     'deadline expired before attempt %d to %s'
                     % (attempt, self.endpoint),
@@ -475,6 +476,8 @@ class ResilientChannel:
                 self._m_deadline.inc()
                 att.set_error(e)
                 att.finish()
+                if span:
+                    tr.recorder.maybe_dump('deadline_expired')
                 raise
             except Exception as e:
                 self._drop_connection()
@@ -482,8 +485,11 @@ class ResilientChannel:
                 att.finish()
                 if not self.policy.is_retryable(e):
                     raise
-                self.breaker.record_failure()
+                opened = self.breaker.record_failure()
                 self._m_failures.inc()
+                if opened and span:
+                    # the failing attempt span is already in the ring
+                    tr.recorder.maybe_dump('circuit_open')
                 last_exc = e
                 if attempt < attempts:
                     delay = self.policy.backoff(attempt)
@@ -500,6 +506,7 @@ class ResilientChannel:
             self._m_deadline.inc()
             if span:
                 span.set_tag('deadline_expired', True)
+                tr.recorder.maybe_dump('deadline_expired')
             raise DeadlineExceeded(
                 'deadline expired after %d attempts to %s: %r'
                 % (attempts, self.endpoint, last_exc),

@@ -33,9 +33,8 @@ of paddle_tpu/distributed/supervisor.py).
     client journals -> abort with ``SupervisorAbort``. Recovery runs
     under a ``supervisor.recover`` span and feeds the ``supervisor_*``
     metric families (MTTR histogram, restart/escalation counters,
-    shards-alive gauge). The JAX supervisor also dumps its tracer's
-    flight recorder on recovery and abort; the port's tracer has no
-    flight recorder (ROADMAP Queue 1 item 2), so there is no dump.
+    shards-alive gauge), and dumps the tracer's flight recorder on
+    recovery and on abort (``supervisor_recover`` / ``supervisor_abort``).
 """
 import os
 import re
@@ -576,6 +575,7 @@ class ShardSupervisor:
                 self._m_escalations.labels('abort').inc()
                 if span:
                     span.set_tag('outcome', 'abort')
+                tr.recorder.maybe_dump('supervisor_abort')
                 raise
             st.alive = True
             st.misses = 0
@@ -585,6 +585,7 @@ class ShardSupervisor:
             if span:
                 span.set_tag('outcome', 'recovered')
                 span.set_tag('mttr_s', round(mttr, 6))
+        tr.recorder.maybe_dump('supervisor_recover')
         return mttr
 
     def _restart_stage(self, st, span):

@@ -20,9 +20,10 @@ hits.
 package's `_build/`). The compiled programs of `jit.to_static` and the
 inference `Predictor` are Inductor's; `configure_inductor(path)` points
 Inductor's own cache (its FX graphs and generated kernels) at a directory,
-where `Config.set_optim_cache_dir` asks for it. Not ported: ``disable()`` / ``enabled()`` (nvcc
-builds are always cached) and the per-thread tallies the reference's
-compile watchdog reads.
+where `Config.set_optim_cache_dir` asks for it. Not ported: ``disable()`` /
+``enabled()`` (nvcc builds are always cached) and the per-thread tallies
+the reference's compile watchdog reads: the port's watchdog reads
+Inductor's FX-graph-cache counters instead (monitor/perf/watchdog.py).
 """
 import threading
 

@@ -17,13 +17,16 @@ Differences from the JAX package, each on purpose:
   with an option it refuses, and re-raises everything else. prepare()
   passes TrainStep no such option yet (pp_state is one, ROADMAP Queue 1
   item 3(c)), so the eager loop waits for prepare() to pass one.
-- fit has no CompileWatchdog: the port compiles no XLA program, so there
-  is no steady-state recompile to watch. fit keeps the StepTimeline
-  (data_wait / host_dispatch / device_block); the last fit's timeline
-  stays readable as `last_timeline`.
+- fit wires a CompileWatchdog(owner=self) beside its StepTimeline
+  (data_wait / host_dispatch / device_block), with the warmup barrier
+  after the first eval pass as in the JAX package; the eager step
+  compiles nothing, so it counts 0 unless a to_static network compiles.
+  The last fit's timeline and watchdog stay readable as `last_timeline`
+  and `last_watchdog`.
 - save(training=False) exports through jit.save with prepare()'s inputs
-  as the input spec. summary_perf raises NotImplementedError: it reads
-  XLA's cost analysis.
+  as the input spec. summary_perf prices the TrainStep's step on fake
+  tensors (monitor/perf/costmodel.py) instead of reading XLA's cost
+  analysis; nothing runs on the device.
 - prepare(amp_configs=...) is accepted and ignored, as in the JAX package.
 """
 import contextlib
@@ -81,6 +84,7 @@ class Model:
         self._train_step = None
         self._perf_timeline = None    # StepTimeline while fit() runs
         self.last_timeline = None     # the last fit()'s StepTimeline
+        self.last_watchdog = None     # the last fit()'s CompileWatchdog
         self.stop_training = False
         self.mode = 'train'
 
@@ -185,7 +189,7 @@ class Model:
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
             accumulate_grad_batches=1, num_iters=None, supervisor=None):
         from ..io import DataLoader, Dataset
-        from ..monitor.perf import StepTimeline
+        from ..monitor.perf import CompileWatchdog, StepTimeline
         if isinstance(train_data, Dataset):
             train_loader = DataLoader(train_data, batch_size=batch_size,
                                       shuffle=shuffle, drop_last=drop_last,
@@ -210,9 +214,16 @@ class Model:
                                 metrics=[m.name() for m in self._metrics])
         cbks.on_train_begin()
         self.stop_training = False
+        wd = CompileWatchdog(owner=self, name='Model.fit')
+        self.last_watchdog = wd
         tl = StepTimeline()
         self._perf_timeline = tl
         self.last_timeline = tl
+        # everything up to and including the FIRST eval pass may
+        # legitimately compile; compiles after that barrier are
+        # steady-state recompiles
+        warmup_epoch = 0 if eval_loader is None \
+            else min(eval_freq, epochs) - 1
         it = 0
         cursor = None
         if supervisor is not None:
@@ -284,12 +295,15 @@ class Model:
                     logs.update({'eval_' + k: v
                                  for k, v in eval_logs.items()})
                     cbks.on_eval_end(eval_logs)
+                if epoch == warmup_epoch:
+                    wd.declare_warmup('Model.fit epoch %d done' % epoch)
                 cbks.on_epoch_end(epoch, logs)
                 if self.stop_training:
                     break
             cbks.on_train_end(logs)
         finally:
             self._perf_timeline = None
+            wd.close()
         return self
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
@@ -402,7 +416,25 @@ class Model:
 
     def summary_perf(self, inputs, labels=None, step_seconds=None,
                      registry=None):
-        raise NotImplementedError(
-            'Model.summary_perf reads XLA\'s cost analysis of the compiled '
-            'step (monitor/perf/costmodel.py), which the port does not '
-            'have; it comes with the observability queue')
+        """Cost-model companion to ``summary()``: price the TrainStep's
+        step for this batch on fake tensors and report analytic FLOPs,
+        bytes accessed, arithmetic intensity, roofline bound and ideal
+        step time against the card's peaks; with a measured
+        ``step_seconds``, also ``mfu_est`` and ``roofline_frac``. The
+        peak is the card's rate for the step's compute dtype: its AMP
+        dtype, else its parameters'. Publishes the perf gauges as a side
+        effect. Requires ``prepare(loss=..., optimizer=...)``; the batch
+        is moved to the network's device first, and nothing runs
+        there."""
+        from ..monitor.perf import costmodel
+        step = self._ensure_train_step()
+        dev = self._device()
+        dtype = step._amp_dtype or next(
+            (p.dtype for p in self.network.parameters()
+             if p.is_floating_point()), torch.float32)
+        est = costmodel.estimate(
+            step, (_to_device(inputs, dev), _to_device(labels, dev)),
+            step_seconds=step_seconds, dtype=dtype)
+        if est is not None:
+            costmodel.record(est, registry=registry)
+        return est

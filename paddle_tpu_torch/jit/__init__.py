@@ -13,7 +13,11 @@ fullgraph=True: a graph break raises (ToStaticError, naming the user's
 line) instead of running in pieces, unless the caller asks for pieces with
 `to_static(..., full_graph=False)`. A signature compiles once; TorchDynamo's
 recompile limit counts per code object, so no later signature runs
-eagerly, and hitting it raises.
+eagerly, and hitting it raises. While an after-call hook is registered
+(`add_after_call_hook`; an open CompileWatchdog registers one),
+`current_signature()` names the running program's signature, which the
+watchdog attributes a recompile to, and the hooks run as each call
+returns, where a strict watchdog raises its RecompileError.
 
 jit.save writes `.pdiparams` (the parameters and buffers through the
 port's io_save) and `.pdmodel` (the meta, the eval forward exported by
@@ -29,6 +33,7 @@ import functools
 import io
 import os
 import pickle
+import threading
 import types
 import warnings
 import weakref
@@ -42,6 +47,8 @@ from ..static.input_spec import InputSpec
 from .error import ToStaticError, trace_error_scope  # noqa: F401
 
 __all__ = ['to_static', 'save', 'load', 'TranslatedLayer', 'not_to_static',
+           'current_signature', 'add_after_call_hook',
+           'remove_after_call_hook',
            'ignore_module', 'StaticFunction', 'ProgramTranslator',
            'TracedLayer', 'InputSpec', 'declarative', 'set_verbosity',
            'set_code_level']
@@ -72,6 +79,48 @@ def _arg_key(a):
     except TypeError:
         return ('object', type(a).__name__, id(a))
     return ('value', a)
+
+
+# the signature key of the to_static call running on this thread, kept
+# only while an after-call hook is registered
+_calling = threading.local()
+
+# callables run, on the calling thread, as each to_static call returns
+_after_call_hooks = []
+
+
+def add_after_call_hook(fn):
+    """Run fn() as every to_static call returns; while any hook is
+    registered, current_signature() names the running call's signature."""
+    _after_call_hooks.append(fn)
+
+
+def remove_after_call_hook(fn):
+    """Unregister one registration of fn."""
+    _after_call_hooks.remove(fn)
+
+
+def _sig_text(key):
+    """'float32[2, 512] (grad), int64[2, 512]' for a signature key's
+    positional arguments, plus training / grad mode."""
+    def one(k):
+        if k[0] == 'tensor':
+            return '%s[%s]%s' % (k[2].replace('torch.', ''),
+                                 ', '.join(str(d) for d in k[1]),
+                                 ' (grad)' if k[4] else '')
+        if k[0] in ('list', 'tuple'):
+            return '(%s)' % ', '.join(one(x) for x in k[1:])
+        return repr(k[-1]) if k[0] == 'value' else k[0]
+    args, _, training, grad, _ = key
+    return '%s; training=%s grad=%s' % (', '.join(one(k) for k in args),
+                                        training, grad)
+
+
+def current_signature():
+    """The input signature of the to_static program compiling or running
+    on this thread, as text; None outside one."""
+    key = getattr(_calling, 'key', None)
+    return None if key is None else _sig_text(key)
 
 
 def _fresh_entry(fn):
@@ -158,6 +207,9 @@ class StaticFunction:
                 _fresh_entry(self._fn), fullgraph=self._full_graph,
                 dynamic=False,
                 backend=_counting_backend(self.compiles, key))
+        watched = bool(_after_call_hooks)
+        if watched:
+            outer, _calling.key = getattr(_calling, 'key', None), key
         try:
             with _fail_on_recompile_limit():
                 out = program(*args, **kwargs)
@@ -169,6 +221,12 @@ class StaticFunction:
                 # compile error)
                 self._fn(*args, **kwargs)
             raise
+        finally:
+            if watched:
+                _calling.key = outer
+        if _after_call_hooks:
+            for hook in list(_after_call_hooks):
+                hook()
         if first and not self.compiles[key]:
             raise RuntimeError(
                 'to_static: %r ran without compiling a program'

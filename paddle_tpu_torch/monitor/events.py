@@ -1,25 +1,29 @@
-"""Wide-event request log of the port's serving engines (counterpart of
-paddle_tpu/monitor/events.py, cut to what the engines call): ONE
-canonical structured record per serving request.
+"""Wide-event request log (counterpart of paddle_tpu/monitor/events.py,
+copied: it needs nothing but the standard library): ONE canonical
+structured record per serving request.
 
-Every request emits exactly one wide event at completion carrying its
-whole lifecycle: identity (request_id, tenant, trace_id), the four
-lifecycle timestamps, queue wait, prefill shape, token counts,
-prefix-cache and speculation outcomes, the integrated KV page·seconds
-the request held, and the terminal outcome. The trace_id links the event
-to the request's spans in the tracer's ring (tracing.py).
+Metrics answer "what is the fleet's p99"; this module answers "why was
+request X slow" and "which tenant held the KV pool". Every serving
+request — engine-direct or gateway-fronted — emits exactly one wide
+event at completion carrying the whole request lifecycle: identity
+(request_id, tenant, trace_id), the four lifecycle timestamps, queue
+wait, prefill shape, token counts, prefix-cache and speculation
+outcomes, the integrated KV page·seconds the request held, the failover
+history, and the terminal outcome. The trace_id links the event to the
+tail-retained span tree (tracing.TraceRetention).
 
+Discipline (matching registry/tracing):
 - the disabled fast path is one attribute load + one branch (`enabled`
   is a plain attribute; disabled ``emit`` returns immediately);
-- the in-memory ring is bounded and evictions are counted;
+- the in-memory ring is bounded and evictions are counted, never
+  silent; the optional JSONL sink (`sink_path`, or the
+  PADDLE_TPU_REQUEST_LOG environment variable) rotates at a size cap,
+  in the JAX package's line format, so tools/request_report.py,
+  tools/registry_report.py and tools/capacity_report.py read either
+  package's sink;
 - the schema is single-source: REQUEST_EVENT_FIELDS below is the only
-  place field names are declared, and emission validates against it.
-
-`parse_event_lines` reads the reference's dryrun event lines
-(`request_event(N)[tag]: {json}`) back into events, which is how the
-workload loader (capacity/workload.py) turns a capture into a trace. The
-reference's JSONL sink and the line writer feed its report tools, which
-the port does not have yet.
+  place field names are declared, and emission validates against it at
+  runtime. PADDLE_TPU_REQUEST_EVENTS=0 turns the default log off.
 
 Tenant labels are BOUNDED by construction: TenantLabeler interns the
 first `cap` distinct tenants it sees and folds everything else into a
@@ -28,6 +32,7 @@ families can never explode cardinality no matter what callers send.
 """
 import collections
 import json
+import os
 import re
 import threading
 import zlib
@@ -37,10 +42,12 @@ from .telemetry import record_request_event_schema
 
 __all__ = ['REQUEST_EVENT_FIELDS', 'FIELD_NAMES', 'RequestLog',
            'TenantLabeler', 'ModelLabeler', 'default_request_log',
-           'set_default_request_log', 'parse_event_lines', 'EVENT_LINE_RE']
+           'set_default_request_log', 'event_line', 'parse_event_lines',
+           'EVENT_LINE_RE']
 
-# The canonical wide-event schema: (field, help), the reference's own,
-# so one request's record reads the same from either package.
+# The canonical wide-event schema: (field, help), the reference's own, so
+# one request's record reads the same from either package. The runtime
+# validator, the /requests route and the report tools key off it.
 REQUEST_EVENT_FIELDS = (
     ('request_id', 'engine- or gateway-level request id'),
     ('tenant', 'normalized tenant label (bounded cardinality)'),
@@ -69,26 +76,38 @@ REQUEST_EVENT_FIELDS = (
 FIELD_NAMES = tuple(name for name, _ in REQUEST_EVENT_FIELDS)
 _FIELD_SET = frozenset(FIELD_NAMES)
 
-# parseable dryrun surface of the reference: `request_event(N)[tag]: {json}`
+# parseable dryrun surface, the telemetry_snapshot pattern applied to
+# wide events: `request_event(N)[tag]: {json}`
 EVENT_LINE_RE = re.compile(r'request_event\((?P<n>\d+)\)'
                            r'\[(?P<tag>[^\]]*)\]:\s*(?P<json>\{.*\})\s*$')
 
+
 class RequestLog:
-    """Bounded ring of wide request events.
+    """Bounded ring + rotating JSONL sink of wide request events.
 
     ``enabled`` is a plain attribute so the hot path pays one load + one
-    branch when the log is off. The ring is mutated under one private
-    lock: ``emit`` is called from whichever thread drives an engine."""
+    branch when the log is off (the registry's ~90 ns discipline). All
+    ring/sink mutation happens under one private lock — ``emit`` is
+    called from engine driver threads and the gateway collector thread
+    concurrently."""
 
-    def __init__(self, capacity=2048, registry=None, enabled=True):
+    def __init__(self, capacity=2048, sink_path=None,
+                 max_sink_bytes=4 << 20, sink_backups=2,
+                 registry=None, enabled=True):
         self.enabled = bool(enabled)
         self.capacity = int(capacity)
         self._ring = collections.deque(maxlen=self.capacity)
         self._lock = threading.Lock()
+        self.sink_path = sink_path if sink_path is not None \
+            else os.environ.get('PADDLE_TPU_REQUEST_LOG') or None
+        self.max_sink_bytes = int(max_sink_bytes)
+        self.sink_backups = int(sink_backups)
+        self._sink_bytes = None  # lazily sized on first write
         reg = registry if registry is not None else default_registry()
         fams = record_request_event_schema(reg)
         self._m_emitted = fams['request_events_total']
         self._m_dropped = fams['request_events_dropped_total']
+        self._m_rotations = fams['request_sink_rotations_total']
 
     def enable(self):
         self.enabled = True
@@ -100,9 +119,9 @@ class RequestLog:
 
     def emit(self, **fields):
         """Record one wide event. Unknown field names raise — emission
-        sites must speak the canonical REQUEST_EVENT_FIELDS schema.
-        Missing fields are recorded as None. Returns the canonical dict,
-        or None when disabled."""
+        sites must speak the canonical REQUEST_EVENT_FIELDS schema. Missing
+        fields are recorded as None. Returns the canonical dict, or
+        None when disabled."""
         if not self.enabled:
             return None
         unknown = [k for k in fields if k not in _FIELD_SET]
@@ -116,20 +135,69 @@ class RequestLog:
                 self._m_dropped.inc()
             self._ring.append(event)
             self._m_emitted.inc()
+            if self.sink_path:
+                self._sink_write_locked(event)
         return event
 
-    def events(self, since_ts=None):
-        """Snapshot of the ring (oldest first). ``since_ts`` keeps the
-        events that arrived at or after it, in the log's own clock (the
-        gateway's monotonic timestamps) — how the capacity replay slices
-        one run out of a longer recording."""
+    def _sink_write_locked(self, event):
+        line = json.dumps(event, sort_keys=True) + '\n'
+        data = line.encode('utf-8')
+        if self._sink_bytes is None:
+            try:
+                self._sink_bytes = os.path.getsize(self.sink_path)
+            except OSError:
+                self._sink_bytes = 0
+        if self._sink_bytes and \
+                self._sink_bytes + len(data) > self.max_sink_bytes:
+            self._rotate_locked()
+        with open(self.sink_path, 'ab') as f:
+            f.write(data)
+        self._sink_bytes += len(data)
+
+    def _rotate_locked(self):
+        """path.(n-1) -> path.n ... path -> path.1; the oldest backup
+        falls off the end."""
+        for i in range(self.sink_backups, 0, -1):
+            src = self.sink_path if i == 1 else \
+                '%s.%d' % (self.sink_path, i - 1)
+            dst = '%s.%d' % (self.sink_path, i)
+            if os.path.exists(src):
+                os.replace(src, dst)
+        self._sink_bytes = 0
+        self._m_rotations.inc()
+
+    def events(self, tenant=None, model=None, outcome=None,
+               min_failovers=None, since_ts=None, until_ts=None,
+               limit=None):
+        """Snapshot of the ring (oldest first), optionally filtered.
+        ``since_ts``/``until_ts`` select the half-open arrival-time
+        window [since, until) in the log's own clock (the gateway's
+        monotonic timestamps) — how the capacity replay loader slices
+        one run out of a longer recording. ``limit`` keeps the newest N
+        after filtering."""
         with self._lock:
             out = list(self._ring)
+        if tenant is not None:
+            out = [e for e in out if e['tenant'] == tenant]
+        if model is not None:
+            out = [e for e in out if e.get('model') == model]
+        if outcome is not None:
+            out = [e for e in out if e['outcome'] == outcome]
+        if min_failovers is not None:
+            out = [e for e in out
+                   if (e['failovers'] or 0) >= min_failovers]
         if since_ts is not None:
             since_ts = float(since_ts)
             out = [e for e in out
                    if e['arrival_t'] is not None
                    and e['arrival_t'] >= since_ts]
+        if until_ts is not None:
+            until_ts = float(until_ts)
+            out = [e for e in out
+                   if e['arrival_t'] is not None
+                   and e['arrival_t'] < until_ts]
+        if limit is not None and limit >= 0:
+            out = out[-limit:]
         return out
 
     @property
@@ -189,7 +257,12 @@ class ModelLabeler(TenantLabeler):
         return super().label(model)
 
 
-_default = RequestLog()
+def _env_enabled():
+    v = os.environ.get('PADDLE_TPU_REQUEST_EVENTS', '1').strip().lower()
+    return v not in ('0', 'false', 'off', 'no', '')
+
+
+_default = RequestLog(enabled=_env_enabled())
 _default_lock = threading.Lock()
 
 
@@ -202,11 +275,21 @@ def default_request_log():
 def set_default_request_log(log):
     """Swap the process default (tests/benches); returns the previous
     one. Objects that cached the old log at construction keep it —
-    swap BEFORE constructing the engines under test."""
+    swap BEFORE constructing the engines/gateway under test."""
     global _default
     with _default_lock:
         prev, _default = _default, log
         return prev
+
+
+def event_line(event, n_devices, tag):
+    """One parseable line embedding a wide event — the
+    telemetry_snapshot convention applied to the request log, so driver
+    captures carry a schema-complete event for offline joins
+    (tools/request_report.py parses these alongside JSONL sinks)."""
+    return 'request_event(%d)%s: %s' % (
+        n_devices, tag, json.dumps(event, sort_keys=True,
+                                   separators=(',', ':')))
 
 
 def parse_event_lines(text):

@@ -1,5 +1,5 @@
-"""(Counterpart of paddle_tpu/monitor/registry.py, copied without
-`unregister`: it needs nothing but the standard library.)
+"""(Counterpart of paddle_tpu/monitor/registry.py, copied: it needs
+nothing but the standard library.)
 
 Thread-safe metric registry (reference: paddle/fluid/platform/monitor.h
 StatRegistry + STAT_ADD, grown into the three Prometheus metric kinds).
@@ -140,8 +140,9 @@ class _HistogramChild:
     def cumulative(self):
         """Mergeable fixed-boundary view: Prometheus `le` semantics,
         one cumulative count per upper bound with +Inf last, so
-        cumulative[-1] == count always. The `_bucket` exposition lines
-        print exactly these numbers."""
+        cumulative[-1] == count always. Two children with the same
+        bounds merge by element-wise sum (monitor/federation.py); the
+        `_bucket` exposition lines print exactly these numbers."""
         with self._lock:
             counts = list(self._counts)
             total, s = self._count, self._sum
@@ -292,6 +293,10 @@ class MetricRegistry:
     def get(self, name):
         with self._lock:
             return self._families.get(name)
+
+    def unregister(self, name):
+        with self._lock:
+            self._families.pop(name, None)
 
 
 _default = MetricRegistry(enabled=True)

@@ -3,16 +3,18 @@
 
 Prometheus-compatible without the prometheus_client dependency: text
 exposition 0.0.4 on /metrics, the JSON snapshot on /metrics.json, a tiny
-JSON liveness body on /healthz, readiness on /readyz and the tracer's
-finished-span ring on /debug/traces (?format=chrome for a
-Perfetto-loadable body), 404 elsewhere. HEAD is answered on every route
-(load-balancer probes use it and must not see http.server's default
-501). Ephemeral-port by default so tests and multi-engine processes never
-collide; `.port`/`.url` report the bound address.
-
-The reference's /fleet and /alerts routes wait for monitor/federation.py
-and monitor/alerts.py, and its /requests (the wide-event log, filtered)
-for a caller in the port.
+JSON liveness body on /healthz, readiness on /readyz, the tracer's
+flight-recorder ring on /debug/traces (?format=chrome for a
+Perfetto-loadable body), the federated fleet view on /fleet (?scrape=1 to
+force a cycle, ?format=prom for text exposition of the merge), alert state
+on /alerts (?evaluate=1 to evaluate first) when a FleetCollector /
+AlertManager is attached, and the wide-event request log on /requests
+(?tenant= / ?model= / ?outcome= / ?min_failovers= / ?since_ts= /
+?until_ts= / ?limit= filters) when a RequestLog is attached, 404
+elsewhere. HEAD is answered on every route (load-balancer probes use it
+and must not see http.server's default 501). Ephemeral-port by default so
+tests and multi-engine processes never collide; `.port`/`.url` report the
+bound address.
 """
 import http.server
 import json
@@ -56,18 +58,73 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         if path == '/metrics.json':
             return (200, 'application/json',
                     export.to_json(self.server.registry).encode())
+        if path == '/fleet':
+            coll = getattr(self.server, 'collector', None)
+            if coll is None:
+                return (404, 'text/plain; charset=utf-8',
+                        b'no fleet collector attached\n')
+            # pull-based federation: ?scrape=1 forces a cycle before
+            # answering (the offline CLI's freshness knob); the default
+            # serves the collector's last merged view
+            if 'scrape=1' in query:
+                coll.scrape()
+            if 'format=prom' in query:
+                return (200, CONTENT_TYPE,
+                        export.snapshot_to_prometheus(
+                            coll.merged()).encode())
+            return (200, 'application/json',
+                    json.dumps(coll.fleet_status()).encode())
+        if path == '/alerts':
+            mgr = getattr(self.server, 'alerts', None)
+            if mgr is None:
+                return (404, 'text/plain; charset=utf-8',
+                        b'no alert manager attached\n')
+            if 'evaluate=1' in query:
+                mgr.evaluate()
+            return (200, 'application/json',
+                    json.dumps({'firing': mgr.firing(),
+                                'alerts': mgr.state()}).encode())
+        if path == '/requests':
+            log = getattr(self.server, 'events', None)
+            if log is None:
+                return (404, 'text/plain; charset=utf-8',
+                        b'no request log attached\n')
+            import urllib.parse
+            q = urllib.parse.parse_qs(query)
+
+            def _one(name, conv=str):
+                vals = q.get(name)
+                return None if not vals else conv(vals[0])
+
+            try:
+                evs = log.events(tenant=_one('tenant'),
+                                 model=_one('model'),
+                                 outcome=_one('outcome'),
+                                 min_failovers=_one('min_failovers', int),
+                                 since_ts=_one('since_ts', float),
+                                 until_ts=_one('until_ts', float),
+                                 limit=_one('limit', int))
+            except ValueError:
+                return (400, 'text/plain; charset=utf-8',
+                        b'min_failovers/limit must be integers and '
+                        b'since_ts/until_ts floats\n')
+            body = json.dumps({'count': len(evs),
+                               'dropped': log.dropped,
+                               'events': evs}).encode()
+            return 200, 'application/json', body
         if path == '/debug/traces':
             tracer = getattr(self.server, 'tracer', None)
             if tracer is None:
                 return (404, 'text/plain; charset=utf-8',
                         b'no tracer attached\n')
+            rec = tracer.recorder
             if 'format=chrome' in query:
-                body = json.dumps(tracer.to_chrome()).encode()
+                body = json.dumps(rec.to_chrome()).encode()
             else:
                 body = json.dumps({'enabled': tracer.enabled,
-                                   'capacity': tracer.capacity,
-                                   'dropped': tracer.dropped,
-                                   'spans': tracer.spans()}).encode()
+                                   'capacity': rec.capacity,
+                                   'dropped': rec.dropped,
+                                   'spans': rec.spans()}).encode()
             return 200, 'application/json', body
         return 404, 'text/plain; charset=utf-8', b'not found\n'
 
@@ -107,7 +164,8 @@ class MetricsServer:
     """
 
     def __init__(self, registry=None, host='127.0.0.1', port=0,
-                 tracer=None, readiness=None):
+                 tracer=None, readiness=None, collector=None,
+                 alerts=None, events=None):
         self.registry = registry if registry is not None \
             else default_registry()
         if tracer is None:
@@ -119,6 +177,14 @@ class MetricsServer:
         # callable — e.g. a gateway replica's `.ready` — evaluated per
         # probe so a drain flips the route to 503 without a restart.
         self.readiness = readiness
+        # /fleet: a monitor.federation.FleetCollector (merged fleet
+        # snapshot + per-target liveness); /alerts: a
+        # monitor.alerts.AlertManager; /requests: a monitor.events
+        # RequestLog. All optional — an unattached route answers 404 like
+        # any unknown path.
+        self.collector = collector
+        self.alerts = alerts
+        self.events = events
         self._host = host
         self._port = int(port)
         self._srv = None
@@ -131,6 +197,9 @@ class MetricsServer:
         self._srv.registry = self.registry
         self._srv.tracer = self.tracer
         self._srv.readiness = self.readiness
+        self._srv.collector = self.collector
+        self._srv.alerts = self.alerts
+        self._srv.events = self.events
         self._srv.started = time.monotonic()
         self._thread = threading.Thread(target=self._srv.serve_forever,
                                         name='metrics-server', daemon=True)

@@ -1,14 +1,26 @@
-"""Metric-family schemas (counterpart of paddle_tpu/monitor/telemetry.py):
-the `record_*_schema` functions that the port's serving metrics, request
-log, step timeline, gateway, circuit breakers and RPC channels, model
-hosts, trace replay, training callbacks, training supervisor and
-ingestion pipeline register through, each with the reference's
-family names, label names and label order. The dryrun snapshot lines, the
-schema baseline gate and the families of subsystems the port does not
-have (the compile watchdog, the cost model, the request log's file sink)
-are not ported.
+"""Metric-family schemas and the dryrun snapshot lines (counterpart of
+paddle_tpu/monitor/telemetry.py): the `record_*_schema` functions that
+the port's serving metrics, request log, tracer, compile watchdog, step
+timeline, cost model, gateway, circuit breakers and RPC channels, model
+hosts, trace replay and fleet simulator, fleet collector, alert manager,
+training callbacks, training supervisor and ingestion pipeline register
+through, each with the reference's family names, label names and label
+order; `dryrun_registry` holds them all, and `snapshot_line` /
+`parse_snapshot_lines` write and read the one-line
+`telemetry_snapshot(N)[tag]: {json}` form that tools/check_metrics_snapshot.py
+and tools/perf_report.py parse.
 """
-__all__ = ['record_serving_schema', 'record_serving_request_schema',
+import json
+import re
+
+from . import export
+from .registry import MetricRegistry
+
+__all__ = ['record_dryrun_step', 'record_tracing_schema',
+           'record_fleet_schema', 'record_alert_schema', 'dryrun_registry',
+           'snapshot_line', 'parse_snapshot_lines', 'LINE_RE',
+           'FLEET_FAMILIES', 'ALERT_FAMILIES',
+           'record_serving_schema', 'record_serving_request_schema',
            'record_perf_schema', 'record_request_event_schema',
            'record_tenant_schema', 'record_qos_schema',
            'record_gateway_schema', 'record_rpc_schema',
@@ -21,6 +33,27 @@ __all__ = ['record_serving_schema', 'record_serving_request_schema',
            'GATEWAY_FAMILIES', 'RPC_FAMILIES', 'CLIENT_OP_FAMILIES',
            'REGISTRY_FAMILIES', 'CAPACITY_FAMILIES', 'TRAIN_LOOP_FAMILIES',
            'SUPERVISOR_FAMILIES', 'INGEST_FAMILIES']
+
+
+LINE_RE = re.compile(r'telemetry_snapshot\((?P<n>\d+)\)'
+                     r'\[(?P<tag>[^\]]*)\]:\s*(?P<json>\{.*\})\s*$')
+
+
+def record_dryrun_step(registry, step_seconds, loss, batch=None):
+    """The per-config training gauges a dryrun line embeds. Kept in one
+    place so a driver and the schema-baseline gate register the exact
+    same families."""
+    registry.gauge('train_step_seconds',
+                   'wall time of the measured train step').set(step_seconds)
+    registry.gauge('train_loss', 'loss of the measured step').set(loss)
+    registry.counter('train_steps_total', 'train steps run').inc()
+    if batch:
+        registry.counter('train_examples_total',
+                         'examples consumed').inc(batch)
+        if step_seconds > 0:
+            registry.gauge('train_examples_per_second',
+                           'examples/s of the measured step').set(
+                               batch / step_seconds)
 
 
 # the paged-serving families: (kind, name, help) with no labels, so
@@ -48,9 +81,20 @@ def record_serving_schema(registry):
     return out
 
 
-# the step-timeline families (monitor/perf/timeline.py). Label budget:
-# phase is the four step-timeline phases, a closed set.
+# the performance-introspection families (monitor/perf/): the compile
+# watchdog, the step timeline and the cost model's gauges. Label budgets:
+# kind is the three compile stages (trace = TorchDynamo's bytecode
+# tracing, lower = AOTAutograd, compile = Inductor), phase the four
+# step-timeline phases — both closed sets. The persistent-cache pair
+# counts Inductor FX-graph-cache hits and misses.
 PERF_FAMILIES = (
+    ('counter', 'perf_compiles_total',
+     'compile stage events seen by the CompileWatchdog', ('kind',)),
+    ('histogram', 'perf_compile_seconds',
+     'duration of trace/lower/compile stage events', ('kind',)),
+    ('counter', 'perf_recompiles_total',
+     'compiles after a declared warmup barrier '
+     '(steady state must stay 0)', ()),
     ('histogram', 'perf_step_phase_seconds',
      'per-step phase durations '
      '(data_wait/host_dispatch/device_block/other)', ('phase',)),
@@ -58,21 +102,47 @@ PERF_FAMILIES = (
      'steps finalized by a StepTimeline', ()),
     ('counter', 'perf_stragglers_total',
      'steps slower than straggler_factor x the rolling median', ()),
+    ('gauge', 'perf_mfu_est',
+     'cost-model MFU estimate of the measured step', ()),
+    ('gauge', 'perf_arithmetic_intensity',
+     'analytic flops per byte accessed of the priced step', ()),
+    ('gauge', 'perf_roofline_bound',
+     'roofline classification of the priced step '
+     '(0=bandwidth 1=compute)', ()),
+    ('counter', 'perf_persistent_cache_hits_total',
+     'compiles served from the Inductor FX graph cache', ()),
+    ('counter', 'perf_persistent_cache_misses_total',
+     'compiles that missed the Inductor FX graph cache', ()),
 )
 
 
 def record_perf_schema(registry):
-    """Register the step-timeline families on `registry` and return
-    {name: family}. Used by StepTimeline at construction."""
+    """Register the perf-introspection families on `registry` and return
+    {name: family}. Used by CompileWatchdog / StepTimeline at
+    construction and by the cost model's record()."""
     from .registry import exponential_buckets
+    buckets = {
+        # compile stages span ~1ms (a CPU toy) to minutes
+        'perf_compile_seconds': exponential_buckets(0.001, 2.0, 18),
+        # step phases span ~0.1ms (decode dispatch) to tens of seconds
+        'perf_step_phase_seconds': exponential_buckets(1e-4, 2.0, 20),
+    }
     out = {}
     for kind, name, doc, labels in PERF_FAMILIES:
         kw = {}
         if kind == 'histogram':
-            # step phases span ~0.1ms (decode dispatch) to tens of seconds
-            kw['buckets'] = exponential_buckets(1e-4, 2.0, 20)
+            kw['buckets'] = buckets[name]
         out[name] = getattr(registry, kind)(name, doc, labels, **kw)
     return out
+
+
+def record_tracing_schema(registry):
+    """Register the span-tracer health families (spans started /
+    finished / dropped, flight dumps, exemplars, retention) on
+    `registry`; tracers and the schema gate both go through
+    tracing.register_metrics."""
+    from . import tracing
+    return tracing.register_metrics(registry)
 
 
 # the per-request serving families (serving/metrics.py).
@@ -125,6 +195,8 @@ REQUEST_EVENT_FAMILIES = (
      'wide request events emitted (one per completed serving request)'),
     ('counter', 'request_events_dropped_total',
      'wide events evicted from the bounded in-memory ring'),
+    ('counter', 'request_sink_rotations_total',
+     'request-log JSONL sink files rotated at the size cap'),
 )
 
 
@@ -358,8 +430,7 @@ def record_registry_schema(registry):
 
 
 # the capacity-planning families (capacity/): trace replay against the
-# real gateway plus the fleet simulator's (the simulator is not ported;
-# its families keep the reference's table whole). Unlabeled —
+# real gateway plus the discrete-event fleet simulator. Unlabeled —
 # per-request and per-tenant detail lives in the wide events the runs
 # emit, never in labels.
 CAPACITY_FAMILIES = (
@@ -392,6 +463,70 @@ def record_capacity_schema(registry):
         out[name] = getattr(registry, kind)(name, doc, **kw)
     return out
 
+
+# the fleet-federation collector's health families (monitor/
+# federation.py). Label budget: instance is the bounded set of registered
+# scrape targets (replica indices / shard endpoints) — never per-request,
+# never per-scrape.
+FLEET_FAMILIES = (
+    ('gauge', 'fleet_target_up',
+     '1 when the last scrape of the target succeeded, else 0',
+     ('instance',)),
+    ('gauge', 'fleet_target_staleness_seconds',
+     'seconds since the target last scraped successfully '
+     '(-1 = never scraped)', ('instance',)),
+    ('gauge', 'fleet_targets',
+     'scrape targets registered with the collector', ()),
+    ('counter', 'fleet_scrapes_total',
+     'federation scrape cycles completed', ()),
+    ('counter', 'fleet_scrape_errors_total',
+     'failed target scrapes (target kept stale, never dropped)',
+     ('instance',)),
+    ('histogram', 'fleet_scrape_seconds',
+     'wall time of one federation scrape cycle', ()),
+    ('counter', 'fleet_merge_conflicts_total',
+     'families dropped from a merge for type/label/bucket mismatch',
+     ()),
+)
+
+
+def record_fleet_schema(registry):
+    """Register the federation families on `registry` and return
+    {name: family}. Used by FleetCollector at construction."""
+    from .registry import exponential_buckets
+    out = {}
+    for kind, name, doc, labels in FLEET_FAMILIES:
+        kw = {}
+        if kind == 'histogram':
+            # a cycle spans sub-ms (in-proc) to seconds (slow HTTP peer)
+            kw['buckets'] = exponential_buckets(0.0005, 2.0, 16)
+        out[name] = getattr(registry, kind)(name, doc, labels, **kw)
+    return out
+
+
+# the SLO alerting families (monitor/alerts.py). Label budgets: rule is
+# the declared rule set; `to` is the closed lifecycle vocabulary
+# {pending, firing, resolved, inactive}.
+ALERT_FAMILIES = (
+    ('gauge', 'alerts_firing',
+     '1 while the rule is firing', ('rule',)),
+    ('gauge', 'alerts_pending',
+     '1 while the rule is pending (condition true, for_duration not '
+     'yet met)', ('rule',)),
+    ('counter', 'alerts_transitions_total',
+     'alert lifecycle transitions taken', ('rule', 'to')),
+    ('counter', 'alerts_evaluations_total',
+     'alert evaluation passes', ()),
+)
+
+
+def record_alert_schema(registry):
+    """Register the alerting families on `registry` and return
+    {name: family}. Used by AlertManager at construction."""
+    out = {}
+    for kind, name, doc, labels in ALERT_FAMILIES:
+        out[name] = getattr(registry, kind)(name, doc, labels)
+    return out
 
 # the training-loop families hapi.callbacks adds beyond the dryrun step
 # gauges.
@@ -488,4 +623,60 @@ def record_ingest_schema(registry):
     out = {}
     for kind, name, doc in INGEST_FAMILIES:
         out[name] = getattr(registry, kind)(name, doc)
+    return out
+
+
+def dryrun_registry(step_seconds, loss, batch=None, registry=None):
+    """Fresh per-config registry holding the full telemetry schema:
+    training gauges + every subsystem's families + one runtime sample.
+    Pass `registry` to fold live instrumentation into the snapshot
+    (families already present are reused via get-or-create)."""
+    from .runtime import RuntimeSampler
+    reg = registry if registry is not None else MetricRegistry()
+    record_dryrun_step(reg, step_seconds, loss, batch=batch)
+    record_serving_schema(reg)
+    record_serving_request_schema(reg)
+    record_gateway_schema(reg)
+    record_tracing_schema(reg)
+    record_perf_schema(reg)
+    record_rpc_schema(reg)
+    record_client_op_schema(reg)
+    record_train_loop_schema(reg)
+    record_fleet_schema(reg)
+    record_alert_schema(reg)
+    record_supervisor_schema(reg)
+    record_request_event_schema(reg)
+    record_tenant_schema(reg)
+    record_qos_schema(reg)
+    record_capacity_schema(reg)
+    record_ingest_schema(reg)
+    record_registry_schema(reg)
+    RuntimeSampler(registry=reg).sample_once()
+    return reg
+
+
+def snapshot_line(registry, n_devices, tag):
+    """One parseable line embedding the registry snapshot (no per-bucket
+    detail — schema + scalar values only, keeps the line short).
+
+    `tag` is the driver's config label INCLUDING its brackets (e.g.
+    '[dp/mp]')."""
+    snap = export.to_dict(registry, buckets=False)
+    return 'telemetry_snapshot(%d)%s: %s' % (
+        n_devices, tag, json.dumps(snap, sort_keys=True,
+                                   separators=(',', ':')))
+
+
+def parse_snapshot_lines(text):
+    """{tag: snapshot dict} from captured driver output (tolerates
+    interleaved non-telemetry lines; later duplicates of a tag win)."""
+    out = {}
+    for line in (text or '').splitlines():
+        m = LINE_RE.search(line)
+        if not m:
+            continue
+        try:
+            out[m.group('tag')] = json.loads(m.group('json'))
+        except ValueError:
+            continue
     return out

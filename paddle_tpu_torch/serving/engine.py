@@ -274,8 +274,9 @@ class _EngineBase:
 
     def perf_estimate(self, bursts=None, wall_seconds=None):
         raise NotImplementedError(
-            'perf_estimate() is not ported: it reads the cost analysis of '
-            'a compiled XLA program (monitor/perf/costmodel.py)')
+            'perf_estimate() is not ported: it prices the engine\'s '
+            'compiled decode program, and the eager engine compiles none '
+            '(it comes with a CUDA-graph decode step)')
 
     @property
     def occupancy(self):

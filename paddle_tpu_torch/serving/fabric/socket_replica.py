@@ -24,8 +24,8 @@ rollout() machinery work unchanged across the process boundary:
   worker's serving pointer, which is precisely correct: each process
   has its own registry;
 - scrape_kwargs() hands the worker's /metrics.json URL to a fleet
-  collector (the reference's FleetCollector; federation is not ported
-  yet), so federation would scrape the worker PROCESS.
+  collector (monitor/federation.py's FleetCollector), so federation
+  scrapes the worker PROCESS.
 """
 import os
 import threading

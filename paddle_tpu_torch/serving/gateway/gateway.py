@@ -48,11 +48,11 @@ callback. Model code runs only inside an engine's step(), which enters
 torch.no_grad itself: grad mode is thread-local, and a driver thread
 starts with it on.
 
-Not ported (ROADMAP Queue 1): `attach_fleet()` raises
-NotImplementedError until monitor/federation.py lands, and with it the
-reference's `burn_source` (a fleet-wide burn fed to autoscale_tick); the
-reference's tail-based trace retention (force-keeping a failed-over
-request's trace) waits for the tracer's retention.
+Fleet telemetry: `attach_fleet(collector)` registers every replica (and
+every later one) as a scrape target of a monitor.federation
+FleetCollector, `burn_source` (e.g. alerts.federated_burn_source) feeds
+autoscale_tick the fleet-wide TTFT burn, and a failed-over request's
+trace is force-kept by the tracer's TraceRetention (reason 'failover').
 """
 import collections
 import itertools
@@ -185,6 +185,14 @@ class ServingGateway:
         self._tenant_ttfts = {}             # label -> deque of (t, ttft_s)
         self.failover_log = []
         self._started = False
+        # fleet telemetry (attach_fleet): replicas self-register as
+        # in-proc scrape targets; burn_source, when set, replaces the
+        # local TTFT window in autoscale_tick so the policy can act on
+        # the FEDERATED burn (e.g. alerts.federated_burn_source) —
+        # a gateway that only sees its own TTFTs under-scales when the
+        # SLO is burning elsewhere in the fleet.
+        self._fleet = None
+        self.burn_source = None
         with self._lock:
             for _ in range(int(replicas)):
                 self._add_replica_locked()
@@ -335,6 +343,13 @@ class ServingGateway:
                     # tracks where the tokens actually went
                     note(gw.prompt, rep.index)
                 span.set_tag('replica', rep.index)
+                if gw.failovers and eng_req._span is not None:
+                    # force-retain the replacement trace: a failed-over
+                    # request's span tree must be retrievable from the
+                    # wide event's trace_id no matter how fast it ran
+                    ret = self._tracer.retention
+                    if ret is not None:
+                        ret.mark(eng_req._span.trace_id, 'failover')
                 rep.wake()
                 return True
             span.set_tag('replica', -1)
@@ -676,8 +691,12 @@ class ServingGateway:
             return Decision(0, 'no autoscaler policy configured')
         now = self._clock() if now is None else now
         with self._lock:
-            burn = slo_burn_rate(self._ttfts, now, self.policy.slo_ttft_s,
-                                 self.policy.window_s)
+            if self.burn_source is not None:
+                burn = float(self.burn_source(now))
+            else:
+                burn = slo_burn_rate(self._ttfts, now,
+                                     self.policy.slo_ttft_s,
+                                     self.policy.window_s)
             self._m_burn.set(burn)
             ready = [r for r in self.pool if r.state == READY]
             occ = (sum(r.occupancy() for r in ready) / len(ready)
@@ -713,12 +732,28 @@ class ServingGateway:
     # ---- fleet telemetry ----------------------------------------------
 
     def attach_fleet(self, collector):
-        """Register every replica's private registry as a scrape target
-        on a fleet collector. Not ported: it waits for
-        monitor/federation.py (FleetCollector)."""
-        raise NotImplementedError(
-            'ServingGateway.attach_fleet() is not ported: it waits for '
-            'monitor/federation.py (FleetCollector)')
+        """Register every replica's private registry as an in-proc
+        scrape target on `collector` (a monitor.federation
+        FleetCollector); replicas added later by the autoscaler
+        self-register. The collector's merged view then carries every
+        replica's serving_* families with an `instance` label — the
+        cross-replica occupancy/queue picture one registry per replica
+        was built to preserve (see replica.py)."""
+        with self._lock:
+            self._fleet = collector
+            for rep in self.pool:
+                self._fleet_register_locked(rep)
+        return collector
+
+    def _fleet_register_locked(self, rep):
+        if self._fleet is None:
+            return
+        # idempotent: re-attach / re-add keeps the same instance name.
+        # The transport picks HOW it is scraped: in-proc replicas hand
+        # over their private registry, SocketReplicas hand over the
+        # worker process's /metrics.json URL (stale-not-wrong on kill).
+        self._fleet.add_target('gw-replica-%d' % rep.index,
+                               **rep.scrape_kwargs())
 
     # ---- pool management ----------------------------------------------
 
@@ -726,11 +761,12 @@ class ServingGateway:
         """Add an externally built ReplicaTransport (e.g. a fabric
         SocketReplica proxying a worker process) to the pool. The
         gateway assigns the pool index; everything downstream —
-        routing, failover, QoS, rollout — treats it exactly like a
-        factory-built replica."""
+        routing, failover, QoS, rollout, fleet registration — treats
+        it exactly like a factory-built replica."""
         with self._lock:
             rep.index = len(self.pool)
             self.pool.append(rep)
+            self._fleet_register_locked(rep)
             if self._started:
                 rep.start_driver(self._collect, self._on_lost)
             self._refresh_gauges_locked()
@@ -743,6 +779,7 @@ class ServingGateway:
                                'not by local replica construction')
         rep = InprocReplica(len(self.pool), self._factory())
         self.pool.append(rep)
+        self._fleet_register_locked(rep)
         if self._started:
             rep.start_driver(self._collect, self._on_lost)
         self._refresh_gauges_locked()

@@ -589,8 +589,13 @@ def test_rollout_and_attach_fleet_name_their_modules(model):
     gw = _gw(model, replicas=1)
     with pytest.raises(ValueError, match='ModelHost-backed'):
         gw.rollout('m', 'v2')
-    with pytest.raises(NotImplementedError, match='monitor/federation'):
-        gw.attach_fleet(object())
+    # attach_fleet registers each replica's registry with the collector
+    from paddle_tpu_torch.monitor.federation import FleetCollector
+    fc = FleetCollector(registry=MetricRegistry())
+    assert gw.attach_fleet(fc) is fc
+    (target,) = fc.targets()
+    assert target.instance == 'gw-replica-0'
+    assert target.registry is gw.pool[0].registry
 
 
 # ---- trace replay -----------------------------------------------------

@@ -166,12 +166,13 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     # registry and fabric modules of slice 6, the training shell of slice 9,
     # the compiled mode and inference engine of slice 10, the static
     # graph of slice 11, the parameter server and graph engine of slice
-    # 12, the collective training of slice 13 and slice 14's nn, text and
-    # tensor modules
+    # 12, the collective training of slice 13, slice 14's nn, text and
+    # tensor modules and slice 15's observability plane
     imported = set(res.stdout.split())
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
-            SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES:
+            SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES + \
+            SLICE15_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -219,6 +220,10 @@ SLICE14_MODULES = ('nn.functional.activation', 'nn.layer.activation',
                    'tensor.logic', 'tensor.manipulation', 'tensor.math',
                    'tensor.random', 'tensor.search', 'tensor.stat',
                    'framework.flags', 'framework.dtype')
+SLICE15_MODULES = ('monitor.federation', 'monitor.alerts',
+                   'monitor.server', 'monitor.perf.watchdog',
+                   'monitor.perf.costmodel', 'profiler',
+                   'capacity.simulator', 'testing.lockwatch')
 SLICE12_MODULES = ('native', 'native.datafeed', 'native.embedding_table',
                    'native.graph_store', 'distributed.ps',
                    'distributed.ps.embedding_service', 'distributed.ps.tables',
@@ -257,7 +262,8 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
     scanned = {os.path.relpath(f, REPO) for f in _port_files()}
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
-            SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES:
+            SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES + \
+            SLICE15_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod

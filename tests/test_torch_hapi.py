@@ -183,8 +183,17 @@ def test_fit_with_workers_and_eval_data(tmp_path):
     ids = torch.from_numpy(tdata.ids[:2])
     tmodel.network.eval()
     assert torch.equal(loaded(ids), tmodel.network(ids))
-    with pytest.raises(NotImplementedError, match='cost'):
-        tmodel.summary_perf(None)
+    # summary_perf prices the step on fake tensors: the parameters and
+    # the optimizer's state are left as they were
+    before = {k: v.clone() for k, v in tmodel.network.state_dict().items()}
+    slots = dict(tmodel._optimizer._slots)
+    labels = torch.from_numpy(tdata.labels[:2])
+    est = tmodel.summary_perf(ids, labels, step_seconds=1.0)
+    assert est['flops'] > 0 and est['bytes_accessed'] > 0
+    assert est['mfu_est'] == est['flops'] / est['peak_flops']
+    assert all(torch.equal(v, tmodel.network.state_dict()[k])
+               for k, v in before.items())
+    assert tmodel._optimizer._slots == slots
 
 
 # ---- the narrowed fallback ---------------------------------------------

@@ -76,18 +76,19 @@ def test_prometheus_text_and_snapshot_match_jax():
 
 SCHEMAS = ('record_gateway_schema', 'record_qos_schema', 'record_rpc_schema',
            'record_capacity_schema', 'record_tenant_schema',
-           'record_serving_request_schema', 'record_request_event_schema')
+           'record_serving_request_schema', 'record_request_event_schema',
+           'record_tracing_schema', 'record_fleet_schema',
+           'record_alert_schema')
 
 
 @pytest.mark.parametrize('fn', SCHEMAS)
 def test_schema_matches_jax(fn):
     """Family names, kinds, help, label names in order and histogram
     buckets of each schema the port registers are the reference's — all
-    but serving_trace_count (the eager engines trace no program) and
-    request_sink_rotations_total (the request log has no file sink)."""
+    but serving_trace_count (the eager engines trace no program)."""
     jfams = getattr(jtel, fn)(JRegistry())
     tfams = getattr(ttel, fn)(MetricRegistry())
-    skip = {'serving_trace_count', 'request_sink_rotations_total'}
+    skip = {'serving_trace_count'}
     assert sorted(tfams) == sorted(set(jfams) - skip)
     for name, tf in tfams.items():
         jf = jfams[name]
@@ -102,8 +103,10 @@ def test_schema_matches_jax(fn):
 
 
 def test_chrome_trace_matches_jax(tmp_path):
-    tracer = ttracing.Tracer(registry=MetricRegistry(), clock=_clock,
-                             capacity=2)
+    reg = MetricRegistry()
+    tracer = ttracing.Tracer(registry=reg, clock=_clock,
+                             recorder=ttracing.FlightRecorder(
+                                 capacity=2, registry=reg, clock=_clock))
     with tracer.start_span('outer', tags={'k': 1}) as outer:
         outer.add_event('ev', n=2)
         with tracer.start_span('inner'):
@@ -113,12 +116,12 @@ def test_chrome_trace_matches_jax(tmp_path):
                 raise KeyError('x')
         except KeyError:
             pass
-    spans = tracer.spans()
+    spans = tracer.recorder.spans()
     assert [s['name'] for s in spans] == ['failing', 'outer']
-    assert tracer.dropped == 1 and tracer.capacity == 2
+    assert tracer.recorder.dropped == 1 and tracer.recorder.capacity == 2
     assert ttracing.spans_to_chrome(spans, pid=7, process_name='p') == \
         jtracing.spans_to_chrome(spans, pid=7, process_name='p')
-    path = tracer.export_chrome(str(tmp_path / 'sub' / 'trace.json'))
+    path = tracer.recorder.export_chrome(str(tmp_path / 'sub' / 'trace.json'))
     with open(path) as f:
         body = json.load(f)
     assert [e['name'] for e in body['traceEvents'] if e['ph'] == 'X'] == \

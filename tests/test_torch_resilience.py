@@ -224,7 +224,7 @@ def test_fault_annotates_the_current_span():
         assert ttracing.current_span() is None
     finally:
         ttracing.set_default_tracer(prev)
-    (done,) = tracer.spans()
+    (done,) = tracer.recorder.spans()
     assert [(e['name'], e['args']) for e in done['events']] == [
         ('chaos.fault', {'point': 'send', 'endpoint': 'ep'})]
 
@@ -353,7 +353,7 @@ def test_channel_attempt_spans_reach_the_server_span(echo_server):
     finally:
         ttracing.set_default_tracer(prev)
     assert reply == {'ok': True, 'n': 9, 'traced': True, 'clean': True}
-    spans = tracer.spans()
+    spans = tracer.recorder.spans()
     (call,) = [sp for sp in spans if sp['name'] == 'rpc.call']
     attempts = [sp for sp in spans if sp['name'] == 'rpc.attempt']
     assert len(attempts) == 3
@@ -361,9 +361,9 @@ def test_channel_attempt_spans_reach_the_server_span(echo_server):
                a['trace_id'] == call['trace_id'] for a in attempts)
     assert [a['status'] for a in attempts] == ['error', 'error', 'ok']
     deadline = time.monotonic() + 5
-    while not srv.tracer.spans() and time.monotonic() < deadline:
+    while not srv.tracer.recorder.spans() and time.monotonic() < deadline:
         time.sleep(0.01)
-    (handler,) = srv.tracer.spans()
+    (handler,) = srv.tracer.recorder.spans()
     assert handler['name'] == 'echo.pull'
     assert handler['trace_id'] == call['trace_id']
     assert handler['parent_id'] == attempts[-1]['span_id']

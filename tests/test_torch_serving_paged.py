@@ -558,7 +558,8 @@ def test_preempt_budget_exhausted_is_terminal(paged_preempt):
 
 def test_request_spans_share_the_wide_event_trace_id(model):
     from paddle_tpu_torch.monitor import tracing as _tracing
-    tracer = _tracing.Tracer(capacity=64)
+    tracer = _tracing.Tracer(
+        recorder=_tracing.FlightRecorder(capacity=64))
     log = _events.RequestLog(capacity=16)
     prev_t = _tracing.set_default_tracer(tracer)
     prev_l = _events.set_default_request_log(log)
@@ -572,7 +573,8 @@ def test_request_spans_share_the_wide_event_trace_id(model):
         _tracing.set_default_tracer(prev_t)
         _events.set_default_request_log(prev_l)
     (ev,) = [e for e in log.events() if e['request_id'] == req.id]
-    tree = [s for s in tracer.spans() if s['trace_id'] == ev['trace_id']]
+    tree = [s for s in tracer.recorder.spans()
+            if s['trace_id'] == ev['trace_id']]
     root = [s for s in tree if s['parent_id'] is None]
     assert len(root) == 1 and root[0]['name'] == 'serving.request'
     assert [e['name'] for e in root[0]['events']][:2] == ['queued',
@@ -587,10 +589,12 @@ def test_tracer_ring_is_bounded_and_disabled_tracer_is_free():
     from paddle_tpu_torch.monitor import tracing as _tracing
     from paddle_tpu_torch.monitor.registry import MetricRegistry
     reg = MetricRegistry()
-    tracer = _tracing.Tracer(capacity=2, registry=reg)
+    tracer = _tracing.Tracer(
+        registry=reg,
+        recorder=_tracing.FlightRecorder(capacity=2, registry=reg))
     for i in range(3):
         tracer.start_span('s%d' % i).finish()
-    assert [s['name'] for s in tracer.spans()] == ['s1', 's2']
+    assert [s['name'] for s in tracer.recorder.spans()] == ['s1', 's2']
     assert reg.get('trace_spans_dropped_total').value() == 1
     with tracer.start_span('outer') as outer:
         child = tracer.start_span('inner')
