@@ -147,17 +147,17 @@ Phases, each printed as it finishes; any failure exits non-zero:
                plain versions; (2) f32, the bench GPT cut to 2 layers,
                batch 2 x 512: 3 AdamW steps with the forward and the loss
                under jit.to_static against the same steps eager; (3) path
-               (a): the bench's bf16 step (phase 6's model cut to 6
-               layers to make room for phase 24, its batch and AdamW)
+               (a): the bench's bf16 step (phase 6's model cut to 3
+               layers to make room for phases 24-25, its batch and AdamW)
                with the forward and the loss as one to_static program,
                then loss.backward() and the update: one graph and no
-               break, one compile, 6 forward and 6 fused backward
+               break, one compile, 3 forward and 3 fused backward
                launches every step, a falling loss, the compile seconds,
                2 warm-up and 10 timed steps beside the same step eager,
                a profiled step's busy share and top kernels,
                the _rows_aligned copies, peak memory; (4) path (b):
-               jit.save of GPT-2 small cut to 6 layers (to make room
-               for phase 23) with InputSpec([8, 768], 'int64'),
+               jit.save of GPT-2 small cut to 3 layers (to make room
+               for phases 23-25) with InputSpec([8, 768], 'int64'),
                jit.load, the exported program against the eager model,
                then a Predictor on the card in f32 and in bf16, run() on
                8 x 768 ids: the first run compiles, 3 more do not, one
@@ -165,7 +165,7 @@ Phases, each printed as it finishes; any failure exits non-zero:
                model (f32 within 1e-4), run() p50 beside the eager
                forward. The phase prints its own seconds.
  20. slice 11, the static graph - (a) GPT-2 small (seeded, dropout 0,
-               cut to 6 layers to make room for phase 23) built under
+               cut to 3 layers to make room for phases 23-25) built under
                static.program_guard from static.data('ids', [8, 768],
                'int64') in f32 and bf16, Executor.run on the
                card with 3 fresh feeds: logits against the eager f32
@@ -281,8 +281,31 @@ Phases, each printed as it finishes; any failure exits non-zero:
                /requests answer, tokens equal one engine's, no flash
                launch. (e) the fleet simulator fitted on (d)'s wide
                events: K-S and p50 / p99 TTFT errors.
+ 25. slice 16, pipeline and expert parallelism - (a) phase 6's bench GPT
+               (bf16, batch 32 x 512, AdamW lr 1e-4) through
+               TrainStep(pp_state) on a one-stage pipeline over NCCL (world
+               1) of 4 microbatches, GPipe and 1F1B, 5 steps each beside
+               the plain step from the same weights: losses within 2e-2,
+               update_rel within 0.05, 4 x (12 + 12) flash launches a step,
+               step p50 and peak memory. (b) the stage pieces at the
+               per-rank shapes of pp 2 (6 / 6 layers) and pp 4 (3 x 4),
+               the embeddings on stage 0, ln_f, the tied head and the loss
+               on the last, one microbatch of 8 chained forward and backward
+               as the schedule calls them: the loss and every grad (the
+               tied wte's the sum of its two stages') against the unsplit
+               model, 2e-2 in bf16 and 1e-5 in f32. (c) the bench GPT with
+               a SwitchMoE of 8 experts in every block at Switch-Base width
+               (768, ff 3072, capacity factor 1.25, top-1; 505 M
+               parameters), bf16, batch 16 x 512, AdamW, 2 warm-up and 5
+               timed steps: step ms, tokens/s, MFU over the active
+               parameters, peak, the share of tokens dropped in each layer,
+               the aux loss, a profile, 12 + 12 flash launches a step and a
+               falling loss; GShardMoE (top-2) in every block for 2 steps;
+               2 layers in f32 at capacity factor 0.5 (tokens drop), 3
+               steps against the CPU within 1e-5. The phase prints its own
+               seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20, 21, 22, 23 and 24 in main().)
+18, 19, 20, 21, 22, 23, 24 and 25 in main().)
 The last lines are a {"kernels_wide": [...]} line, the card's name and
 power limit as nvidia-smi gives them, a {"kernels": [...]} line and the
 {"ok": true, ...} line.
@@ -2041,11 +2064,14 @@ OP_ROUTES = [
 
 # GPT-2 small as phase 19 (b) and phase 20 (a, b) compile it, and the
 # bench GPT as phase 19 (a) compiles it: their width, vocabulary and
-# sequence, cut to 6 of their 12 layers. Inductor's compile of the
+# sequence, cut to 3 of their 12 layers. Inductor's compile of the
 # Predictor's and the Executor's programs grows with the depth (34-40 s
-# each at 12 layers), as does the to_static bench step's (53.6 s at 12):
-# the cuts make room for phases 23 and 24 in chip_smoke's time limit.
-COMPILED_GPT2_LAYERS = 6
+# each at 12 layers), as does the to_static bench step's (53.6 s at 12),
+# and it runs on the host, whose speed varies from machine to machine
+# (phases 19 and 20 took 107.6 + 70.9 s at 6 layers on one H100 host and
+# 147.8 + 101.8 s on another): the cuts make room for phases 23-25 in
+# chip_smoke's time limit.
+COMPILED_GPT2_LAYERS = 3
 
 
 def op_registration_phase():
@@ -4925,20 +4951,26 @@ FLEET_UPDATE_RTOL = 5e-2
 
 def _fleet_strategy(name, world=1):
     """fleet's strategy `name` over `world` ranks: its axis takes them all
-    ('dp', 'sharding1' / 'sharding3', 'mp', 'sp_<mode>'); a 'dp_' before
-    the name puts dp 2 beside it, the axis taking the rest. Phase 22's
-    'sharding3' adds amp and recompute."""
+    ('dp', 'sharding1' / 'sharding3', 'mp', 'sp_<mode>', 'pp' (GPipe),
+    'pp_1f1b', 'ep' (a MoE model's experts)); a 'dp_' before the name puts
+    dp 2 beside it, the axis taking the rest. Phase 22's 'sharding3' adds
+    amp and recompute."""
     from paddle_tpu_torch.distributed import fleet
     s = fleet.DistributedStrategy()
     deg = {'dp_degree': 1, 'mp_degree': 1, 'pp_degree': 1,
-           'sharding_degree': 1, 'sp_degree': 1}
+           'sharding_degree': 1, 'sp_degree': 1, 'ep_degree': 1}
     base = name
     if name.startswith('dp_'):
         deg['dp_degree'], world, base = 2, world // 2, name[3:]
     axis = ('dp' if base == 'dp' else 'mp' if base == 'mp' else
-            'sharding' if base.startswith('sharding') else 'sp')
+            'sharding' if base.startswith('sharding') else
+            'pp' if base.startswith('pp') else 'ep' if base == 'ep' else
+            'sp')
     deg[axis + '_degree'] = world
     s.hybrid_configs = deg
+    if base == 'pp_1f1b':
+        s.pipeline = True
+        s.pipeline_configs['schedule_mode'] = '1F1B'
     if axis == 'sharding':
         s.sharding = True
         s.sharding_configs['stage'] = int(base[-1])
@@ -5017,15 +5049,18 @@ def _fleet_run(name, base, ids, labels, hcg=None, ref=None, world=1):
 
 def _update_rel(final, ref, base):
     """update_rel of parameters `final` against `ref`, both grown from
-    `base`'s: |final - ref| / |ref - base| over all parameters, and the
-    three parameters with the largest share of their own update."""
+    `base`'s: |final - ref| / |ref - base| over the parameters `final`
+    holds (a pipeline stage's: its own), and the three parameters with the
+    largest share of their own update."""
     init = dict(base.named_parameters())
+    # a pipeline stage holds only its own parameters
+    names = [n for n in ref if n in final]
     num = {n: (final[n].float() - ref[n].float()).square().sum()
-           for n in ref}
+           for n in names}
     den = {n: (ref[n].float() - init[n].float()).square().sum()
-           for n in ref}
+           for n in names}
     worst = sorted(((n, (num[n] / den[n].clamp_min(1e-30)).sqrt().item())
-                    for n in ref), key=lambda x: -x[1])[:3]
+                    for n in names), key=lambda x: -x[1])[:3]
     return {'update_rel': (sum(num.values()) / sum(den.values())).sqrt()
             .item(), 'worst_params': worst}
 
@@ -6039,6 +6074,353 @@ def slice15_phases(card, train, kept):
     return out
 
 
+# -- phase 25: slice 16, pipeline and expert parallelism ----------------------
+# (a) phase 6's bench GPT through TrainStep(pp_state) on a one-stage
+# pipeline (world 1, NCCL) under GPipe and 1F1B, 4 microbatches of 8, beside
+# the plain step from the same weights; (b) the stage pieces at the per-rank
+# shapes of pp 2 and pp 4, chained in one process as the schedule calls
+# them, against the unsplit model; (c) MoE at Switch-Base width (Fedus et
+# al. 2021: d_model 768, d_ff 3072, 12 heads, 8 experts, capacity factor
+# 1.25, top-1) in every block of the bench GPT.
+PP_MICRO = 4
+PP_STAGE_BATCH = 8
+MOE_EXPERTS, MOE_CAPACITY = 8, 1.25
+MOE_BATCH, MOE_WARMUP, MOE_STEPS = 16, 2, 5
+# the chained stages' loss and grads against the unsplit model's: the
+# same kernels on the same microbatch, the tied embedding's grad summed
+# from two graphs; as a share of the largest reference grad
+PP_STAGE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+def _pp_run(schedule, base, ids, labels, hcg, ref):
+    """FLEET_STEPS steps of TrainStep(pp_state) on a one-stage pipeline of
+    PP_MICRO microbatches from a copy of `base`: _fleet_run's record plus
+    the schedule's stats."""
+    from paddle_tpu_torch.distributed.pipeline import make_pp_state
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = _fresh_bench_model(base)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    step = TrainStep(model, model.loss, opt, pp_state=make_pp_state(
+        hcg.mesh, n_stages=1, n_micro=PP_MICRO, schedule=schedule))
+    losses, step_ms, launches = [], [], []
+    for _ in range(FLEET_STEPS):
+        _reset_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(_launches(fa))
+    out = {'losses': losses, 'launches': launches, 'stats': step.pp_stats,
+           'p50_ms': sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+           'first_ms': step_ms[0],
+           'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+    out.update(_update_rel({n: _whole(p) for n, p in
+                            model.named_parameters()}, ref, base))
+    # one more step under the profiler (after the parameters were read):
+    # the card's busy share of a microbatched step
+    wall, dev, top, _ = _profile(lambda: step(ids, labels))
+    out.update(busy=dev / wall, profiled_ms=wall,
+               top_kernels=[t[:2] for t in top])
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase(card):
+    """25 (a): the bench GPT through the pipeline schedules at world 1."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**BENCH_CFG)
+    base = GPTForCausalLM(cfg, device='cuda', seed=SEED).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 25)
+    ids, labels = (torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                 generator=gen).cuda() for _ in range(2))
+    fleet.init(is_collective=True, strategy=_fleet_strategy('dp'))
+    hcg = fleet.get_hybrid_communicate_group()
+    runs = {'plain': _fleet_run('plain', base, ids, labels, hcg)}
+    ref = runs['plain'].pop('final')
+    layers = cfg.num_layers
+    for schedule in ('gpipe', '1f1b'):
+        run = runs[schedule] = _pp_run(schedule, base, ids, labels, hcg,
+                                       ref)
+        # one forward and one fused backward a layer and a microbatch (b=8)
+        want = _want(1, flash_fwd=PP_MICRO * layers,
+                     flash_bwd_fused=PP_MICRO * layers)
+        _check(all(x == want for x in run['launches']),
+               'pp %s launches %s a step, want %s'
+               % (schedule, run['launches'], want))
+        _fleet_check('pp ' + schedule, run, runs['plain'])
+        _check(run['stats']['n_micro'] == PP_MICRO and
+               run['stats']['peak_stash'] ==
+               (PP_MICRO if schedule == 'gpipe' else 1),
+               'pp %s stats %s' % (schedule, run['stats']))
+    del base
+    torch.cuda.empty_cache()
+    for name, run in runs.items():
+        print('pp %s [%s]: %d microbatches of %d, losses %s (worst rel vs '
+              'plain %.3g, tol %g), update_rel %.4g (tol %g), launches a '
+              'step %s, step p50 %.2f ms (first %.1f ms), peak %.2f GiB%s'
+              % (name, card, PP_MICRO if name != 'plain' else 1,
+                 TRAIN_BATCH // (PP_MICRO if name != 'plain' else 1),
+                 ['%.4f' % x for x in run['losses']],
+                 run.get('loss_rel', 0.0), FLEET_LOSS_RTOL,
+                 run.get('update_rel', 0.0), FLEET_UPDATE_RTOL,
+                 {k: v for k, v in run['launches'][-1].items() if v},
+                 run['p50_ms'], run['first_ms'], run['peak_gib'],
+                 '' if 'busy' not in run else
+                 ', profiled step %.2f ms, busy share %.3f, top kernels %s'
+                 % (run['profiled_ms'], run['busy'], run['top_kernels'])),
+              flush=True)
+    return runs
+
+
+def _grads_of(model):
+    return {n: p.grad.float() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def pp_stage_phase(card):
+    """25 (b): one microbatch through the stages of pp 2 and pp 4, chained
+    forward and backward in one process as the schedule runs them (the
+    received activation a leaf, each stage's backward from the next
+    stage's gradient), against the unsplit model: the loss and every
+    grad, the tied embedding's as the sum of its first and last stage's."""
+    from paddle_tpu_torch.distributed import pipeline as pp_mod
+    from paddle_tpu_torch.distributed.topology import PPLine
+    from paddle_tpu_torch.nn.layer.layers import copy_layer
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**BENCH_CFG)
+    gen = torch.Generator().manual_seed(SEED + 26)
+    ids, labels = (torch.randint(0, cfg.vocab_size,
+                                 (PP_STAGE_BATCH, TRAIN_SEQ),
+                                 generator=gen).cuda() for _ in range(2))
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        base = GPTForCausalLM(cfg, device='cuda', seed=SEED).to(dtype)
+        base.train()
+        loss_ref = base.loss(base(ids), labels)
+        loss_ref.backward()
+        ref = _grads_of(base)
+        base.zero_grad(set_to_none=True)
+        for pp in (2, 4):
+            stages = []
+            for r in range(pp):
+                m = copy_layer(base)
+                m.pp_keep_stage(r, pp)
+                m._pp_kept = r
+                m.train()
+                line = PPLine(r, pp, None, None, list(range(pp)))
+                stages.append((m, pp_mod._Stage(m, m.loss, pp_mod.make_pp_state(
+                    None, pp), line)))
+            _reset_counts(fa)
+            x, outs = None, []
+            for m, stage in stages:
+                out = stage(x, [ids], [labels])
+                outs.append((x, out))
+                if not stage.last:
+                    x = out.detach().requires_grad_()
+            grad = None
+            for x_in, out in reversed(outs):
+                torch.autograd.backward(out, grad)
+                grad = None if x_in is None else x_in.grad
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _launches(fa).items() if v}
+            got = {}
+            for m, _ in stages:
+                for n, g in _grads_of(m).items():
+                    got[n] = g if n not in got else got[n] + g
+            scale = max(g.abs().max().item() for g in ref.values())
+            err = max((got[n] - ref[n]).abs().max().item() for n in ref)
+            loss = outs[-1][1].item()
+            loss_rel = abs(loss - loss_ref.item()) / abs(loss_ref.item())
+            tol = PP_STAGE_TOL[dtype]
+            split = [len(m.gpt.h) for m, _ in stages]
+            _check(sorted(got) == sorted(ref),
+                   'pp %d stages hold %d of %d grads' % (pp, len(got),
+                                                         len(ref)))
+            _check(loss_rel <= tol and err <= tol * scale,
+                   'pp %d %s stages: loss %.6f vs unsplit %.6f, worst grad '
+                   'err %.3g (tol %g of the largest %.3g)'
+                   % (pp, dtype, loss, loss_ref.item(), err, tol, scale))
+            _check(launches == {'flash_fwd': cfg.num_layers,
+                                'flash_bwd_fused': cfg.num_layers},
+                   'pp %d stages launched %s' % (pp, launches))
+            wte = [m for m, _ in stages if m.gpt.wte is not None]
+            _check(len(wte) == 2 and split == [cfg.num_layers // pp] * pp,
+                   'pp %d stages: layers %s, wte on %d stages'
+                   % (pp, split, len(wte)))
+            row = {'pp': pp, 'dtype': str(dtype).split('.')[-1],
+                   'layers': split, 'loss': loss, 'loss_ref': loss_ref.item(),
+                   'loss_rel': loss_rel, 'grad_err_share': err / scale,
+                   'launches': launches}
+            rows.append(row)
+            print('pp stages [%s]: %s' % (card, json.dumps(row)), flush=True)
+            del stages, outs, got
+        del base, ref, loss_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_config(**kw):
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+    cfg = dict(BENCH_CFG, num_experts=MOE_EXPERTS,
+               moe_capacity_factor=MOE_CAPACITY)
+    cfg.update(kw)
+    return GPTConfig(**cfg)
+
+
+def _moe_flops_per_token(model, seq, top_k=1):
+    """Forward + backward FLOPs a token of the MoE GPT: 6 x the parameters
+    a token passes through (every non-expert one and top_k experts' FFN
+    a layer) plus the attention term, as flops_per_token counts it. The
+    expert products run over the capacity's slots, empty ones too: those
+    are not counted (MFU counts useful work)."""
+    c = model.config
+    expert = sum(p.numel() for n, p in model.named_parameters()
+                 if '.mlp.' in n and '.mlp.gate.' not in n)
+    dense = sum(p.numel() for p in model.parameters()) - expert
+    active = dense + expert * top_k // c.num_experts
+    return 6 * active + 12 * c.num_layers * c.hidden_size * seq
+
+
+def moe_phase(card, sku):
+    """25 (c): the MoE GPT at Switch-Base width, bf16, batch 16 x 512,
+    AdamW, through TrainStep; then GShardMoE (top-2) in every block; then
+    2 layers in f32 at a capacity that drops tokens against the CPU."""
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.incubate.moe import GShardMoE
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _moe_config()
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).to(torch.bfloat16)
+    step = TrainStep(model, model.loss, AdamW(
+        learning_rate=TRAIN_LR, parameters=model.parameters()))
+    gen = torch.Generator().manual_seed(SEED + 27)
+    ids, labels = (torch.randint(0, cfg.vocab_size, (MOE_BATCH, TRAIN_SEQ),
+                                 generator=gen).cuda() for _ in range(2))
+    losses, ms, peak, launches = _timed_train(step, ids, labels, MOE_WARMUP,
+                                              MOE_STEPS)
+    layers = cfg.num_layers
+    _check(launches == _want(MOE_STEPS, flash_fwd=layers,
+                             flash_bwd_fused=layers),
+           'MoE launches %s over %d steps, want %d + %d a step'
+           % (launches, MOE_STEPS, layers, layers))
+    _check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+           'MoE losses %s do not fall' % losses)
+    dropped = [b.mlp.last_dropped.item() for b in model.gpt.h]
+    aux = sum(b.mlp.aux_loss.item() * b.mlp.aux_loss_weight
+              for b in model.gpt.h)
+    median = sorted(ms)[MOE_STEPS // 2]
+    tokens = MOE_BATCH * TRAIN_SEQ
+    flops_tok = _moe_flops_per_token(model, TRAIN_SEQ)
+    wall, dev, top, ops = _profile(lambda: step(ids, labels))
+    params = sum(p.numel() for p in model.parameters())
+    expert_params = sum(p.numel() for n, p in model.named_parameters()
+                        if n.endswith(('.w1', '.b1', '.w2', '.b2')))
+    cap = max(1, int(MOE_CAPACITY * tokens / MOE_EXPERTS))
+    switch = {'params': params, 'expert_params': expert_params,
+              'capacity': cap, 'median_ms': median, 'min_ms': min(ms),
+              'max_ms': max(ms), 'tokens_per_s': tokens / median * 1e3,
+              'active_mflop_per_token': flops_tok / 1e6,
+              'mfu': flops_tok * tokens / (median / 1e3) / sku[2]['bfloat16'],
+              'peak_gib': peak / 2 ** 30, 'busy': dev / wall,
+              'dropped_share': [round(d, 4) for d in dropped],
+              'aux_weighted': aux, 'launches': launches, 'steps': MOE_STEPS,
+              'losses': [round(x, 4) for x in losses]}
+    print('phase 25c Switch MoE GPT [%s]: %s' % (card, json.dumps(switch)),
+          flush=True)
+    print('profile MoE step: wall %.2f ms, device kernels %.2f ms, busy '
+          'share %.3f; top kernels: %s; top aten ops: %s'
+          % (wall, dev, dev / wall,
+             '; '.join('%s %.2f ms x%d' % t for t in top),
+             '; '.join('%s %.2f ms x%d' % t for t in ops)), flush=True)
+    del step
+    # GShard (top-2, capacity factor 2) in every block, 2 steps
+    for block in model.gpt.h:
+        block.mlp = GShardMoE(cfg.hidden_size, cfg.intermediate_size,
+                              num_experts=MOE_EXPERTS, device='cuda',
+                              generator=torch.Generator().manual_seed(SEED)
+                              ).to(torch.bfloat16)
+    step = TrainStep(model, model.loss, AdamW(
+        learning_rate=TRAIN_LR, parameters=model.parameters()))
+    g_losses, g_ms, g_peak, g_launches = _timed_train(step, ids, labels, 0, 2)
+    _check(g_launches == _want(2, flash_fwd=layers, flash_bwd_fused=layers)
+           and all(math.isfinite(x) for x in g_losses),
+           'GShard MoE losses %s, launches %s' % (g_losses, g_launches))
+    gshard = {'step_ms': g_ms, 'peak_gib': g_peak / 2 ** 30,
+              'losses': g_losses,
+              'dropped_share': [round(b.mlp.last_dropped.item(), 4)
+                                for b in model.gpt.h]}
+    print('phase 25c GShard MoE GPT [%s]: %s' % (card, json.dumps(gshard)),
+          flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return {'switch': switch, 'gshard': gshard, 'parity': moe_parity_phase()}
+
+
+def moe_parity_phase():
+    """25 (c), last: the MoE GPT cut to 2 layers, f32 (TF32 off), capacity
+    factor 0.5 (tokens drop), 3 TrainStep calls on the card against the
+    same steps on the CPU."""
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_config(num_layers=2, moe_capacity_factor=0.5)
+    gen = torch.Generator().manual_seed(SEED + 28)
+    ids, labels = (torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ),
+                                 generator=gen) for _ in range(2))
+    losses, dropped = {}, {}
+    for dev in ('cuda', 'cpu'):
+        model = GPTForCausalLM(cfg, device=dev, seed=SEED)
+        step = TrainStep(model, model.loss, AdamW(
+            learning_rate=TRAIN_LR, parameters=model.parameters()))
+        losses[dev] = [step(ids.to(dev), labels.to(dev)).item()
+                       for _ in range(3)]
+        dropped[dev] = [b.mlp.last_dropped.item() for b in model.gpt.h]
+        del model, step
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses['cuda'],
+                                                  losses['cpu']))
+    _check(rel <= 1e-5 and min(dropped['cuda']) > 0 and
+           dropped['cuda'] == dropped['cpu'],
+           'MoE f32 losses %s vs CPU %s (rel %.3g, tol 1e-5), dropped %s '
+           'vs %s' % (losses['cuda'], losses['cpu'], rel, dropped['cuda'],
+                      dropped['cpu']))
+    out = {'losses': losses['cuda'], 'losses_cpu': losses['cpu'],
+           'rel': rel, 'dropped_share': dropped['cuda']}
+    print('phase 25c MoE f32 vs CPU: %s' % json.dumps(out), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice16_phases(card, sku):
+    """Phase 25: pipeline and expert parallelism."""
+    t0 = time.time()
+    out = {'pipeline': pipeline_phase(card), 'stages': pp_stage_phase(card),
+           'moe': moe_phase(card, sku)}
+    out['seconds'] = time.time() - t0
+    runs = out['pipeline']
+    print('phase 25 (slice 16) [%s]: %s' % (card, json.dumps({
+        'step_p50_ms': {k: round(r['p50_ms'], 2) for k, r in runs.items()},
+        'peak_gib': {k: round(r['peak_gib'], 2) for k, r in runs.items()},
+        'moe_step_ms': out['moe']['switch']['median_ms'],
+        'moe_mfu': out['moe']['switch']['mfu'],
+        'seconds': round(out['seconds'], 1)})), flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -6116,6 +6498,7 @@ def main():
     slice14 = timed(slice14_phases, card, sku)
     slice15 = timed(slice15_phases, card, train,
                     slice10['predictor'].pop('keep'))
+    slice16 = timed(slice16_phases, card, sku)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -6259,6 +6642,15 @@ def main():
         prof['flash_fwd_tma_kernel'] // 2
     kernels[1]['profiled_launches_per_step'] = \
         prof['flash_bwd_kv_tma_kernel'] // 2
+    # slice 16: the pipeline schedules' launches a step (4 microbatches of
+    # 8) and the MoE GPT's
+    moe = slice16['moe']['switch']
+    for k in kernels[:2]:
+        k['pp_launches_per_step'] = {
+            s: slice16['pipeline'][s]['launches'][-1][k['name']]
+            for s in ('gpipe', '1f1b')}
+        k['moe_launches_per_step'] = moe['launches'][k['name']] // \
+            moe['steps']
     enc = slice14['encoder']['encoder']
     encoder_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 non-causal'
     for kernel, source, line, row in (

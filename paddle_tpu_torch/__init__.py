@@ -13,7 +13,7 @@ that are not here raise an AttributeError that says why and which ROADMAP
 item brings them (`_ABSENT` below): Tensor-method patching (the port's
 tensors are torch's, and patching torch.Tensor would change every torch
 program in the process), the XPU / NPU places, and the subpackages not
-ported yet.
+ported yet (incubate/ holds its MoE layers; its other names raise there).
 """
 import sys as _sys
 
@@ -25,6 +25,7 @@ from . import amp, framework, nn, ops, optimizer, text  # noqa: F401,E402
 from . import data, hapi, io, metric, regularizer  # noqa: F401,E402
 from . import autograd, inference, jit, static  # noqa: F401,E402
 from . import distributed, monitor, profiler, tensor  # noqa: F401,E402
+from . import incubate  # noqa: F401,E402
 from .tensor import *  # noqa: F401,F403,E402
 from .tensor import einsum  # noqa: F401,E402
 from .tensor.creation import to_tensor  # noqa: F401,E402
@@ -142,7 +143,6 @@ _ABSENT = {
     'sysconfig': _BREADTH % 'sysconfig.py',
     'dataset': _BREADTH % 'dataset/',
     'batch': _BREADTH % 'batch.py',
-    'incubate': _BREADTH % 'the rest of incubate/',
 }
 
 

@@ -5,13 +5,14 @@ Collective training, one process a rank over torch.distributed (NCCL on
 the card, gloo on the CPU): env.py (init_parallel_env from Paddle's env
 contract), spawn.py, collective.py, topology.py (HybridCommunicateGroup on
 a DeviceMesh), parallel.py (DataParallel), strategy.py (the shardings),
-sp.py (sequence parallelism), meta_parallel/ (the TP layers) and fleet/
-(fleet_train_step and the strategies). Also the RPC resilience layer
-(resilience.py), the parameter server (ps/), the graph engine
+sp.py (sequence parallelism), pipeline.py and pipeline_1f1b.py (the
+GPipe and 1F1B schedules over point-to-point), meta_parallel/ (the TP
+layers, PipelineLayer) and fleet/ (fleet_train_step and the strategies,
+expert parallelism over 'ep' for incubate/moe.py). Also the RPC
+resilience layer (resilience.py), the parameter server (ps/), the graph engine
 (graph_service.py, graph_learning.py), the TDM tree index
 (index_dataset.py), checkpoints (checkpoint.py) and the supervisors
-(supervisor.py). Not ported, each queued in ROADMAP Queue 1 item 3: the
-pipeline (pipeline.py, pipeline_1f1b.py), MoE over 'ep',
+(supervisor.py). Not ported, each queued in ROADMAP Queue 1 item 3:
 auto_parallel/, launch/, fleet/elastic.py and cloud_utils.py.
 shard_map_compat.py is JAX-only and has no counterpart.
 """

@@ -10,8 +10,9 @@ the strategy asks for, routed as the JAX package routes it: localsgd /
 dgc / fp16_allreduce build the explicit-collective ShardMapDPStep over
 the dp ranks; everything else (dp, mp, sharding stage 1-3, sp, amp,
 recompute, gradient merge) is a TrainStep with the strategy's shardings
-(distributed/strategy.py); lars / lamb swap the optimizer first; the
-pipeline raises NotImplementedError naming its ROADMAP item.
+(distributed/strategy.py); lars / lamb swap the optimizer first; at
+pp_degree > 1 the TrainStep runs the pipeline schedule (GPipe, or 1F1B
+under strategy.pipeline's schedule_mode), each rank keeping its stage.
 `distributed_model` lays the registered model out on the mesh,
 `distributed_optimizer` wraps the optimizer, `get_hybrid_communicate_group`
 returns the group, `distributed_scaler` returns the scaler (each rank's
@@ -201,7 +202,6 @@ def fleet_train_step(model, loss_fn, optimizer, strategy=None, hcg=None):
     from . import meta_optimizers as mo
     from .. import strategy as strategy_mod
     from ...framework import functional as func_mod
-    from ..meta_parallel.parallel_base import PIPELINE_ITEM
 
     hcg = hcg or _FLEET['hcg']
     if hcg is None:
@@ -245,9 +245,33 @@ def fleet_train_step(model, loss_fn, optimizer, strategy=None, hcg=None):
             rampup_begin_step=s.dgc_configs.get('rampup_begin_step', 0),
             rampup_step=s.dgc_configs.get('rampup_step', 1))
 
-    if hcg.get_pipe_parallel_world_size() > 1:
-        raise NotImplementedError('fleet_train_step with pp_degree > 1: ' +
-                                  PIPELINE_ITEM)
+    # pipeline parallel -> the GPipe / 1F1B schedule over the 'pp' line
+    # (distributed/pipeline.py), scoped to the step like sp.
+    # strategy.pipeline engages pipeline_configs: accumulate_steps and
+    # schedule_mode ('1F1B' -> interleaved, loss in the last stage;
+    # 'F-then-B' -> GPipe); without it GPipe at n_micro = pp. An explicit
+    # accumulate_steps is honoured as the JAX package honours it (at least
+    # pp); the 2 pp default applies to 1F1B only. Each rank keeps its
+    # stage's layers before the shardings are built.
+    pp_state = None
+    pp_deg = hcg.get_pipe_parallel_world_size()
+    if pp_deg > 1:
+        from .. import pipeline as pp_mod
+        schedule, acc = 'gpipe', 1
+        if s.pipeline:
+            acc = s.pipeline_configs.get('accumulate_steps', 1)
+            mode = s.pipeline_configs.get('schedule_mode', '1F1B')
+            schedule = '1f1b' if str(mode).upper() == '1F1B' else 'gpipe'
+        if acc > 1:
+            n_micro = max(pp_deg, acc)
+        else:
+            n_micro = 2 * pp_deg if schedule == '1f1b' else pp_deg
+        pp_state = pp_mod.make_pp_state(mesh, n_stages=pp_deg,
+                                        n_micro=n_micro,
+                                        remat=bool(sdict['recompute']),
+                                        schedule=schedule)
+        pp_state['n_micro_defaulted'] = acc <= 1
+        pp_mod.keep_stage(model, pp_state, optimizer)
 
     # sequence parallel -> sp attention routing over the 'sp' mesh axis,
     # scoped to the TrainStep (sp_scope). The JAX package routes only at
@@ -322,6 +346,7 @@ def fleet_train_step(model, loss_fn, optimizer, strategy=None, hcg=None):
         amp_dtype=amp_dtype,
         remat=remat,
         sp_state=sp_state,
+        pp_state=pp_state,
         init_loss_scaling=s.amp_configs.get('init_loss_scaling', 65536.0),
         ls_growth_interval=s.amp_configs.get('incr_every_n_steps', 2000),
         fce_sharding=fce_sharding)

@@ -6,16 +6,12 @@ tensor_parallel.py, sharding_parallel.py).
 They wrap a model for the hybrid configuration; the layouts and the
 collectives come from distributed/strategy.py and the TP layers, so a
 wrapper's job is bookkeeping: calls, attributes and the state dict pass
-through to the model. The pipeline is not ported: PipelineParallel
-raises.
+through to the model. PipelineParallel.train_batch runs the pipeline
+schedule (distributed/pipeline.py, PipelineEngine).
 """
 from torch import nn
 
 __all__ = ['TensorParallel', 'ShardingParallel', 'PipelineParallel']
-
-PIPELINE_ITEM = ('the pipeline (pipeline.py, pipeline_1f1b.py, '
-                 'meta_parallel/pp_layers.py, TrainStep(pp_state)) is not '
-                 'ported yet: ROADMAP Queue 1 item 3, the pipeline')
 
 
 class _MetaParallelBase(nn.Module):
@@ -52,7 +48,20 @@ class ShardingParallel(_MetaParallelBase):
 
 
 class PipelineParallel(_MetaParallelBase):
-    """train_batch parity (pipeline_parallel.py:109): not ported."""
+    """train_batch parity (pipeline_parallel.py:109): the GPipe schedule
+    over the hybrid group's 'pp' line through PipelineEngine."""
 
     def __init__(self, layers, hcg, strategy=None):
-        raise NotImplementedError('PipelineParallel: ' + PIPELINE_ITEM)
+        super().__init__(layers, hcg, strategy)
+        self._engine = None
+
+    def train_batch(self, data, optimizer, lr_scheduler=None, scaler=None):
+        from ..pipeline import PipelineEngine
+        if self._engine is None:
+            self._engine = PipelineEngine(self._layers, optimizer,
+                                          self._hcg)
+        inputs, labels = data
+        loss = self._engine.step(inputs, labels)
+        if lr_scheduler is not None:
+            lr_scheduler.step()
+        return loss

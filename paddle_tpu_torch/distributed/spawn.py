@@ -14,7 +14,8 @@ process drives every TPU chip. Here each rank owns a card: a child runs on
 card FLAGS_selected_gpus = its rank unless options say
 `backend='gloo'` (or `device='cpu'`), which puts the ranks on the CPU.
 A spawn child imports the module that defines `func` again, so define it
-where nothing imports jax.
+where nothing imports jax. When func returns, a rank's NCCL groups are
+ended together (env.end_nccl_groups) before the process exits.
 """
 import os
 import traceback
@@ -111,6 +112,8 @@ def _wrap(func, args, env, rank, error_queue):
     os.environ.update(env)
     try:
         func(*args)
+        from .env import end_nccl_groups
+        end_nccl_groups()
     except Exception:
         error_queue.put((rank, traceback.format_exc()))
         raise

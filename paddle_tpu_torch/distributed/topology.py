@@ -10,6 +10,10 @@ dp (data), pp (pipeline), sharding (ZeRO), ep (experts), mp (tensor), sp
 sub-group; a Group wraps the sub-group's torch ProcessGroup.
 `flat_group(mesh, axes)` is the group of the ranks that differ only in
 the axes named (the ranks a batch sharded over those axes spreads over).
+`pp_line(mesh)` is this rank's pipeline neighbourhood (its stage, the
+previous and next stage's global ranks) and `stage_group(mesh, stages)`
+the group of the named stages of this rank's pipeline line: the tied
+weights of the first and the last stage reduce their grads over it.
 """
 import collections
 
@@ -20,7 +24,7 @@ from . import env as env_mod
 
 __all__ = ['CommunicateTopology', 'HybridCommunicateGroup', 'Group',
            'get_hybrid_communicate_group', 'set_hybrid_communicate_group',
-           'default_mesh', 'flat_group', 'AXES']
+           'default_mesh', 'flat_group', 'pp_line', 'stage_group', 'AXES']
 
 AXES = _AXES = ('dp', 'pp', 'sharding', 'ep', 'mp', 'sp')
 
@@ -118,6 +122,51 @@ def flat_group(mesh, axes):
     return group
 
 
+PPLine = collections.namedtuple('PPLine', 'stage n_stages prev next ranks')
+
+
+def pp_line(mesh, axis='pp'):
+    """This rank's place on its pipeline line (the ranks that differ only
+    on `axis`): PPLine(stage, n_stages, prev, next, ranks), prev / next the
+    global ranks of the neighbouring stages (None at the ends) and ranks
+    the line's global ranks by stage. A mesh without the axis is one
+    stage."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return PPLine(0, 1, None, None, [env_mod.get_rank()])
+    ranks = [int(r) for r in dist.get_process_group_ranks(
+        mesh.get_group(axis))]
+    stage = mesh.get_local_rank(axis)
+    n = len(ranks)
+    return PPLine(stage, n, ranks[stage - 1] if stage > 0 else None,
+                  ranks[stage + 1] if stage < n - 1 else None, ranks)
+
+
+def stage_group(mesh, stages, axis='pp'):
+    """The Group of `stages` (stage indices) on this rank's pipeline
+    line, or None when this rank's stage is not among them or they are
+    one stage. Every rank calls it with the same arguments (new_group is
+    collective: a group is made for every line of the mesh); cached per
+    mesh and stages."""
+    stages = tuple(sorted(set(stages)))
+    key = (id(mesh), axis, stages)
+    if key in _FLAT:
+        return _FLAT[key][1]
+    group = None
+    if len(stages) > 1:
+        names = list(mesh.mesh_dim_names)
+        ranks = np.asarray(mesh.mesh.cpu())
+        i = names.index(axis)
+        lines = np.moveaxis(ranks, i, -1).reshape(-1, ranks.shape[i])
+        me = env_mod.get_rank()
+        for line in lines:
+            row = [int(line[s]) for s in stages]
+            pg = dist.new_group(row)
+            if me in row:
+                group = Group(axis, len(row), ranks=row, pg=pg)
+    _FLAT[key] = (mesh, group)
+    return group
+
+
 class HybridCommunicateGroup:
     """The job's device mesh over the axes dp, pp, sharding, ep, mp, sp
     (reference topology.py:123-136 accessors). The product of the
@@ -204,6 +253,29 @@ class HybridCommunicateGroup:
 
     def get_global_rank(self):
         return self.global_rank
+
+    # -- pipeline neighbours (reference topology.py:183-199) -----------------
+    @property
+    def is_first_stage(self):
+        return self._rank('pp') == 0
+
+    @property
+    def is_last_stage(self):
+        return self._rank('pp') == self._degrees['pp'] - 1
+
+    def get_p2p_prev_rank(self):
+        """The previous stage's global rank (None on the first stage)."""
+        return pp_line(self.mesh).prev
+
+    def get_p2p_next_rank(self):
+        """The next stage's global rank (None on the last stage)."""
+        return pp_line(self.mesh).next
+
+    def get_pipe_tied_group(self):
+        """The group of this line's first and last stage, over which a
+        weight both use (the GPT's tied embedding) sums its grads; None
+        on a middle stage or a one-stage pipeline."""
+        return stage_group(self.mesh, (0, self._degrees['pp'] - 1))
 
     def topology(self):
         return CommunicateTopology(

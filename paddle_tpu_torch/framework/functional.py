@@ -52,7 +52,18 @@ program over a mesh; distributed/strategy.py builds the same specs):
   backward (attention as ring / Ulysses over the sp group).
 - fce_sharding: the vocab-parallel fused loss for a head sharded over
   'mp' (ops/fused_ce.logits_sharding) around the forward and backward.
-- pp_state: the pipeline is not ported; it raises.
+- pp_state: distributed/pipeline.py's state, active around the step.
+  On a pipeline of more than one stage the model keeps only this rank's
+  stage (pipeline.keep_stage); the forward and the backward are the
+  schedule's microbatch loop over the 'pp' line, 1F1B when the state asks
+  for it and the model has pp_decompose() (else GPipe, with a warning, as
+  in the JAX package). The loss is the mean of the microbatch losses,
+  broadcast from the last stage; the grads then take the other options'
+  path (the data-parallel average, grad_sync, gradient merge, the
+  update). `pp_stats` holds the last step's schedule, microbatch count
+  and peak of microbatches in flight on this rank.
+Under a batch that spreads over ranks the MoE layers route over the
+global batch (incubate/moe.py, token_scope).
 Sharded parameters update through their local shards; a grad clip sees
 the global norm (the shards' squares summed over their ranks). AMP with
 tensor-parallel (DTensor) parameters raises; under FSDP2 the storage
@@ -143,12 +154,16 @@ class TrainStep:
                  grad_merge_avg=True, amp_dtype=None, remat=False,
                  sp_state=None, pp_state=None, init_loss_scaling=65536.0,
                  ls_growth_interval=2000, fce_sharding=None):
-        if pp_state is not None:
-            from ..distributed.meta_parallel.parallel_base import \
-                PIPELINE_ITEM
-            raise NotImplementedError('TrainStep(pp_state=...): ' +
-                                      PIPELINE_ITEM)
         self.model = model
+        self._pp_state = pp_state
+        self.pp_stats = None
+        if pp_state is not None:
+            pp_state = self._pp_schedule(pp_state)
+            if remat:  # the whole-step remat as the stages' layer remat
+                pp_state = dict(pp_state, remat=True)
+            self._pp_state = pp_state
+            from ..distributed.pipeline import keep_stage
+            keep_stage(model, pp_state, optimizer)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._amp_dtype = (None if amp_dtype is None else torch.bfloat16
@@ -183,6 +198,23 @@ class TrainStep:
                 'TrainStep(amp_dtype=...) with tensor-parallel (DTensor) '
                 'parameters is not ported yet (ROADMAP Queue 1 item 3, '
                 'AMP under tensor parallelism)')
+
+    def _pp_schedule(self, state):
+        """The state with the schedule this model can run: 1F1B needs
+        pp_decompose(); without it GPipe, as the JAX step falls back."""
+        from ..distributed.pipeline_1f1b import supports_1f1b
+        if state.get('schedule') != '1f1b' or supports_1f1b(self.model):
+            return state
+        import warnings
+        warnings.warn(
+            'pipeline schedule_mode=1F1B needs %s.pp_decompose() '
+            '(pre/blocks/post split); falling back to the GPipe schedule'
+            % type(self.model).__name__)
+        state = dict(state, schedule='gpipe')
+        if state.get('n_micro_defaulted'):
+            # GPipe's default microbatch count is pp, 1F1B's 2 pp
+            state['n_micro'] = state['n_stages']
+        return state
 
     # -- layout ----------------------------------------------------------------
     def _setup_layout(self, in_shardings, out_shardings):
@@ -247,6 +279,9 @@ class TrainStep:
         if self._fce_sharding is not None:
             from ..ops.fused_ce import logits_sharding
             stack.enter_context(logits_sharding(self._fce_sharding))
+        if self._data_group is not None:
+            from ..incubate.moe import token_scope
+            stack.enter_context(token_scope(self._data_group))
         return stack
 
     # -- forward and backward ------------------------------------------------
@@ -298,6 +333,13 @@ class TrainStep:
                 return loss.float() if self._amp_dtype is not None else loss
 
             with self._scope():
+                if self._pp_state is not None:
+                    from ..distributed.pipeline import run_schedule
+                    loss, self.pp_stats = run_schedule(
+                        self.model, self.loss_fn, inputs, labels,
+                        self._pp_state, self.loss_scale
+                        if self._loss_scaling else 1.0)
+                    return loss.detach()
                 if self._remat:
                     loss = checkpoint(compute, *inputs, *labels,
                                       use_reentrant=False)
@@ -411,15 +453,17 @@ class TrainStep:
     def _apply(self, grads):
         opt = self.optimizer
         t = opt._step_count + 1
-        if not self._zero and not any(_is_dtensor(p)
-                                      for _, p in self._params):
+        pp = self._pp_norm_line()
+        if not self._zero and pp is None and not any(
+                _is_dtensor(p) for _, p in self._params):
             named = [(opt._name_for(p, name), p, g)
                      for (name, p), g in zip(self._params, grads)]
             opt._update(named, opt.get_lr(), t, lr_is_f32=True)
             opt._step_count = t
             return
-        # sharded parameters: clip over the global norm, then update the
-        # local shards (ZeRO-1 / 2: this rank's rows, then gathered)
+        # sharded parameters or pipeline stages: clip over the global
+        # norm, then update the local shards (ZeRO-1 / 2: this rank's
+        # rows, then gathered)
         from ..optimizer.optimizers import Lamb, LarsMomentum
         if isinstance(opt, (Lamb, LarsMomentum)) and (self._zero or any(
                 _shard_group(p) is not None for _, p in self._params)):
@@ -431,7 +475,7 @@ class TrainStep:
         clip, opt._grad_clip = opt._grad_clip, None
         try:
             if clip is not None:
-                grads = self._clip_sharded(clip, grads)
+                grads = self._clip_sharded(clip, grads, pp)
             named = []
             for (name, p), g in zip(self._params, grads):
                 handle, g = self._handle(name, p, g)
@@ -493,10 +537,28 @@ class TrainStep:
         dist.all_gather(parts, self._handles[name][1].clone(),
                         group=group.pg)
 
-    def _clip_sharded(self, clip, grads):
+    def _pp_norm_line(self):
+        """Under a pipeline of more than one stage whose optimizer clips
+        by the global norm: (the 'pp' line's ProcessGroup, the ids of the
+        shared weights this rank leaves out of the norm). Every stage that
+        uses a tied weight holds its summed grad, and only the first rank
+        of its tied group counts it. Else None."""
+        from ..nn.clip import ClipGradByGlobalNorm
+        state = self._pp_state
+        if state is None or state['n_stages'] == 1 or not isinstance(
+                self.optimizer._grad_clip, ClipGradByGlobalNorm):
+            return None
+        me = dist.get_rank()
+        skip = {id(getattr(m, a)) for m, a, group in
+                getattr(self.model, '_pp_tied', None) or []
+                if group.ranks[0] != me}
+        return state['mesh'].get_group(state['axis']), skip
+
+    def _clip_sharded(self, clip, grads, pp=None):
         """The clip over sharded grads: ClipGradByGlobalNorm with the
-        global norm (each shard group's squares summed over its ranks),
-        ClipGradByValue elementwise."""
+        global norm (each shard group's squares summed over its ranks, and
+        the sum over the pipeline's stages when `pp` is
+        _pp_norm_line()'s), ClipGradByValue elementwise."""
         from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
         if isinstance(clip, ClipGradByValue):
             return [g.clamp(clip.min, clip.max) for g in grads]
@@ -505,19 +567,26 @@ class TrainStep:
                 '%s over sharded parameters is not ported yet (ROADMAP '
                 'Queue 1 item 3, per-tensor clips under sharding)'
                 % type(clip).__name__)
+        pp_pg, skip = pp if pp is not None else (None, ())
         sums = {}
         for (_, p), g in zip(self._params, grads):
-            if getattr(p, 'need_clip', True):
+            if getattr(p, 'need_clip', True) and id(p) not in skip:
                 pg = _shard_group(p)
                 sq = g.float().square().sum()
                 sums[pg] = sq if pg not in sums else sums[pg] + sq
-        if not sums:
-            return grads
         total = None
         for pg, sq in sums.items():
             if pg is not None:
                 dist.all_reduce(sq, group=pg)
             total = sq if total is None else total + sq
+        if pp_pg is not None:
+            if total is None:  # a stage with nothing to clip
+                total = torch.zeros((), device=grads[0].device if grads
+                                    else 'cuda' if dist.get_backend(pp_pg)
+                                    == 'nccl' else 'cpu')
+            dist.all_reduce(total, group=pp_pg)
+        if total is None:
+            return grads
         norm = total.sqrt()
         scale = norm.new_tensor(clip.clip_norm) / norm.clamp_min(
             clip.clip_norm)

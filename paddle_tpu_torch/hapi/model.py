@@ -15,8 +15,10 @@ Differences from the JAX package, each on purpose:
   CUDA step and hide a kernel fault. The port falls back to the eager loop
   only on the NotImplementedError that TrainStep raises when it is built
   with an option it refuses, and re-raises everything else. prepare()
-  passes TrainStep no such option yet (pp_state is one, ROADMAP Queue 1
-  item 3(c)), so the eager loop waits for prepare() to pass one.
+  passes TrainStep no such option: it passes no pp_state, as the JAX
+  Model's prepare() passes none (a pipeline trains through fleet or
+  PipelineParallel.train_batch), so the eager loop waits for an option
+  prepare() would pass and TrainStep refuse.
 - fit wires a CompileWatchdog(owner=self) beside its StepTimeline
   (data_wait / host_dispatch / device_block), with the warmup barrier
   after the first eval pass as in the JAX package; the eager step

@@ -14,7 +14,19 @@ distributed/strategy.py has laid them out as DTensors over 'mp', the
 attention, the MLP, the embedding and the head run on their shards
 (distributed/meta_parallel/mp_layers.py). Under an active sequence-
 parallel state the positions are the rank's shard's (distributed/sp.py).
-MoE blocks and pipeline stages are not ported yet.
+
+GPTConfig.num_experts > 0 swaps each block's MLP for a SwitchMoE
+(incubate/moe.py); in training the blocks' load-balancing terms, weighted
+by aux_loss_weight, are summed and consumed once by loss(). MoE under a
+pipeline or recompute raises, as in the JAX package.
+
+Pipeline parallelism: the schedules (distributed/pipeline.py,
+pipeline_1f1b.py) enter the GPT through pp_decompose(), which gives the
+(pre, blocks, post) split they run, so forward() has no pipeline branch
+(the JAX package's runs its shard_map pipeline there); it only refuses
+MoE under an active pp state. pp_keep_stage() keeps one stage's layers
+under their global names, so load_paddle_tpu_state takes that stage's
+slice of a whole state.
 """
 import numpy as np
 import torch
@@ -473,7 +485,15 @@ class GPTBlock(nn.Module):
         self.ln_1 = _norm(config, device)
         self.attn = GPTAttention(config, device=device, generator=generator)
         self.ln_2 = _norm(config, device)
-        self.mlp = GPTMLP(config, device=device, generator=generator)
+        if config.num_experts:
+            from ...incubate.moe import SwitchMoE
+            self.mlp = SwitchMoE(
+                config.hidden_size, config.intermediate_size,
+                num_experts=config.num_experts,
+                capacity_factor=config.moe_capacity_factor, device=device,
+                generator=generator)
+        else:
+            self.mlp = GPTMLP(config, device=device, generator=generator)
 
     def forward(self, x, cache=None):
         if cache is not None:
@@ -486,6 +506,27 @@ class GPTBlock(nn.Module):
         return x
 
 
+_MOE_REFUSAL = ('MoE blocks do not compose with recompute or pipeline '
+                'parallelism yet (aux-loss routing) - disable one of them')
+
+
+class StageBlocks(nn.Module):
+    """The blocks one pipeline stage holds, registered under their global
+    indices (so their parameters keep the whole model's names); iterates
+    and counts like the ModuleList it replaces."""
+
+    def __init__(self, blocks):
+        super().__init__()
+        for i, block in blocks:
+            self.add_module(str(i), block)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+
 class GPTModel(nn.Module):
     """The decoder stack. `GPTModel(config)` or `GPTModel(**config_kwargs)`,
     as in the JAX package."""
@@ -493,10 +534,6 @@ class GPTModel(nn.Module):
     def __init__(self, config=None, device=None, generator=None, **kwargs):
         super().__init__()
         config = config or GPTConfig(**kwargs)
-        if config.num_experts:
-            raise NotImplementedError(
-                'MoE blocks (num_experts > 0) are not ported yet (ROADMAP '
-                'Queue 1 item 3(c): incubate/moe.py over the ep axis)')
         self.config = config
         self.wte = pnn.Embedding(config.vocab_size, config.hidden_size,
                                  device=device, generator=generator)
@@ -563,12 +600,26 @@ class GPTModel(nn.Module):
                 x, nc = block(x, cache=c)
                 new_caches.append(nc)
             return self.ln_f(x), new_caches
+        from ...distributed import pipeline as pp_mod
+        pp_state = pp_mod.pipeline_state()
+        moe = self.config.num_experts > 0
+        if moe and self.training and (pp_state is not None or
+                                      self._recompute):
+            raise NotImplementedError(_MOE_REFUSAL)
         if self._recompute and self.training:
             for block in self.h:
                 x = _recompute(block, x)
         else:
             for block in self.h:
                 x = block(x)
+        # the MoE load-balancing terms for GPTForCausalLM.loss (training
+        # only: an eval loss carries no balance term)
+        self._moe_aux = None
+        if moe and self.training:
+            for block in self.h:
+                term = block.mlp.aux_loss * block.mlp.aux_loss_weight
+                self._moe_aux = term if self._moe_aux is None \
+                    else self._moe_aux + term
         return self.ln_f(x)
 
 
@@ -623,23 +674,68 @@ class GPTForCausalLM(nn.Module):
         logits."""
         if self.config.fused_loss and self.training and \
                 logits.shape[-1] == self.config.hidden_size:
-            if self.lm_head is None:
-                return F.linear_cross_entropy(
-                    logits, self.gpt.wte.weight, labels,
-                    transpose_weight=True)
-            return F.linear_cross_entropy(logits, self.lm_head.weight,
-                                          labels)
-        b, n, v = logits.shape
-        return F.cross_entropy(logits.reshape(b * n, v),
-                               labels.reshape(b * n))
+            w = self.gpt.wte.weight if self.lm_head is None \
+                else self.lm_head.weight
+            ce = F.linear_cross_entropy(logits, w, labels,
+                                        transpose_weight=self.lm_head is None)
+        else:
+            b, n, v = logits.shape
+            ce = F.cross_entropy(logits.reshape(b * n, v),
+                                 labels.reshape(b * n))
+        aux = getattr(self.gpt, '_moe_aux', None)
+        self.gpt._moe_aux = None  # consumed once, never stale across calls
+        return ce if aux is None else ce + aux
 
     def enable_recompute(self, flag=True):
         self.gpt.enable_recompute(flag)
 
     def pp_decompose(self, loss_fn=None):
-        raise NotImplementedError(
-            'pipeline stages are not ported yet (ROADMAP Queue 1 item '
-            '3(c): the pipeline)')
+        """(pre, blocks, post) for the pipeline schedules: pre(ids) = the
+        embeddings (first stage), blocks = the transformer stack (the
+        blocks this model holds), post(x, labels) = ln_f, the tied or
+        untied head and loss_fn (self.loss by default; last stage). Under
+        config.fused_loss post hands loss_fn the final hidden state, the
+        non-pipelined training forward's contract. The tied wte is used
+        by pre and post."""
+        if self.config.num_experts:
+            raise NotImplementedError(_MOE_REFUSAL)
+        gpt = self.gpt
+        loss_fn = loss_fn or self.loss
+
+        def pre(ids):
+            n = ids.shape[1]
+            pos = torch.arange(n, device=ids.device)[None, :]
+            return gpt.drop(gpt._embed(ids) + gpt.wpe(pos))
+
+        def post(x, labels):
+            h = gpt.ln_f(x)
+            if self.config.fused_loss:
+                return loss_fn(h, labels)
+            return loss_fn(self._logits(h), labels)
+
+        return pre, gpt.h, post
+
+    def pp_keep_stage(self, stage, n_stages):
+        """Keep only stage `stage`'s part of a pipeline of n_stages: its
+        blocks (ceil(n / pp) a stage, distributed.pipeline.stage_bounds),
+        the embeddings on the first stage, ln_f and the head on the last
+        (the tied wte on both). Returns [(module, attribute)] of the
+        weights the first and last stage share."""
+        from ...distributed.pipeline import stage_bounds
+        gpt = self.gpt
+        lo, hi = stage_bounds(len(gpt.h), n_stages, stage)
+        gpt.h = StageBlocks([(i, gpt.h[i]) for i in range(lo, hi)])
+        first, last = stage == 0, stage == n_stages - 1
+        tied = self.lm_head is None
+        if not first:
+            gpt.wpe = None
+            if not (last and tied):
+                gpt.wte = None
+        if not last:
+            gpt.ln_f = None
+            self.lm_head = None
+        return [(gpt.wte, 'weight')] if tied and n_stages > 1 and \
+            gpt.wte is not None else []
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
@@ -713,10 +809,13 @@ def load_paddle_tpu_state(model, arrays):
     'lm_head.weight' for an untied head).
     Raises on a missing key, an extra key or a shape mismatch, before
     anything is copied. A parameter laid out over a device mesh (a
-    DTensor) takes this rank's shard of the value."""
+    DTensor) takes this rank's shard of the value. A pipeline stage's model
+    (pp_keep_stage) takes its own slice of a whole model's state: the
+    other stages' keys are skipped."""
     own = model.state_dict()
     missing = sorted(set(own) - set(arrays))
-    extra = sorted(set(arrays) - set(own))
+    extra = [] if getattr(model, '_pp_kept', None) is not None else \
+        sorted(set(arrays) - set(own))
     if missing or extra:
         raise KeyError('state does not match the model: missing %s, extra %s'
                        % (missing, extra))

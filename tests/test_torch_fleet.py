@@ -318,22 +318,31 @@ def test_parallel_cross_entropy_matches_jax(world2):
 
 
 def test_pipeline_and_left_out_options_raise():
+    """The pipeline and MoE paths, which raised until their slice, build
+    and run (tests/test_torch_pipeline.py and test_torch_moe.py hold them
+    to the JAX package); MoE under a pipeline still raises, as in the JAX
+    package."""
     import torch
     from paddle_tpu_torch.distributed.meta_parallel import PipelineParallel
+    from paddle_tpu_torch.distributed.pipeline import make_pp_state
     from paddle_tpu_torch.framework.functional import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
-        PipelineParallel(torch.nn.Linear(2, 2), None)
+    wrapped = PipelineParallel(torch.nn.Linear(2, 2), None)
+    assert callable(wrapped.train_batch)
     m = GPTForCausalLM(GPTConfig(**CONFIG), device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
-        TrainStep(m, m.loss, AdamW(parameters=m.parameters()),
-                  pp_state={'n_stages': 2})
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
-        m.pp_decompose()
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
-        GPTForCausalLM(GPTConfig(**dict(CONFIG, num_experts=2)),
-                       device='cpu')
+    step = TrainStep(m, m.loss, AdamW(parameters=m.parameters()),
+                     pp_state=make_pp_state(None, 1, n_micro=2))
+    ids = torch.arange(64).reshape(2, 32) % CONFIG['vocab_size']
+    assert np.isfinite(step(ids, ids).item())
+    assert step.pp_stats['n_micro'] == 2
+    pre, blocks, post = m.pp_decompose()
+    assert len(blocks) == CONFIG['num_layers']
+    moe = GPTForCausalLM(GPTConfig(**dict(CONFIG, num_experts=2)),
+                         device='cpu')
+    assert moe.gpt.h[0].mlp.num_experts == 2
+    with pytest.raises(NotImplementedError, match='MoE'):
+        moe.pp_decompose()
 
 
 def test_strategy_specs_match_jax():

@@ -263,17 +263,26 @@ def test_fused_forward_contract_and_config_checks():
     for key in ('vocab_size', 'hidden_size', 'num_layers', 'num_heads',
                 'max_position_embeddings', 'initializer_range'):
         assert getattr(b, key) == getattr(jb, key), key
+    # MoE blocks build (they raised before the pipeline / MoE slice);
+    # under recompute a training forward raises, as in the JAX package
+    moe = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL, num_experts=2,
+                                             recompute=True), device='cpu')
+    moe.train()
     with pytest.raises(NotImplementedError, match='MoE'):
-        tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL, num_experts=2),
-                            device='cpu')
+        moe(ids)
     # per-block recompute builds (it raised before the training slice)
     rc = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL, recompute=True),
                              device='cpu')
     assert rc.gpt._recompute
     rc.enable_recompute(False)
     assert not rc.gpt._recompute
-    with pytest.raises(NotImplementedError, match='pipeline'):
-        tm.pp_decompose()
+    # the pipeline split composes to the fused training loss
+    pre, blocks, post = tm.pp_decompose()
+    tm.train()
+    x = pre(ids)
+    for block in blocks:
+        x = block(x)
+    torch.testing.assert_close(post(x, ids), tm.loss(tm(ids), ids))
 
 
 # each package's modules, for optimizers built per package
@@ -326,8 +335,15 @@ def _run(seed, make_opt, step_kw, batches, cfg=None, observe=None,
     init = _state(tm)
     jopt, jsched = make_opt(J, jm)
     topt, tsched = make_opt(T, tm)
-    jstep = jfm.TrainStep(jm, lambda o, l: jm.loss(o, l), jopt, **step_kw)
-    tstep = TrainStep(tm, tm.loss, topt, **step_kw)
+    # a step option given as a function of the package is built per side
+    make = step_kw.get('pp_state')
+    if callable(make):
+        jstep = jfm.TrainStep(jm, lambda o, l: jm.loss(o, l), jopt, **make(J))
+        tstep = TrainStep(tm, tm.loss, topt, **make(T))
+    else:
+        jstep = jfm.TrainStep(jm, lambda o, l: jm.loss(o, l), jopt,
+                              **step_kw)
+        tstep = TrainStep(tm, tm.loss, topt, **step_kw)
     losses = []
     for ids, labels in batches:
         want = float(np.asarray(jstep(paddle.to_tensor(ids),
@@ -353,21 +369,27 @@ def _halve_grads(grads):
     return {name: g * 0.5 for name, g in grads.items()}
 
 
+def _pp_state_kw(pkg):
+    """A one-stage pipeline of 2 microbatches, as each package builds
+    it (the JAX package's over a one-device 'pp' mesh)."""
+    if pkg is J:
+        from jax.sharding import Mesh
+        from paddle_tpu.distributed.pipeline import make_pp_state
+        return {'pp_state': make_pp_state(
+            Mesh(np.asarray(jax.devices()[:1]), ('pp',)), 1, n_micro=2)}
+    from paddle_tpu_torch.distributed.pipeline import make_pp_state
+    return {'pp_state': make_pp_state(None, 1, n_micro=2)}
+
+
 # These options raised NotImplementedError until a slice ported them
 # (k_steps, amp_dtype, remat: the training slice; grad_sync: the
-# collective slice); each of those cases now holds the port to the JAX
-# TrainStep with it. The pipeline's pp_state still raises.
+# collective slice; pp_state: the pipeline slice); each of those cases
+# now holds the port to the JAX TrainStep with it.
 @pytest.mark.parametrize('kwargs', [{'k_steps': 2}, {'amp_dtype': 'bfloat16'},
                                     {'remat': True},
-                                    {'pp_state': {'n_stages': 2}},
+                                    {'pp_state': _pp_state_kw},
                                     {'grad_sync': _halve_grads}])
 def test_train_step_unported_options_raise(kwargs):
-    if 'pp_state' in kwargs:
-        _, tm = _pair(16)
-        with pytest.raises(NotImplementedError, match='not ported'):
-            TrainStep(tm, tm.loss, AdamW(parameters=tm.parameters()),
-                      **kwargs)
-        return
     # with the recipe's optimizer: its schedule, clip and decay groups
     batches = [_batch(2, 64, s) for s in (30, 31, 30, 31)]
     jm, tm, jstep, tstep, losses, init = _run(16, _recipe, kwargs, batches)

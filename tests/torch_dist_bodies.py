@@ -60,6 +60,20 @@ def world_results(root, name, nprocs, job):
     return out
 
 
+def world_results_beside(root, name, nprocs, job, work):
+    """(world_results(root, name, nprocs, job), work()): the world's ranks
+    run in their processes while this process computes work() (the JAX
+    references: its compiles release the interpreter lock)."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        world = pool.submit(world_results, root, name, nprocs, job)
+        try:
+            done = work()
+        finally:
+            results = world.result()
+    return results, done
+
+
 def _run_world(out_dir, nprocs, job):
     from paddle_tpu_torch.distributed import spawn
     job_path = os.path.join(out_dir, 'job.pkl')
@@ -346,17 +360,24 @@ def _opt_state(opt):
 def _fleet_model(case, spec, state, opt_state=None, load=None):
     """A fresh GPT, AdamW and fleet_train_step under the case's strategy,
     its weights from `state` and, with opt_state, the optimizer's loaded
-    before ('before') or after ('after') the step is built."""
+    before ('before') or after ('after') the step is built. A case with
+    'clip' (clip_norm, lr) takes SGD with ClipGradByGlobalNorm instead."""
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD, AdamW
     from paddle_tpu_torch.text.models.gpt import (GPTConfig, GPTForCausalLM,
                                                   load_paddle_tpu_state)
     s = _fleet_strategy(case)
     fleet.init(is_collective=True, strategy=s)
     model = GPTForCausalLM(GPTConfig(**case['config']), device='cpu')
     load_paddle_tpu_state(model, state)
-    opt = AdamW(learning_rate=spec['lr'], weight_decay=spec['wd'],
-                parameters=model.parameters())
+    if case.get('clip'):
+        norm, lr = case['clip']
+        opt = SGD(learning_rate=lr, parameters=model.parameters(),
+                  grad_clip=ClipGradByGlobalNorm(norm))
+    else:
+        opt = AdamW(learning_rate=spec['lr'], weight_decay=spec['wd'],
+                    parameters=model.parameters())
     if load == 'before':
         opt.set_state_dict(opt_state)
     step = fleet.fleet_train_step(model, model.loss, opt, strategy=s)
@@ -407,8 +428,27 @@ def _fleet_grads(case, spec, ids, labels):
         moves.append({n: _np(p) - case['state'][n]
                       for n, p in model.named_parameters()})
     plain, got = moves
+    # a pipeline stage holds only its own parameters
     return {n: float(np.linalg.norm(got[n] - plain[n]) /
-                     np.linalg.norm(plain[n])) for n in plain}
+                     np.linalg.norm(plain[n])) for n in got}
+
+
+def _sgd_moves(case, spec, ids, labels):
+    """Each parameter's move in one SGD step at lr 1 under the case's
+    strategy (minus its grad), whole."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.text.models.gpt import (GPTConfig, GPTForCausalLM,
+                                                  load_paddle_tpu_state)
+    model = GPTForCausalLM(GPTConfig(**case['config']), device='cpu')
+    load_paddle_tpu_state(model, case['state'])
+    opt = SGD(learning_rate=1.0, parameters=model.parameters())
+    s = _fleet_strategy(case)
+    fleet.init(is_collective=True, strategy=s)
+    step = fleet.fleet_train_step(model, model.loss, opt, strategy=s)
+    step(ids, labels)
+    return {n: _np(p) - case['state'][n]
+            for n, p in model.named_parameters()}
 
 
 def _fleet(spec):
@@ -419,6 +459,7 @@ def _fleet(spec):
     of fresh steps loaded from the model's and the optimizer's state
     (the optimizer's loaded before and after the step is built)."""
     from torch.distributed.tensor import DTensor
+    from paddle_tpu_torch.distributed import fleet
     ids, labels = (torch.tensor(spec[k]).long() for k in ('ids', 'labels'))
     out = {}
     for case in spec['cases']:
@@ -426,11 +467,27 @@ def _fleet(spec):
         losses = [float(step(ids, labels)) for _ in range(spec['steps'])]
         placed = {n: str(p.placements) for n, p in model.named_parameters()
                   if isinstance(p, DTensor)}
-        out[case['name']] = {'losses': losses, 'placed': placed,
-                             'step': type(step).__name__}
+        pp = getattr(step, '_pp_state', None)
+        hcg = fleet.get_hybrid_communicate_group()
+        tied = hcg.get_pipe_tied_group()
+        line = {'first': hcg.is_first_stage, 'last': hcg.is_last_stage,
+                'prev': hcg.get_p2p_prev_rank(),
+                'next': hcg.get_p2p_next_rank(),
+                'tied': None if tied is None else tied.ranks,
+                'rank': torch.distributed.get_rank()}
+        out[case['name']] = {
+            'pp_line': line,
+            'losses': losses, 'placed': placed,
+            'step': type(step).__name__,
+            'pp_stats': getattr(step, 'pp_stats', None),
+            'pp_state': None if pp is None else
+            {k: pp[k] for k in ('n_stages', 'n_micro', 'schedule', 'remat')},
+            'params': sorted(n for n, _ in model.named_parameters())}
         if case.get('grads'):
             out[case['name']]['grad_rel'] = _fleet_grads(case, spec, ids,
                                                          labels)
+        if case.get('moves'):
+            out[case['name']]['moves'] = _sgd_moves(case, spec, ids, labels)
         if not case.get('resume'):
             continue
         state, opt_state = _full_state(model), _opt_state(opt)
@@ -512,7 +569,61 @@ def _persist(spec):
                       for k, v in saved.items()}}
 
 
+def _pipeline_layer(spec):
+    """PipelineParallel.train_batch over a PipelineLayer whose first and
+    last stage share an embedding (SharedLayerDesc): the losses, and the
+    shared weight on each stage after the steps."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        LayerDesc, PipelineLayer, PipelineParallel, SharedLayerDesc)
+    from paddle_tpu_torch.distributed.topology import \
+        set_hybrid_communicate_group
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    w = spec['weights']
+    vocab, hidden = w['embed'].shape
+    hcg = dist.HybridCommunicateGroup(pp_degree=dist.get_world_size())
+    set_hybrid_communicate_group(hcg)
+
+    def head(layer, x):
+        return torch.matmul(x, layer.weight.t())
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, vocab), labels.reshape(-1))
+
+    descs = [SharedLayerDesc('embed', pnn.Embedding, None, 'weight', vocab,
+                             hidden, device='cpu'),
+             LayerDesc(pnn.Linear, hidden, hidden, device='cpu'),
+             torch.tanh,
+             LayerDesc(pnn.Linear, hidden, hidden, device='cpu'),
+             SharedLayerDesc('embed', pnn.Embedding, head, 'weight', vocab,
+                             hidden, device='cpu')]
+    layer = PipelineLayer(descs, loss_fn=loss_fn)
+    for i, key in ((1, 'A'), (3, 'B')):
+        lin = layer.layer(i)
+        if lin is not None:
+            with torch.no_grad():
+                lin.weight.copy_(torch.tensor(w[key + '_w']))
+                lin.bias.copy_(torch.tensor(w[key + '_b']))
+    emb = layer.layer(0) or layer.layer(4)
+    with torch.no_grad():
+        emb.weight.copy_(torch.tensor(w['embed']))
+    model = PipelineParallel(layer, hcg)
+    opt = AdamW(learning_rate=spec['lr'], parameters=layer.parameters())
+    x, y = (torch.tensor(spec[k]).long() for k in ('ids', 'labels'))
+    losses = [float(model.train_batch((x, y), opt))
+              for _ in range(spec['steps'])]
+    out = {'losses': losses, 'stage': hcg.get_stage_id(),
+           'embed': _np(emb.weight),
+           'tied': len(layer.tied_params()),
+           'n_micro': model._engine.n_micro}
+    set_hybrid_communicate_group(None)
+    return out
+
+
 SECTIONS = {'persist': _persist, 'collectives': _collectives, 'hcg': _hcg,
             'flat_cache': _flat_cache, 'tp': _tp_layers,
             'attention': _attention, 'fleet': _fleet,
-            'data_parallel': _data_parallel}
+            'data_parallel': _data_parallel,
+            'pipeline_layer': _pipeline_layer}
