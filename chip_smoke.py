@@ -147,17 +147,17 @@ Phases, each printed as it finishes; any failure exits non-zero:
                plain versions; (2) f32, the bench GPT cut to 2 layers,
                batch 2 x 512: 3 AdamW steps with the forward and the loss
                under jit.to_static against the same steps eager; (3) path
-               (a): the bench's bf16 step (phase 6's model cut to 3
-               layers to make room for phases 24-25, its batch and AdamW)
-               with the forward and the loss as one to_static program,
-               then loss.backward() and the update: one graph and no
-               break, one compile, 3 forward and 3 fused backward
-               launches every step, a falling loss, the compile seconds,
+               (a): the bench's bf16 step (phase 6's model cut to 1
+               layer to make room for phases 24-25 and 28, its batch and
+               AdamW) with the forward and the loss as one to_static
+               program, then loss.backward() and the update: one graph
+               and no break, one compile, a forward and a fused backward
+               launch a layer every step, a falling loss, the compile seconds,
                2 warm-up and 10 timed steps beside the same step eager,
                a profiled step's busy share and top kernels,
                the _rows_aligned copies, peak memory; (4) path (b):
-               jit.save of GPT-2 small cut to 3 layers (to make room
-               for phases 23-25) with InputSpec([8, 768], 'int64'),
+               jit.save of GPT-2 small cut to 1 layer (to make room
+               for phases 23-25 and 28) with InputSpec([8, 768], 'int64'),
                jit.load, the exported program against the eager model,
                then a Predictor on the card in f32 and in bf16, run() on
                8 x 768 ids: the first run compiles, 3 more do not, one
@@ -165,7 +165,7 @@ Phases, each printed as it finishes; any failure exits non-zero:
                model (f32 within 1e-4), run() p50 beside the eager
                forward. The phase prints its own seconds.
  20. slice 11, the static graph - (a) GPT-2 small (seeded, dropout 0,
-               cut to 3 layers to make room for phases 23-25) built under
+               cut to 1 layer to make room for phases 23-25 and 28) built under
                static.program_guard from static.data('ids', [8, 768],
                'int64') in f32 and bf16, Executor.run on the
                card with 3 fresh feeds: logits against the eager f32
@@ -349,8 +349,31 @@ Phases, each printed as it finishes; any failure exits non-zero:
                from the seed, read by vision.datasets.MNIST under a
                transforms.Compose of Normalize, then evaluate(): the loss
                falls. The phase prints its own seconds.
+ 28. slice 19, sequence models - (a) the PTB "medium" LSTM language
+               model (Zaremba et al. 2014; PaddleNLP's rnnlm default):
+               Embedding(10000, 650), LSTM(650, 650, 2 layers) on torch's
+               fused RNN op (cuDNN), Linear(650, 10000), dropout 0.5,
+               35 steps x batch 20 of seeded Zipf token ids, SGD lr 1.0
+               under ClipGradByGlobalNorm(5.0) through TrainStep, f32
+               with TF32 off: the median of 10 steps after 2 warm-up,
+               tokens/s, MFU by a hand count over the f32 peak, a
+               profiled step's busy share and top kernels, peak memory,
+               the loss falling; the same step through the per-step cell
+               loop; dropout 0, 3 steps card vs CPU (losses within 1e-5,
+               parameters within 1e-4 of their largest entry). (b)
+               BeamSearchDecoder over LSTMCell(512, 512) with an
+               Embedding(10000, 512) and a Linear(512, 10000), beam 10,
+               batch 8, 64 steps at most, f32: steps/s, a step's host
+               and device time; the cell in float64, each card step held
+               to the CPU's step from the same state (scores within 1e-5;
+               picks differ only at ties within it), gather_tree on the
+               card against the CPU. (c) a 2-layer bidirectional GRU
+               with sequence_length (a row of length 0), ctc_loss with
+               its logit gradients (T 50, B 8, C 30), the CRF cost and
+               crf_decoding: card vs CPU in f32 within 1e-5. No flash
+               launch. The phase prints its own seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20, 21, 22, 23, 24, 25, 26 and 27 in main().)
+18, 19, 20, 21, 22, 23, 24, 25, 26, 27 and 28 in main().)
 The last lines are the whole run's seconds (the build included), a
 {"kernels_wide": [...]} line, the card's name and power limit as
 nvidia-smi gives them, a {"kernels": [...]} line and the {"ok": true,
@@ -2111,14 +2134,15 @@ OP_ROUTES = [
 
 # GPT-2 small as phase 19 (b) and phase 20 (a, b) compile it, and the
 # bench GPT as phase 19 (a) compiles it: their width, vocabulary and
-# sequence, cut to 3 of their 12 layers. Inductor's compile of the
+# sequence, cut to 1 of their 12 layers. Inductor's compile of the
 # Predictor's and the Executor's programs grows with the depth (34-40 s
 # each at 12 layers), as does the to_static bench step's (53.6 s at 12),
 # and it runs on the host, whose speed varies from machine to machine
 # (phases 19 and 20 took 107.6 + 70.9 s at 6 layers on one H100 host and
-# 147.8 + 101.8 s on another): the cuts make room for phases 23-25 in
-# chip_smoke's time limit.
-COMPILED_GPT2_LAYERS = 3
+# 147.8 + 101.8 s on another; 235.8 / 236.1 s at 3 layers against 185.6 /
+# 171.4 s at 1 on one host by compiled_depth_probe.py): the cuts make
+# room for phases 23-25 and 28 in chip_smoke's time limit.
+COMPILED_GPT2_LAYERS = 1
 
 
 def op_registration_phase():
@@ -7304,6 +7328,415 @@ def slice18_phases(card, sku):
     return out
 
 
+# Phase 28 (slice 19, sequence models). (a) the PTB "medium" language
+# model of Zaremba et al. 2014 (PaddleNLP's examples/language_model/rnnlm
+# default): vocab 10000, embedding 650, a 2-layer LSTM of 650, a Linear
+# head, 35 steps x batch 20, SGD lr 1.0 under ClipGradByGlobalNorm(5.0),
+# dropout 0.5 on the embedding, between the layers and before the head.
+# Token ids are drawn from the seed (a Zipf law over the vocabulary, the
+# shape of PTB's unigrams); one batch, repeated, so the loss must fall.
+PTB_CFG = dict(vocab=10000, emb=650, hidden=650, layers=2, steps=35,
+               batch=20, lr=1.0, clip=5.0, dropout=0.5)
+# f32 parity, dropout 0, 3 steps card vs CPU from the same weights: the
+# losses within LM_LOSS_RTOL (relative), each parameter after the steps
+# within LM_PARAM_TOL of its largest entry
+LM_LOSS_RTOL, LM_PARAM_TOL = 1e-5, 1e-4
+# (b) beam search over an LSTMCell at the hidden width and beam of
+# PaddleNLP's seq2seq example (one cell layer), batch 8, 64 steps at most.
+# The head's seeded weights are scaled by head_scale: with the default
+# init a step's distribution over 10000 tokens is nearly uniform, and the
+# best 10 of 100000 candidates lie within a few f32 ulps of each other
+# (the scores reach -590 by step 64, where an ulp is 6e-5), so rounding
+# alone decides the order. Scaled, a step's distribution is peaked, as a
+# trained model's is.
+BEAM_CFG = dict(hidden=512, vocab=10000, beam=10, batch=8, max_steps=64,
+                head_scale=100.0)
+# the card's and the CPU's step scores, from the same state, within
+# BEAM_SCORE_RTOL of the largest: a pick may differ only where two
+# candidates' scores tie within it (counted and printed)
+BEAM_SCORE_RTOL = 1e-5
+# (c) the small checks' tolerance: card vs CPU in f32, each tensor's
+# largest error over its largest entry (at least 1)
+SEQ_TOL = 1e-5
+
+
+class _PtbLM(torch.nn.Module):
+    """Embedding, dropout, LSTM, dropout, Linear from the port's layers;
+    `loop` runs the LSTM through its per-step cell loop instead of the
+    fused op (the same function)."""
+
+    def __init__(self, dropout, device, seed):
+        super().__init__()
+        from paddle_tpu_torch import nn as pnn
+        c = PTB_CFG
+        gen = torch.Generator().manual_seed(seed)
+        self.emb = pnn.Embedding(c['vocab'], c['emb'], device=device,
+                                 generator=gen)
+        self.lstm = pnn.LSTM(c['emb'], c['hidden'], c['layers'],
+                             dropout=dropout, device=device, generator=gen)
+        self.head = pnn.Linear(c['hidden'], c['vocab'], device=device,
+                               generator=gen)
+        self.drop = pnn.Dropout(dropout)
+        self.loop = False
+
+    def forward(self, ids):
+        x = self.drop(self.emb(ids))
+        out, _ = (self.lstm.forward_loop if self.loop else self.lstm)(x)
+        return self.head(self.drop(out))
+
+
+def _lm_step(model):
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.framework.functional import TrainStep
+    from paddle_tpu_torch.optimizer import SGD
+
+    def loss(logits, labels):
+        return pnn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+    return TrainStep(model, loss, SGD(
+        learning_rate=PTB_CFG['lr'], parameters=model.parameters(),
+        grad_clip=pnn.ClipGradByGlobalNorm(PTB_CFG['clip'])))
+
+
+def _ptb_batch(seed, device):
+    """(ids, next-token labels), each [batch, steps]."""
+    c = PTB_CFG
+    p = 1.0 / np.arange(1, c['vocab'] + 1)
+    ids = torch.from_numpy(np.random.RandomState(seed).choice(
+        c['vocab'], size=(c['batch'], c['steps'] + 1), p=p / p.sum()))
+    return ids[:, :-1].to(device), ids[:, 1:].to(device)
+
+
+def _lm_flops_per_token():
+    """6 x the multiply-adds a token of the forward: each LSTM layer's
+    4h(in + h) and the head's h V (the embedding is a lookup). By hand:
+    FlopCounterMode has no formula for cuDNN's RNN op."""
+    c = PTB_CFG
+    lstm = sum(4 * c['hidden'] * ((c['emb'] if i == 0 else c['hidden']) +
+                                  c['hidden']) for i in range(c['layers']))
+    return 6 * (lstm + c['hidden'] * c['vocab'])
+
+
+def _lm_timed_steps(step, ids, labels, warmup, steps):
+    losses = [step(ids, labels).item() for _ in range(warmup)]
+    step_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss.item())
+    return losses, step_ms
+
+
+def lm_train_phase(card, sku):
+    """Phase 28 (a): the PTB-medium LSTM language model's training step
+    on the card (f32, TF32 off): the fused LSTM, then the same step
+    through the cell loop; then 3 steps without dropout against the CPU."""
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = PTB_CFG
+    model = _PtbLM(c['dropout'], 'cuda', SEED + 28)
+    step = _lm_step(model)
+    ids, labels = _ptb_batch(SEED + 28, 'cuda')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = _lm_timed_steps(step, ids, labels, 2, 10)
+    peak = torch.cuda.max_memory_allocated()
+    _check(all(math.isfinite(v) for v in losses), 'LSTM LM losses not '
+           'finite: %s' % losses)
+    _check(losses[-1] < losses[0], 'LSTM LM loss %.4f after %d steps not '
+           'below the first %.4f' % (losses[-1], len(losses), losses[0]))
+    median = sorted(step_ms)[len(step_ms) // 2]
+    tokens = c['batch'] * c['steps']
+    flops = _lm_flops_per_token() * tokens
+    peak_f32 = sku[2]['float32_cuda_cores']
+    wall, dev, top, ops = _profile(lambda: step(ids, labels))
+    model.loop = True
+    loop_losses, loop_ms = _lm_timed_steps(step, ids, labels, 1, 5)
+    loop_median = sorted(loop_ms)[len(loop_ms) // 2]
+    loop_wall, loop_dev, _, _ = _profile(lambda: step(ids, labels))
+    del model, step
+
+    # parity: dropout 0, 3 steps from the same weights on the card and
+    # on the CPU (uncompiled f32 on both)
+    runs = {}
+    start = _PtbLM(0.0, 'cpu', SEED + 281).state_dict()
+    for dev_name in ('cuda', 'cpu'):
+        m = _PtbLM(0.0, dev_name, SEED + 282)
+        m.load_state_dict(start)
+        s = _lm_step(m)
+        x, y = _ptb_batch(SEED + 283, dev_name)
+        runs[dev_name] = ([s(x, y).item() for _ in range(3)],
+                          {k: v.cpu() for k, v in m.state_dict().items()})
+        del m, s
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs['cuda'][0],
+                                                      runs['cpu'][0]))
+    param = max(_max_rel(runs['cuda'][1], runs['cpu'][1], 1e-6).items(),
+                key=lambda kv: kv[1])
+    _check(loss_rel <= LM_LOSS_RTOL, 'LSTM LM f32 losses card %s vs CPU %s '
+           '(%.3g apart, tol %g)' % (runs['cuda'][0], runs['cpu'][0],
+                                     loss_rel, LM_LOSS_RTOL))
+    _check(param[1] <= LM_PARAM_TOL, 'LSTM LM f32 parameters after 3 steps: '
+           '%s %.3g of its largest entry off the CPU (tol %g)'
+           % (param[0], param[1], LM_PARAM_TOL))
+    torch.cuda.empty_cache()
+    out = {'median_ms': median, 'tokens_s': tokens / median * 1e3,
+           'mfu': flops / (median / 1e3) / peak_f32, 'busy': dev / wall,
+           'peak_gib': peak / 2 ** 30, 'losses': losses,
+           'loop_median_ms': loop_median, 'loop_busy': loop_dev / loop_wall,
+           'parity_loss_rel': loss_rel, 'parity_param': param,
+           'seconds': time.time() - t0}
+    print('slice 19 (a) [%s]: PTB-medium LSTM LM (vocab %d, embedding %d, '
+          '%d-layer LSTM of %d, Linear head) training, batch %d x %d '
+          'tokens, SGD lr %g under ClipGradByGlobalNorm(%g), dropout %g, '
+          'f32 with TF32 off: median step %.2f ms (min %.2f, max %.2f), '
+          '%.1f tokens/s; %.4g FLOPs a token by hand (6 x the LSTM\'s and '
+          'the head\'s multiply-adds: FlopCounterMode has no formula for '
+          'cuDNN\'s RNN op), MFU %.4f of the %.0f TFLOP/s f32 peak (CUDA '
+          'cores); peak memory %.2f GiB; profiled step wall %.2f ms, '
+          'device kernels %.2f ms, busy share %.3f; top kernels: %s; top '
+          'aten ops: %s; losses %s; the same step through the per-step '
+          'cell loop: median %.2f ms (min %.2f, max %.2f; %.2fx the fused '
+          'step), busy share %.3f; dropout 0, 3 steps card vs CPU: losses '
+          '%s vs %s (max rel %.3g, tol %g), parameters worst %s %.3g of '
+          'its largest entry (tol %g); %.1f s'
+          % (card, c['vocab'], c['emb'], c['layers'], c['hidden'],
+             c['batch'], c['steps'], c['lr'], c['clip'], c['dropout'],
+             median, min(step_ms), max(step_ms), out['tokens_s'],
+             _lm_flops_per_token(), out['mfu'], peak_f32 / 1e12,
+             out['peak_gib'], wall, dev, out['busy'],
+             '; '.join('%s %.2f ms x%d' % t for t in top),
+             '; '.join('%s %.2f ms x%d' % t for t in ops),
+             ['%.4f' % v for v in losses], loop_median, min(loop_ms),
+             max(loop_ms), loop_median / median, out['loop_busy'],
+             ['%.6f' % v for v in runs['cuda'][0]],
+             ['%.6f' % v for v in runs['cpu'][0]], loss_rel, LM_LOSS_RTOL,
+             param[0], param[1], LM_PARAM_TOL, out['seconds']), flush=True)
+    return out
+
+
+def _beam_decoder(device, dtype):
+    """BeamSearchDecoder over LSTMCell(H, H) with an Embedding(V, H) and a
+    Linear(H, V) head, weights from the seed (drawn on the CPU, so the same
+    on every device), and the seeded initial states."""
+    from paddle_tpu_torch import nn as pnn
+    c = BEAM_CFG
+    gen = torch.Generator().manual_seed(SEED + 29)
+    kw = dict(device=device, generator=gen)
+    cell = pnn.LSTMCell(c['hidden'], c['hidden'], **kw).to(dtype)
+    emb = pnn.Embedding(c['vocab'], c['hidden'], **kw).to(dtype)
+    head = pnn.Linear(c['hidden'], c['vocab'], **kw).to(dtype)
+    with torch.no_grad():
+        head.weight.mul_(c['head_scale'])
+    dec = pnn.BeamSearchDecoder(cell, start_token=1, end_token=2,
+                                beam_size=c['beam'], embedding_fn=emb,
+                                output_fn=head)
+    h, cc = (0.5 * torch.randn(c['batch'], c['hidden'], generator=gen)
+             for _ in range(2))
+    return dec, (h.to(device, dtype), cc.to(device, dtype))
+
+
+def _teacher_forced(card_dec, cpu_dec, pairs):
+    """Make card_dec's every step also run cpu_dec's step from a CPU copy
+    of the same inputs and states, appending both steps' outputs to
+    `pairs`: the CPU step is held to the card's from the card's state."""
+    from torch.utils import _pytree as pytree
+    card_step = card_dec.step
+
+    def step(time, inputs, states, **kw):
+        out = card_step(time, inputs, states, **kw)
+        ref = cpu_dec.step(time, inputs.cpu(), pytree.tree_map(
+            lambda t: t.cpu(), states), **kw)
+        pairs.append(({k: v.cpu() for k, v in out[0].items()}, ref[0]))
+        return out
+    card_dec.step = step
+
+
+def beam_search_phase(card):
+    """Phase 28 (b): beam search on the card, timed in f32; then the cell
+    in float64 (the steps score in f32), each card step held to the CPU's
+    step from the same state."""
+    from paddle_tpu_torch import nn as pnn
+    t0 = time.time()
+    c = BEAM_CFG
+    dec, init = _beam_decoder('cuda', torch.float32)
+
+    def decode():
+        with torch.no_grad():
+            return pnn.dynamic_decode(dec, inits=init,
+                                      max_step_num=c['max_steps'],
+                                      return_length=True)
+    decode()  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        preds, _, lengths = decode()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    steps = preds.shape[1]
+    _check(tuple(preds.shape) == (c['batch'], steps, c['beam']) and
+           0 < steps <= c['max_steps'] and
+           bool(((preds >= 0) & (preds < c['vocab'])).all()),
+           'beam search predictions %s' % (tuple(preds.shape),))
+    wall_s = sorted(times)[1]
+    wall, dev, top, _ = _profile(decode)
+    del dec, init
+
+    pairs = []
+    dec, init = _beam_decoder('cuda', torch.float64)
+    _teacher_forced(dec, _beam_decoder('cpu', torch.float64)[0], pairs)
+    with torch.no_grad():
+        preds = pnn.dynamic_decode(dec, inits=init,
+                                   max_step_num=c['max_steps'])[0].cpu()
+    score_err, ties = 0.0, 0
+    for got, want in pairs:
+        err = ((got['scores'] - want['scores']).abs().max() /
+               want['scores'].abs().max()).item()
+        score_err = max(score_err, err)
+        ties += int(((got['token'] != want['token']) |
+                     (got['parent'] != want['parent'])).sum())
+    _check(score_err <= BEAM_SCORE_RTOL, 'beam scores card vs CPU %.3g of '
+           'the largest apart (tol %g)' % (score_err, BEAM_SCORE_RTOL))
+    ids = torch.stack([p[0]['token'] for p in pairs])
+    parents = torch.stack([p[0]['parent'] for p in pairs])
+    tree_cpu = pnn.functional.gather_tree(ids, parents)
+    tree_card = pnn.functional.gather_tree(ids.cuda(), parents.cuda()).cpu()
+    _check(torch.equal(tree_card, tree_cpu) and
+           torch.equal(tree_cpu.transpose(0, 1), preds),
+           'gather_tree on the card differs from the CPU')
+    picks = sum(p[0]['token'].numel() for p in pairs)
+    out = {'steps': steps, 'steps_s': steps / wall_s,
+           'step_ms': wall_s * 1e3 / steps, 'host_ms': (wall - dev) / steps,
+           'device_ms': dev / steps, 'busy': dev / wall,
+           'parity_steps': len(pairs), 'score_err': score_err,
+           'ties': ties, 'picks': picks, 'seconds': time.time() - t0}
+    print('slice 19 (b) [%s]: BeamSearchDecoder over LSTMCell(%d, %d), '
+          'Embedding(%d, %d), Linear(%d, %d) (weights x %g), beam %d, '
+          'batch %d, f32: %d steps (max_step_num %d) in %.2f ms (median of '
+          '3), %.1f steps/s, %.3f ms a step; profiled decode %.2f ms wall, '
+          '%.2f ms of device kernels: %.3f ms host + %.3f ms device a step, '
+          'busy share %.3f; top kernels: %s; float64 cell, each of %d card '
+          'steps against the CPU step from the same state: scores %.3g of '
+          'the largest apart (tol %g), %d of %d picks (token, parent) '
+          'differ, each at a tie within it; gather_tree identical; %.1f s'
+          % (card, c['hidden'], c['hidden'], c['vocab'], c['hidden'],
+             c['hidden'], c['vocab'], c['head_scale'], c['beam'],
+             c['batch'], steps, c['max_steps'], wall_s * 1e3,
+             out['steps_s'], out['step_ms'], wall, dev, out['host_ms'],
+             out['device_ms'], out['busy'],
+             '; '.join('%s %.2f ms x%d' % t for t in top),
+             len(pairs), score_err, BEAM_SCORE_RTOL, ties, picks,
+             out['seconds']), flush=True)
+    return out
+
+
+def _card_vs_cpu(fn, inputs, seed, params=lambda device: []):
+    """fn(device, *inputs)'s outputs and the grads of sum(out * cot) by its
+    floating inputs and params(device), on the card and on the CPU from
+    the same inputs: the worst error, each tensor's largest error over its
+    largest entry (at least 1; an integer output counts 1 unless equal)."""
+    res = {}
+    for dev_name in ('cuda', 'cpu'):
+        xs = [x.to(dev_name).requires_grad_(x.is_floating_point())
+              for x in inputs]
+        outs = fn(dev_name, *xs)
+        gen = torch.Generator().manual_seed(seed)
+        loss = sum((o * torch.randn(o.shape, generator=gen).to(dev_name))
+                   .sum() for o in outs if o.is_floating_point())
+        floats = [x for x in xs if x.requires_grad] + list(params(dev_name))
+        grads = torch.autograd.grad(loss, floats)
+        res[dev_name] = [o.detach().cpu().double() for o in outs] + \
+            [g.cpu().double() for g in grads]
+    errs = [((a - b).abs().max() / max(b.abs().max().item(), 1.0)).item()
+            if a.is_floating_point() else float(not torch.equal(a, b))
+            for a, b in zip(res['cuda'], res['cpu'])]
+    return max(errs)
+
+
+def seq_checks_phase(card):
+    """Phase 28 (c): a bidirectional 2-layer GRU with sequence_length (a
+    row of length 0 among them), ctc_loss with its logit gradients, the
+    CRF cost and crf_decoding: the card against the CPU in f32."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import static
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(SEED + 30)
+    grus = {d: pnn.GRU(32, 64, 2, 'bidirect', device=d,
+                       generator=torch.Generator().manual_seed(SEED + 31))
+            for d in ('cuda', 'cpu')}
+
+    def gru(dev_name, x, lens):
+        return grus[dev_name](x, sequence_length=lens)
+    lens = torch.tensor([20, 0, 7, 13, 1, 20])
+    gru_err = _card_vs_cpu(gru, [torch.randn(6, 20, 32, generator=gen),
+                                 lens], 1, lambda d: grus[d].parameters())
+
+    logits = torch.randn(50, 8, 30, generator=gen)
+    labels = torch.randint(1, 30, (8, 12), generator=gen)
+    il = torch.tensor([50, 45, 40, 50, 30, 20, 50, 12])
+    ll = torch.tensor([12, 10, 8, 12, 5, 3, 1, 7])
+
+    def ctc(dev_name, x, lab, i, n):
+        return (pnn.functional.ctc_loss(x, lab, i, n, reduction='none'),)
+    ctc_err = _card_vs_cpu(ctc, [logits, labels, il, ll], 2)
+
+    em = torch.randn(8, 30, 12, generator=gen)
+    tags = torch.randint(0, 12, (8, 30), generator=gen)
+    trans = torch.randn(14, 12, generator=gen) * 0.3
+    crf_lens = torch.tensor([30, 25, 1, 17, 30, 8, 12, 29])
+
+    def crf(dev_name, e, lab, t, n):
+        cost, _ = static.nn.linear_chain_crf(e, lab, length=n, transition=t)
+        return cost, static.nn.crf_decoding(e, t, length=n)
+    crf_err = _card_vs_cpu(crf, [em, tags, trans, crf_lens], 3)
+    for what, err in (('GRU', gru_err), ('ctc_loss', ctc_err),
+                      ('CRF', crf_err)):
+        _check(err <= SEQ_TOL, '%s card vs CPU %.3g apart (tol %g)'
+               % (what, err, SEQ_TOL))
+    out = {'gru': gru_err, 'ctc': ctc_err, 'crf': crf_err,
+           'seconds': time.time() - t0}
+    print('slice 19 (c) [%s]: card vs CPU in f32, outputs and gradients, '
+          'the worst error over the largest entry: GRU(32, 64, 2 layers, '
+          'bidirect) over 6 x 20 with lengths %s %.3g; ctc_loss T 50 B 8 '
+          'C 30 (labels up to 12) %.3g; linear_chain_crf + crf_decoding '
+          '8 x 30 x 12 %.3g (decoded tags identical); tol %g; %.1f s'
+          % (card, lens.tolist(), gru_err, ctc_err, crf_err, SEQ_TOL,
+             out['seconds']), flush=True)
+    return out
+
+
+def slice19_phases(card, sku):
+    """Phase 28: slice 19, sequence models, on one card; no flash kernel
+    is on this path."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t0 = time.time()
+    _reset_counts(fa)
+    out = {'lm': lm_train_phase(card, sku), 'beam': beam_search_phase(card),
+           'checks': seq_checks_phase(card)}
+    launches = _launches(fa)
+    _check(launches == _want(0), 'the sequence-model path launched flash '
+           'kernels: %s' % launches)
+    out['seconds'] = time.time() - t0
+    lm, beam = out['lm'], out['beam']
+    print('phase 28 (slice 19) [%s]: %s' % (card, json.dumps({
+        'lm_step_ms': round(lm['median_ms'], 2),
+        'lm_tokens_s': round(lm['tokens_s'], 1),
+        'lm_mfu': round(lm['mfu'], 4), 'lm_busy': round(lm['busy'], 3),
+        'lm_peak_gib': round(lm['peak_gib'], 2),
+        'lm_loop_step_ms': round(lm['loop_median_ms'], 2),
+        'lm_parity_loss_rel': lm['parity_loss_rel'],
+        'beam_steps_s': round(beam['steps_s'], 1),
+        'beam_step_ms': round(beam['step_ms'], 3),
+        'beam_busy': round(beam['busy'], 3),
+        'flash_launches': sum(launches.values()),
+        'seconds': round(out['seconds'], 1)})), flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -7384,6 +7817,7 @@ def main():
     slice16 = timed(slice16_phases, card, sku)
     slice17 = timed(slice17_phases, card)
     timed(slice18_phases, card, sku)
+    timed(slice19_phases, card, sku)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows

@@ -11,6 +11,7 @@ from .layer import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
 from .utils_weight_norm import (remove_spectral_norm,  # noqa: F401
                                 remove_weight_norm, spectral_norm,
                                 weight_norm)
+from .decode import BeamSearchDecoder, dynamic_decode  # noqa: F401
 
 
 class utils:

@@ -21,12 +21,22 @@ create_parameter, py_func and the fluid-era aliases lrn, cos_sim,
 space_to_depth and reverse. Each builds a fresh layer on the input's
 device, its weights drawn from torch's default generator; the arguments
 the JAX package's builder ignores (in **kw) are ignored here too.
-spectral_norm refuses as the JAX package's does (nn.utils.spectral_norm
-works on the layer); deform_conv2d, the sequence ops and the fluid-era
-losses raise NotImplementedError naming their ROADMAP item.
+
+The fluid-era builders are here too: data_norm, bilinear_tensor_product,
+rank_loss, bpr_loss, center_loss (its eager update of the centres), cvm,
+pad_constant_like, im2sequence, row_conv, sample_logits, and the CRF's
+linear_chain_crf and crf_decoding (the forward recursion and Viterbi over
+masked lengths). Where the JAX builder draws a default from numpy
+(bilinear_tensor_product's weight, linear_chain_crf's transition,
+sample_logits' negatives), the port draws the same values.
+
+spectral_norm, nce and sparse_embedding refuse as the JAX package's do
+(nn.utils.spectral_norm works on the layer); deform_conv2d and the LoD
+sequence ops raise NotImplementedError naming their ROADMAP item.
 """
 import operator
 
+import numpy as np
 import torch
 import torch.fx as fx
 from torch.utils import _pytree as pytree
@@ -422,22 +432,242 @@ def _not_ported(name, needs):
     return fn
 
 
-for _n, _needs in (
-        ('data_norm', 'the fluid-era norm layers'),
-        ('nce', 'the fluid-era sampled losses'),
-        ('sparse_embedding', 'distributed.ps.HeterEmbedding'),
-        ('bilinear_tensor_product', 'the fluid-era layers'),
-        ('rank_loss', 'the fluid-era losses'),
-        ('bpr_loss', 'the fluid-era losses'),
-        ('center_loss', 'the fluid-era losses'),
-        ('cvm', 'the fluid-era CTR ops'),
-        ('pad_constant_like', 'the pads'),
-        ('im2sequence', 'the conv patches'),
-        ('row_conv', 'the conv layers'),
-        ('sample_logits', 'the fluid-era sampled losses'),
-        ('linear_chain_crf', 'the fluid-era CRF ops'),
-        ('crf_decoding', 'the fluid-era CRF ops')):
-    globals()[_n] = _not_ported(_n, _needs)
+# -- fluid-era builders (batch layout, masks for lengths) --------------------
+
+def data_norm(input, **kw):
+    """Normalise by the batch's statistics (no learned scale or shift)."""
+    mu = input.mean(0, keepdim=True)
+    var = input.var(0, unbiased=False, keepdim=True)
+    return (input - mu) / torch.sqrt(var + 1e-5)
+
+
+def nce(input, label, num_total_classes, **kw):
+    raise NotImplementedError(
+        'nce: use nn.functional.hsigmoid_loss or sampled softmax via '
+        'paddle_tpu ops — the NCE op family is superseded')
+
+
+def sparse_embedding(input, size, **kw):
+    raise NotImplementedError(
+        'sparse_embedding (PS-backed): construct distributed.ps.'
+        'HeterEmbedding(client, table_id, dim) with an embedding service '
+        'client — the 100B-feature path needs the explicit service handle')
+
+
+def bilinear_tensor_product(x, y, size, **kw):
+    """out[b, k] = x[b] W[k] y[b] with a fresh W [size, X, Y] drawn, as in
+    the JAX package, from numpy's RandomState(0) times 0.01."""
+    w = torch.nn.Parameter(torch.from_numpy((np.random.RandomState(0).randn(
+        size, x.shape[-1], y.shape[-1]) * 0.01).astype(np.float32)).to(
+            x.device))
+    return torch.einsum('bi,kij,bj->bk', x, w, y)
+
+
+def rank_loss(label, left, right, name=None):
+    """RankNet pairwise loss: o = left - right, log(1 + e^o) - label * o."""
+    o = left - right
+    return torch.logaddexp(torch.zeros_like(o), o) - label * o
+
+
+def bpr_loss(input, label, name=None):
+    """Bayesian personalised ranking: per row, -mean over j != y of
+    log(sigmoid(x_y - x_j)); [N, 1]."""
+    n, c = input.shape
+    y = label.reshape(n, 1).long()
+    lsig = torch.nn.functional.logsigmoid(input.gather(1, y) - input)
+    mask = torch.ones_like(input).scatter(1, y, 0.0)
+    return (-(lsig * mask).sum(1) / mask.sum(1).clamp_min(1.0)).reshape(n, 1)
+
+
+def center_loss(input, label, num_classes, alpha, centers=None,
+                update_center=True, name=None):
+    """Center loss 0.5 * ||x - c_y||^2 per sample ([N, 1]), then each
+    class's centre moves toward its members by alpha * sum(x - c) /
+    (1 + count), in place outside autograd (the reference's in-op update).
+    Returns (loss, centers)."""
+    if centers is None:
+        centers = torch.zeros((num_classes, input.shape[-1]),
+                              dtype=input.dtype, device=input.device)
+    y = label.reshape(-1).long()
+    diff = input - centers[y]
+    loss = 0.5 * (diff * diff).sum(1, keepdim=True)
+    if update_center:
+        with torch.no_grad():
+            moved = centers[y] - input
+            num = torch.zeros_like(centers).index_add_(0, y, moved)
+            cnt = torch.zeros(num_classes, dtype=input.dtype,
+                              device=input.device).index_add_(
+                                  0, y, torch.ones_like(y, dtype=input.dtype))
+            centers.sub_(alpha * num / (1.0 + cnt).reshape(-1, 1))
+    return loss, centers
+
+
+def cvm(input, cvm_input, use_cvm=True, name=None):
+    """CTR show / click columns: with use_cvm the first two columns become
+    (log(show + 1), log(click + 1) - log(show + 1)), else they go."""
+    if not use_cvm:
+        return input[:, 2:]
+    show = torch.log(cvm_input[:, :1] + 1.0)
+    ctr = torch.log(cvm_input[:, 1:2] + 1.0) - show
+    return torch.cat([show, ctr, input[:, 2:]], dim=1)
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    """y padded at the end of each dim up to x's shape."""
+    pads = []
+    for sx, sy in zip(reversed(x.shape), reversed(y.shape)):
+        pads += [0, int(sx - sy)]
+    return torch.nn.functional.pad(y, pads, value=pad_value)
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None,
+                **kw):
+    """Patches as sequence rows: [N, C, H, W] -> [N * oh * ow, C * fh *
+    fw], each row channel-major, as XLA's conv_general_dilated_patches
+    orders it. padding: an int, [ph, pw], or [up, left, down, right]."""
+    fh, fw = (filter_size, filter_size) if isinstance(filter_size, int) \
+        else filter_size
+    sh, sw = (stride, stride) if isinstance(stride, int) else stride[:2]
+    if isinstance(padding, int):
+        up = down = left = right = padding
+    elif len(padding) == 4:
+        up, left, down, right = padding
+    else:
+        up = down = padding[0]
+        left = right = padding[1]
+    x = torch.nn.functional.pad(input, [left, right, up, down])
+    cols = torch.nn.functional.unfold(x, (fh, fw), stride=(sh, sw))
+    return cols.transpose(1, 2).reshape(-1, cols.shape[1])
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """Lookahead row convolution over [B, L, D]: out[t] = sum over i <=
+    future_context_size of w[i] * x[t + i], with a fresh trainable filter
+    of 1 / (future_context_size + 1)."""
+    b, l, d = input.shape
+    w = torch.nn.Parameter(torch.full((future_context_size + 1, d),
+                                      1.0 / (future_context_size + 1),
+                                      dtype=input.dtype,
+                                      device=input.device))
+    out = torch.zeros_like(input)
+    for i in range(future_context_size + 1):
+        shifted = torch.nn.functional.pad(input, [0, 0, 0, i])[:, i:i + l]
+        out = out + shifted * w[i]
+    if act:
+        out = _activation(out, act)
+    return out
+
+
+def sample_logits(logits, label, num_samples, num_true=1, seed=0,
+                  remove_accidental_hits=True, use_customized_samples=False,
+                  customized_samples=None, customized_probabilities=None,
+                  name=None):
+    """Sampled softmax's inputs: the true classes' logits and num_samples
+    log-uniform negatives (numpy's RandomState(seed or None), as in the
+    JAX package), each less log(Q); accidental hits of a true class get
+    -1e20. Returns (sampled_logits [N, T + S], sampled_labels [N, T])."""
+    n, k = logits.shape
+    dev = logits.device
+    if use_customized_samples:
+        samples = torch.as_tensor(customized_samples, device=dev)
+        probs = torch.as_tensor(customized_probabilities, device=dev)
+    else:
+        u = np.random.RandomState(seed or None).uniform(size=(num_samples,))
+        s = np.clip((np.exp(u * np.log(k + 1.0)) - 1.0).astype(np.int64),
+                    0, k - 1)
+        samples = torch.as_tensor(s, device=dev)
+        probs = torch.as_tensor((np.log((s + 2.0) / (s + 1.0)) /
+                                 np.log(k + 1.0)).astype(np.float32),
+                                device=dev)
+    y = label.reshape(n, num_true).long()
+    true_logit = logits.gather(1, y)
+    true_q = (torch.log((y + 2.0) / (y + 1.0)) /
+              torch.log(torch.tensor(k + 1.0))).to(logits.dtype)
+    samp_logit = logits[:, samples.long()]
+    if remove_accidental_hits:
+        hit = (samples[None, None, :] == y[:, :, None]).any(1)
+        samp_logit = samp_logit - hit.to(logits.dtype) * 1e20
+    out = torch.cat([true_logit - torch.log(true_q),
+                     samp_logit - torch.log(probs)[None, :].to(
+                         logits.dtype)], dim=1)
+    labels = torch.arange(num_true, dtype=torch.int32,
+                          device=dev).repeat(n, 1)
+    return out, labels
+
+
+# -- linear-chain CRF (reference linear_chain_crf_op / crf_decoding_op) ------
+
+def _lengths(length, b, l, device):
+    if length is None:
+        return torch.full((b,), l, dtype=torch.long, device=device)
+    return torch.as_tensor(length, device=device).long()
+
+
+def _crf_nll(emission, transition, label, length):
+    """Negative log-likelihood per sequence [B, 1]. emission [B, L, K];
+    transition [K + 2, K] (row 0 start, row 1 stop, rows 2.. the K x K
+    transitions); label [B, L]; length [B]."""
+    b, l, k = emission.shape
+    start, stop, trans = transition[0], transition[1], transition[2:]
+    mask = (torch.arange(l, device=emission.device)[None, :] <
+            length[:, None]).to(emission.dtype)                   # [B, L]
+    alpha = start[None] + emission[:, 0]
+    for t in range(1, l):
+        nxt = torch.logsumexp(alpha[:, :, None] + trans[None], dim=1) + \
+            emission[:, t]
+        alpha = torch.where(mask[:, t:t + 1] > 0, nxt, alpha)
+    log_z = torch.logsumexp(alpha + stop[None], dim=1)
+    lb = label.long()
+    em_score = (emission.gather(2, lb[:, :, None])[..., 0] * mask).sum(1)
+    tr_score = (trans[lb[:, :-1], lb[:, 1:]] * mask[:, 1:]).sum(1)
+    last = lb.gather(1, (length - 1).clamp_min(0)[:, None])[:, 0]
+    gold = em_score + tr_score + start[lb[:, 0]] + stop[last]
+    return (log_z - gold).reshape(b, 1)
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None,
+                     transition=None, name=None):
+    """Linear-chain CRF cost over input [B, L, K] emissions, label [B, L]
+    and length [B] (the full L when None). A missing transition is a fresh
+    Parameter [K + 2, K] drawn, as in the JAX package, from numpy's
+    RandomState(0) in [-0.1, 0.1). Returns (cost [B, 1], transition)."""
+    b, l, k = input.shape
+    if transition is None:
+        transition = torch.nn.Parameter(torch.from_numpy(
+            np.random.RandomState(0).uniform(-0.1, 0.1, (k + 2, k))
+            .astype(np.float32)).to(input.device))
+    cost = _crf_nll(input, transition, label,
+                    _lengths(length, b, l, input.device))
+    return cost, transition
+
+
+def crf_decoding(input, transition, length=None, label=None, name=None):
+    """Viterbi path [B, L] (int32, 0 past each length) under the CRF; with
+    `label`, 1 where the decoded tag equals the label, else 0."""
+    b, l, k = input.shape
+    lens = _lengths(length, b, l, input.device)
+    start, stop, trans = transition[0], transition[1], transition[2:]
+    mask = torch.arange(l, device=input.device)[None, :] < lens[:, None]
+    score = start[None] + input[:, 0]
+    backs = []
+    for t in range(1, l):
+        cand = score[:, :, None] + trans[None]                    # [B, K, K]
+        best, back = cand.max(1)
+        backs.append(back)
+        score = torch.where(mask[:, t:t + 1], best + input[:, t], score)
+    cur = (score + stop[None]).argmax(1)
+    path = [cur]
+    for t in range(l - 1, 0, -1):
+        prev = backs[t - 1].gather(1, cur[:, None])[:, 0]
+        cur = torch.where(mask[:, t], prev, cur)
+        path.append(cur)
+    path = torch.stack(path[::-1], dim=1)
+    path = torch.where(mask, path, 0).to(torch.int32)
+    if label is not None:
+        return (path == label.to(path.dtype)).to(torch.int32)
+    return path
+
 
 for _n in ('sequence_conv', 'sequence_softmax', 'sequence_pool',
            'sequence_concat', 'sequence_first_step', 'sequence_last_step',

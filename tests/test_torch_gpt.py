@@ -169,13 +169,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     # graph of slice 11, the parameter server and graph engine of slice
     # 12, the collective training of slice 13, slice 14's nn, text and
     # tensor modules, slice 15's observability plane and slice 17's
-    # launcher, elastic membership, auto_parallel and norms, and slice
-    # 18's convolutions, pools, weight norms and vision package
+    # launcher, elastic membership, auto_parallel and norms, slice 18's
+    # convolutions, pools, weight norms and vision package, and slice 19's
+    # losses, extension functionals, RNN layers and beam search
     imported = set(res.stdout.split())
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
             SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES + \
-            SLICE15_MODULES + SLICE17_MODULES + SLICE18_MODULES:
+            SLICE15_MODULES + SLICE17_MODULES + SLICE18_MODULES + \
+            SLICE19_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -196,6 +198,9 @@ SLICE18_MODULES = ('nn.functional.conv', 'nn.functional.pooling',
                    'vision.models.mobilenet', 'vision.transforms',
                    'vision.transforms.functional',
                    'vision.transforms.transforms', 'vision.datasets')
+SLICE19_MODULES = ('nn.functional.loss', 'nn.functional.extension',
+                   'nn.layer.loss', 'nn.layer.rnn', 'nn.decode',
+                   'static.nn')
 SLICE4_MODULES = ('serving', 'serving.engine', 'serving.paged_engine',
                   'serving.kv_cache', 'serving.scheduler', 'serving.metrics',
                   'monitor', 'monitor.registry', 'monitor.tracing',

@@ -542,9 +542,15 @@ def test_fluid_surface_objects():
 
 def test_unported_builders_name_their_queue_item():
     x = torch.zeros(1, 3, 8, 8)
-    for name in ('deform_conv2d', 'sequence_conv', 'nce', 'data_norm'):
+    for name in ('deform_conv2d', 'sequence_conv'):
         with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
             getattr(static.nn, name)(x, 4)
+    # nce refuses as the JAX package's does, with its message; the other
+    # fluid-era builders run (against the JAX package's in
+    # test_torch_static_fluid.py)
+    with pytest.raises(NotImplementedError, match='superseded'):
+        static.nn.nce(x, None, 4)
+    assert torch.isfinite(static.nn.data_norm(torch.randn(4, 3))).all()
     # the builders whose layers the port has run (the conv and norm
     # builders against the JAX package's in test_torch_conv.py)
     for name, args in (('conv2d', (4, 3)), ('conv2d_transpose', (4,)),
