@@ -19,7 +19,8 @@ Phases, each printed as it finishes; any failure exits non-zero:
                bound at the split-TF32 rate; any row timed above 1.05 of
                its bound fails (the bound would be miscounted).
   3. slice 1, f32  - GPT-2 small (seeded weights) prefill logits on the card
-               against the same weights on the CPU plain path; greedy tokens.
+               against the same weights on the CPU plain path; greedy tokens
+               (on F32_PARITY_ROWS of phase 4's 8 prompts since slice 20).
   4. slice 1, bf16 - serving: generate() on 8 prompts of 768 tokens, 128 new
                tokens, greedy, timed as the median of 3 calls; the flash
                forward must launch exactly once per layer. A 64-token run
@@ -45,7 +46,8 @@ Phases, each printed as it finishes; any failure exits non-zero:
                causal and a ragged cross-length shape, each against its
                plain version with its time, bound and library time (the
                `kernels_wide` line). No path runs these head dims.
- 10. slice 4, f32 - engine parity: GPT-2 small at full width and depth,
+ 10. slice 4, f32 - engine parity: GPT-2 small at full width (cut to
+               PARITY_GPT2_LAYERS of its 12 layers since slice 20),
                6 prompts of 5-300 tokens + 32 new, greedy, through the slot
                engine (3 slots x 512), the paged engine with prefix sharing
                and the paged engine with spec_k=4: each token-identical to
@@ -62,7 +64,8 @@ Phases, each printed as it finishes; any failure exits non-zero:
                warm-up and 6 timed steps, 12 launches a step of each long
                kernel and none of the standard ones, falling loss, a
                profile, and the same step on the standard route.
- 13. slice 5, f32 - gateway parity: GPT-2 small, 10 prompts of 3-300
+ 13. slice 5, f32 - gateway parity: GPT-2 small (PARITY_GPT2_LAYERS
+               layers), 10 prompts of 3-300
                tokens + 16 new, greedy, through a ServingGateway of 2
                replicas (2 slots x 352 each): sync slot and sync paged
                pools, a seeded arrival schedule with replica 1
@@ -94,8 +97,10 @@ Phases, each printed as it finishes; any failure exits non-zero:
                phase 14's in-process 2- and 1-replica tokens/s; each
                worker's burst split from its /metrics.json; the cold
                bring-up. (b) bench_extra.py's multi-model rung at its
-               on-TPU configuration: 3 models + the head model's v2, 2
-               in-process ModelHost replicas, 32 zipf-mixed requests,
+               on-TPU configuration (each model cut to MULTIMODEL_LAYERS
+               of its 12 layers since slice 20): 3 models + the head
+               model's v2, 2 in-process ModelHost replicas, 32
+               zipf-mixed requests,
                rollout() at request 16; completed ratio 1.0, the wide
                events' model mix, no compile-cache miss, and a pager whose
                bytes stay under its budget with the LRU oracle's
@@ -372,8 +377,30 @@ Phases, each printed as it finishes; any failure exits non-zero:
                its logit gradients (T 50, B 8, C 30), the CRF cost and
                crf_decoding: card vs CPU in f32 within 1e-5. No flash
                launch. The phase prints its own seconds.
+ 29. slice 20, detection - (a) BASELINE config 4, as bench_extra.py's
+               bench_yolo_infer drives it: ppyolov2(num_classes=80) at
+               width 32 and 320 x 320, eval, f32, seeded images; the
+               forward with decode at batch 1 and 8 (3 repeats of 10
+               calls: the median and the spread, ms an image and QPS),
+               then postprocess (matrix NMS, keep_top_k 100) alone, each
+               with TF32 off and on; a profiled forward's and
+               postprocess's busy share and top kernels, peak memory, the
+               convolutions' FLOPs by hand and MFU over the f32 or TF32
+               peak. (b) the same weights on the card and the CPU (TF32
+               off): decode within 1e-4 of its largest value; matrix_nms
+               and multiclass_nms on the card fed the CPU's decode:
+               labels, counts and boxes equal, scores within 1e-5, rows a
+               tie within 4 ulps placed counted; roi_align (the value),
+               yolo_loss and deform_conv2d (values and gradients) within
+               1e-5. (c) jit.save of the eval model, a Predictor on the
+               card at batch 1: boxes within 1e-4 of the eager forward,
+               the first run and run()'s p50. (d) the fluid PP-YOLO tail
+               (yolo_box -> transpose2 -> multiclass_nms3) through
+               load_fluid_model compiled on the card against the op table
+               on the CPU. No flash launch. The phase prints its own
+               seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20, 21, 22, 23, 24, 25, 26, 27 and 28 in main().)
+18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28 and 29 in main().)
 The last lines are the whole run's seconds (the build included), a
 {"kernels_wide": [...]} line, the card's name and power limit as
 nvidia-smi gives them, a {"kernels": [...]} line and the {"ok": true,
@@ -891,6 +918,10 @@ def _prefill_logits(model, ids):
     return logits
 
 
+# phase 3's prompts held to the CPU in f32 (of the 8 that phase 4 serves)
+F32_PARITY_ROWS = 2
+
+
 def slice_phases():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
@@ -904,23 +935,26 @@ def slice_phases():
     prompt_gen = torch.Generator().manual_seed(SEED)
     ids = torch.randint(0, cfg.vocab_size, (8, 768), generator=prompt_gen)
 
-    # -- slice, f32: the card against the CPU plain path, same weights
+    # -- slice, f32: the card against the CPU plain path, same weights, on
+    # the first F32_PARITY_ROWS prompts (the CPU's side is this phase's
+    # largest cost)
     t0 = time.time()
     logits = _prefill_logits(model, ids)
     torch.cuda.synchronize()
-    logits_cpu = _prefill_logits(cpu, ids)
-    err = (logits.cpu() - logits_cpu).abs().max().item()
+    rows = ids[:F32_PARITY_ROWS]
+    logits_cpu = _prefill_logits(cpu, rows)
+    err = (logits[:F32_PARITY_ROWS].cpu() - logits_cpu).abs().max().item()
     # f32 products on both sides (TF32 off); sums in another order through
     # 12 layers leave ~1e-5 on logits of magnitude ~1
     _check(err <= 1e-3, 'f32 prefill logits vs CPU: %.3g > 1e-3' % err)
     new_f32 = 32
-    out = model.generate(ids.cuda(), max_new_tokens=new_f32).cpu()
-    out_cpu = cpu.generate(ids, max_new_tokens=new_f32)
+    out = model.generate(rows.cuda(), max_new_tokens=new_f32).cpu()
+    out_cpu = cpu.generate(rows, max_new_tokens=new_f32)
     agree = int((out[:, 768:] == out_cpu[:, 768:]).sum())
-    print('slice f32: params %d, prefill logits max abs err vs CPU %.3g '
-          '(tol 1e-3), greedy tokens agreeing %d of %d, %.1f s'
-          % (model.num_params(), err, agree, out_cpu[:, 768:].numel(),
-             time.time() - t0), flush=True)
+    print('slice f32: params %d, %d prompts: prefill logits max abs err vs '
+          'CPU %.3g (tol 1e-3), greedy tokens agreeing %d of %d, %.1f s'
+          % (model.num_params(), F32_PARITY_ROWS, err, agree,
+             out_cpu[:, 768:].numel(), time.time() - t0), flush=True)
     last_f32 = logits[:, -1].float()
     del cpu, logits, logits_cpu
 
@@ -4016,10 +4050,17 @@ def _first_divergence(model, prompt, want, got):
     return j, (top[0] - top[1]).item()
 
 
+# phases 10 and 13's GPT-2 small: full width, 2 of its 12 layers (since
+# slice 20; token identity across engines and replicas does not depend on
+# depth)
+PARITY_GPT2_LAYERS = 2
+
+
 def engine_parity_phase():
     """Slice 4, f32: the slot engine, the paged engine with prefix sharing
     and the paged engine with spec_k=4 against sequential generate() on the
-    card, GPT-2 small at full width and depth, token for token."""
+    card, GPT-2 small at full width cut to PARITY_GPT2_LAYERS, token for
+    token."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                           PagedContinuousBatchingEngine)
@@ -4029,6 +4070,7 @@ def engine_parity_phase():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
     cfg = GPTConfig.gpt2_small()
+    cfg.num_layers = PARITY_GPT2_LAYERS
     model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
     gen = torch.Generator().manual_seed(SEED + 4)
 
@@ -4068,13 +4110,14 @@ def engine_parity_phase():
            'the shared head hit no prefix-cache page')
     _check(_launches(fa) == _want(1), 'an engine launched a flash kernel: '
            '%s' % _launches(fa))
-    print('engine f32 parity: GPT-2 small, 6 prompts of %s tokens, %d new, '
-          'greedy: slot, paged (prefix hits %d blocks) and paged spec_k=4 '
-          '(accept rate %.3f) token-identical to generate() on the card, '
-          '%.1f s' % ([len(p) for p in prompts], new,
-                      reports['paged prefix']['prefix_hits'],
-                      reports['paged spec_k=4']['spec_accept_rate'],
-                      time.time() - t0), flush=True)
+    print('engine f32 parity: GPT-2 small (%d layers), 6 prompts of %s '
+          'tokens, %d new, greedy: slot, paged (prefix hits %d blocks) and '
+          'paged spec_k=4 (accept rate %.3f) token-identical to generate() '
+          'on the card, %.1f s'
+          % (cfg.num_layers, [len(p) for p in prompts], new,
+             reports['paged prefix']['prefix_hits'],
+             reports['paged spec_k=4']['spec_accept_rate'],
+             time.time() - t0), flush=True)
     del model, engines
     torch.cuda.empty_cache()
 
@@ -4219,7 +4262,8 @@ GATEWAY_NEW = 16
 
 def gateway_parity_phase():
     """Slice 5, f32: the ServingGateway over 2 replicas against one slot
-    engine's tokens (the oracle), GPT-2 small at full width and depth: a
+    engine's tokens (the oracle), GPT-2 small at full width cut to
+    PARITY_GPT2_LAYERS: a
     sync gateway of slot engines and one of paged engines, a seeded
     arrival schedule with replica 1 partitioned mid-burst (the failover
     count must equal its in-flight count at the partition), and the
@@ -4236,6 +4280,7 @@ def gateway_parity_phase():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
     cfg = GPTConfig.gpt2_small()
+    cfg.num_layers = PARITY_GPT2_LAYERS
     model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
     gen = torch.Generator().manual_seed(SEED + 6)
     prompts = [torch.randint(0, cfg.vocab_size, (n,),
@@ -4318,12 +4363,13 @@ def gateway_parity_phase():
     launches = _launches(fa)
     _check(launches == _want(1), 'the gateway launched a flash kernel: %s'
            % launches)
-    print('gateway f32 parity: GPT-2 small, %d prompts of %d-%d tokens, %d '
-          'new, greedy, 2 replicas x 2 slots: sync slot (routed %s), sync '
-          'paged (routed %s), partition of replica 1 (%d in flight -> %d '
-          'failovers, %d chaos drops) and threaded drive token-identical to '
-          'one engine on the card; flash launches %s; %.1f s' % (
-              len(prompts), min(GATEWAY_PROMPT_LENS),
+    print('gateway f32 parity: GPT-2 small (%d layers), %d prompts of %d-%d '
+          'tokens, %d new, greedy, 2 replicas x 2 slots: sync slot (routed '
+          '%s), sync paged (routed %s), partition of replica 1 (%d in flight '
+          '-> %d failovers, %d chaos drops) and threaded drive '
+          'token-identical to one engine on the card; flash launches %s; '
+          '%.1f s' % (
+              cfg.num_layers, len(prompts), min(GATEWAY_PROMPT_LENS),
               max(GATEWAY_PROMPT_LENS), new, runs['sync slot'],
               runs['sync paged'], expected, failovers, fault.fired,
               sum(launches.values()), time.time() - t0), flush=True)
@@ -4847,10 +4893,16 @@ def fabric_qos_phase(inproc):
           flush=True)
 
 
+# phase 16 (b)'s models: 2 of the rung's 12 layers (since slice 20; the
+# registry, pager, rollout and router it checks do not depend on depth)
+MULTIMODEL_LAYERS = 2
+
+
 def multimodel_phase():
     """Slice 6, bf16: bench_extra.py's multi-model rung at its on-TPU
     configuration (3 models and the head model's v2, vocab 30528, 768 x
-    12 x 12, 2 in-process ModelHost replicas of 8 slots x 256, chunk 32,
+    12 heads, cut to MULTIMODEL_LAYERS of 12 layers, 2 in-process
+    ModelHost replicas of 8 slots x 256, chunk 32,
     burst 8, 32 zipf-mixed Poisson requests with a mean gap of 20 ms,
     rollout() of the head model at the midpoint): completed ratio 1.0,
     per-model wide events equal to the workload's mix, no compile-cache
@@ -4871,8 +4923,9 @@ def multimodel_phase():
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
 
     t0 = time.time()
-    cfg = GPTConfig(vocab_size=30528, hidden_size=768, num_layers=12,
-                    num_heads=12, max_position_embeddings=1024, dropout=0.0)
+    cfg = GPTConfig(vocab_size=30528, hidden_size=768,
+                    num_layers=MULTIMODEL_LAYERS, num_heads=12,
+                    max_position_embeddings=1024, dropout=0.0)
     lens, mnt, n_req = (32, 64, 96, 128), 64, 32
     max_len, chunk, block, num_slots = 256, 32, 8, 8
     mean_gap, n_models, swap_at = 0.02, 3, 16
@@ -4975,7 +5028,8 @@ def multimodel_phase():
                % (evictions, want))
         pager.shutdown()
         t_pager = time.time() - t2
-        print('multi-model rung (slice 6): %d models + %s v2 (bf16, %.0f MB '
+        print('multi-model rung (slice 6): %d models (%d layers) + %s v2 '
+              '(bf16, %.0f MB '
               'f32 artifacts each, publish %.1f s), 2 in-process ModelHost '
               'replicas x %d slots x %d, chunk %d, burst %d, %d zipf-mixed '
               'requests (mix %s), %d new, rollout of %s at request %d: '
@@ -4985,7 +5039,8 @@ def multimodel_phase():
               'pager (budget 2.5 artifacts): peak resident %.0f MB of %.0f, '
               'evictions %s = the LRU oracle (%.1f s); flash launches %d; '
               '%.1f s'
-              % (n_models, head, nbytes / 2 ** 20, t_publish, num_slots,
+              % (n_models, cfg.num_layers, head, nbytes / 2 ** 20, t_publish,
+                 num_slots,
                  max_len, chunk, block, n_req, trace.model_mix(), mnt, head,
                  swap_at, res.completed_ratio, res.tokens_per_sec,
                  res.tokens, res.wall_s, res.max_lag_s * 1e3, t_cold,
@@ -7737,6 +7792,466 @@ def slice19_phases(card, sku):
     return out
 
 
+# Phase 29 (slice 20, detection). (a) BASELINE config 4, PP-YOLOv2
+# inference as bench_extra.py's bench_yolo_infer drives it: ppyolov2(80
+# classes) at its defaults (width 32, 320 x 320), eval, f32, seeded
+# images; the forward with decode at batch 1 and 8, 3 repeats of 10
+# calls, the median and the spread; postprocess (matrix NMS, keep_top_k
+# 100) on each batch's outputs on its own; each with TF32 off and with
+# torch's default for convolutions (TF32 on).
+YOLO_CFG = dict(num_classes=80, width=32, img_size=320)
+YOLO_BATCHES = (1, 8)
+YOLO_CALLS, YOLO_REPS = 10, 3
+# (b) card against CPU, TF32 off: decode within DECODE_TOL of the largest
+# |value|; NMS rows on the CPU decode's outputs: labels, counts and boxes
+# equal, scores within NMS_SCORE_TOL (rows whose scores tie within it may
+# swap places: counted); roi_align, yolo_loss and deform_conv2d values
+# and gradients within DET_TOL of each tensor's largest entry (at least 1)
+DECODE_TOL, NMS_SCORE_TOL, DET_TOL = 1e-4, 1e-5, 1e-5
+# NMS rows whose scores lie within this many f32 units in the last place
+# of each other tie: the two devices' rounding orders them
+TIE_ULPS = 4
+# (d) the fluid PP-YOLO tail as PaddleDetection exports it: yolo_box on
+# the stride-32 head (80 classes), transpose2, multiclass_nms3
+YOLO_TAIL_NMS = dict(score_threshold=0.01, nms_top_k=1000, keep_top_k=100,
+                     nms_threshold=0.45, normalized=True,
+                     background_label=-1)
+
+
+def _conv_flops(model, x):
+    """A forward's FLOPs by hand from the layers' shapes, as _layer_flops
+    counts them (2 x in / groups x prod(k) x out x the output's
+    positions a convolution), for the forward only."""
+    from paddle_tpu_torch.nn.layer.conv import _ConvNd
+    counts = []
+
+    def hook(layer, args, out):
+        k = int(np.prod(layer._kernel_size))
+        counts.append(2 * layer._in_channels // layer._groups * k *
+                      out.numel())
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, _ConvNd)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(counts), len(counts)
+
+
+def _reps_ms(fn, calls, reps):
+    """bench_extra's timing: `reps` repeats of `calls` calls, each repeat
+    ending in a synchronise; the ms a call of each repeat."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / calls)
+    return out
+
+
+def yolo_infer_phase(card, sku):
+    """Phase 29 (a): BASELINE config 4 on the card."""
+    from paddle_tpu_torch.vision.models import ppyolov2
+
+    t0 = time.time()
+    model = ppyolov2(**YOLO_CFG, device='cuda', seed=SEED).eval()
+    params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(SEED + 29)
+    size = YOLO_CFG['img_size']
+    images = {b: torch.rand(b, 3, size, size, generator=gen).cuda()
+              for b in YOLO_BATCHES}
+    flops, convs = _conv_flops(model, images[1])
+    peaks = {False: ('f32 CUDA cores', sku[2]['float32_cuda_cores']),
+             True: ('TF32', 3 * sku[2]['float32'])}
+    saved = torch.backends.cudnn.allow_tf32
+    rows = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            for b in YOLO_BATCHES:
+                x = images[b]
+                with torch.no_grad():
+                    torch.cuda.reset_peak_memory_stats()
+                    fwd = _reps_ms(lambda: model(x), YOLO_CALLS, YOLO_REPS)
+                    peak = torch.cuda.max_memory_allocated()
+                    boxes, scores = model(x)
+                    post = _reps_ms(lambda: model.postprocess(boxes, scores),
+                                    YOLO_CALLS, YOLO_REPS)
+                    out, num = model.postprocess(boxes, scores)
+                _check(bool(torch.isfinite(boxes).all()) and
+                       bool(torch.isfinite(scores).all()),
+                       'PP-YOLOv2 decode not finite')
+                _check(tuple(out.shape) == (b * 100, 6) and
+                       out.is_cuda and num.dtype == torch.int32,
+                       'postprocess gave %s %s' % (tuple(out.shape),
+                                                   num.dtype))
+                med = sorted(fwd)[len(fwd) // 2]
+                row = {'tf32': tf32, 'batch': b, 'ms': med,
+                       'ms_img': med / b, 'qps': b / med * 1e3,
+                       'spread_ms': max(fwd) - min(fwd), 'reps_ms': fwd,
+                       'post_ms': sorted(post)[len(post) // 2],
+                       'post_spread_ms': max(post) - min(post),
+                       'kept': num.tolist(), 'peak_gib': peak / 2 ** 30,
+                       'mfu': flops * b / (med / 1e3) / peaks[tf32][1],
+                       'peak_name': peaks[tf32][0]}
+                if not tf32:
+                    with torch.no_grad():
+                        wall, dev, top, _ = _profile(lambda: model(x))
+                        pwall, pdev, ptop, _ = _profile(
+                            lambda: model.postprocess(boxes, scores))
+                    row.update(busy=dev / wall, top=top, post_busy=pdev /
+                               pwall, post_top=ptop)
+                rows.append(row)
+                print('slice 20 (a) [%s]: PP-YOLOv2 (80 classes, width 32, '
+                      '%d x %d, %.2f M parameters, %d convolutions, %.4g '
+                      'GFLOP an image by hand), eval f32, TF32 %s, batch %d: '
+                      'forward + decode %.3f ms (%s), %.3f ms/img, %.1f QPS, '
+                      'spread %.3f ms, MFU %.4f of the %s peak; postprocess '
+                      '(matrix_nms, keep_top_k 100) %.3f ms (spread %.3f), '
+                      'rows kept %s; peak %.3f GiB%s'
+                      % (card, size, size, params / 1e6, convs, flops / 1e9,
+                         'on' if tf32 else 'off', b, med,
+                         ', '.join('%.3f' % v for v in fwd), row['ms_img'],
+                         row['qps'], row['spread_ms'], row['mfu'],
+                         row['peak_name'], row['post_ms'],
+                         row['post_spread_ms'], row['kept'],
+                         row['peak_gib'],
+                         '' if tf32 else '; profiled forward busy %.3f, top '
+                         'kernels: %s; postprocess busy %.3f, top kernels: '
+                         '%s' % (row['busy'], '; '.join(
+                             '%s %.3f ms x%d' % t for t in row['top']),
+                             row['post_busy'], '; '.join(
+                                 '%s %.3f ms x%d' % t
+                                 for t in row['post_top']))), flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    del model, images
+    torch.cuda.empty_cache()
+    return {'rows': rows, 'params': params, 'flops': flops, 'convs': convs,
+            'seconds': time.time() - t0}
+
+
+def _nms_rows(got, want, keep, score_tol, box_tol):
+    """Two NMS outputs [B * keep, 6] (the card's, the CPU's): scores within
+    score_tol row by row, and each CPU row's label and box (within
+    box_tol) on the card in the same place, except among rows whose CPU
+    scores tie within TIE_ULPS units in the last place (f32 rounding of
+    the two devices orders them): such a run is matched as a set, and
+    when keep cuts it, its rows past the cut may differ. Returns (rows a
+    tie placed, rows a tie at the cut left out, the largest box error)."""
+    _check(np.abs(got[:, 1] - want[:, 1]).max() <= score_tol,
+           'NMS scores %.3g apart (tol %g)'
+           % (np.abs(got[:, 1] - want[:, 1]).max(), score_tol))
+    moved, cut, b_err = 0, 0, 0.0
+    for g, w in zip(got.reshape(-1, keep, 6), want.reshape(-1, keep, 6)):
+        start = 0
+        for end in range(1, keep + 1):
+            if end < keep and abs(w[end, 1] - w[end - 1, 1]) <= \
+                    TIE_ULPS * np.spacing(np.float32(w[end - 1, 1])):
+                continue
+            free = list(range(start, end))
+            for i in range(start, end):
+                hit = next((j for j in free if g[j, 0] == w[i, 0] and
+                            np.abs(g[j, 2:] - w[i, 2:]).max() <= box_tol),
+                           None)
+                if hit is None:
+                    _check(end == keep and end - start > 1, 'NMS row %d '
+                           '(%s) of the CPU has no match on the card among '
+                           'the rows tied with it: %s'
+                           % (i, w[i], g[start:end]))
+                    cut += 1
+                    continue
+                free.remove(hit)
+                moved += hit != i
+                b_err = max(b_err, float(np.abs(g[hit, 2:] - w[i, 2:])
+                                         .max()))
+            start = end
+    return moved, cut, b_err
+
+
+def yolo_parity_phase(card):
+    """Phase 29 (b): the same weights on the CPU and the card, TF32 off."""
+    from paddle_tpu_torch.vision import detection, ops
+    from paddle_tpu_torch.vision.models import ppyolov2
+
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = ppyolov2(**YOLO_CFG, device='cpu', seed=SEED + 1).eval()
+    on_card = ppyolov2(**YOLO_CFG, device='cuda', seed=SEED + 2).eval()
+    on_card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 291)
+    size = YOLO_CFG['img_size']
+    x = torch.rand(2, 3, size, size, generator=gen)
+    with torch.no_grad():
+        want = cpu(x)
+        got = on_card(x.cuda())
+    decode = [((g.cpu() - w).abs().max() / w.abs().max()).item()
+              for g, w in zip(got, want)]
+    _check(max(decode) <= DECODE_TOL, 'decode card vs CPU %s of the largest '
+           '(tol %g)' % (decode, DECODE_TOL))
+    boxes, scores = want
+    nms = {}
+    for name, fn, kw in (
+            ('matrix_nms', detection.matrix_nms, dict(
+                score_threshold=0.01, post_threshold=0.01, nms_top_k=400,
+                keep_top_k=100, use_gaussian=True, background_label=-1)),
+            ('multiclass_nms', detection.multiclass_nms, dict(
+                score_threshold=0.01, nms_top_k=400, keep_top_k=100,
+                nms_threshold=0.45, background_label=-1))):
+        c_out, c_num = fn(boxes, scores, **kw)
+        g_out, g_num = fn(boxes.cuda(), scores.cuda(), **kw)
+        _check(g_out.is_cuda and torch.equal(g_num.cpu(), c_num),
+               '%s counts card %s vs CPU %s' % (name, g_num.tolist(),
+                                                c_num.tolist()))
+        g_np, c_np = g_out.cpu().numpy(), c_out.numpy()
+        moved, cut, b_err = _nms_rows(g_np, c_np, 100, NMS_SCORE_TOL, 0.0)
+        nms[name] = {'counts': c_num.tolist(), 'tie_rows': moved,
+                     'tie_cut_rows': cut, 'score_err': float(np.abs(
+                         g_np[:, 1] - c_np[:, 1]).max()), 'box_err': b_err}
+
+    rng = torch.Generator().manual_seed(SEED + 292)
+    feat = torch.randn(2, 64, 40, 40, generator=rng)
+    rois = torch.rand(64, 4, generator=rng) * 300 - 20
+    rois[:, 2:] += rois[:, :2] + 16    # some reach past the 320 image
+    rois_num = torch.tensor([40, 24])
+    # the value only: samples past the map weigh the edge pixels by
+    # extrapolated weights of either sign, and the feature map's gradient
+    # sums them in an order of the device's choosing (two CPU runs part
+    # by 1.7e-5 of its largest entry)
+    with torch.no_grad():
+        roi_out = [ops.roi_align(feat.to(d), rois.to(d), rois_num.to(d), 7,
+                                 spatial_scale=1 / 8, sampling_ratio=2).cpu()
+                   for d in ('cuda', 'cpu')]
+    roi_err = ((roi_out[0] - roi_out[1]).abs().max() /
+               max(roi_out[1].abs().max().item(), 1.0)).item()
+    head = torch.randn(8, 255, 10, 10, generator=rng)
+    gt = torch.rand(8, 20, 4, generator=rng) * 0.5
+    gt[..., :2] += 0.25
+    gt[:, 15:] = 0.0                   # padded boxes
+    gt_label = torch.randint(0, 80, (8, 20), generator=rng)
+
+    def yolo(dev_name, a, b, lab):
+        return (ops.yolo_loss(a, b, lab, anchors=sum(
+            on_card.ANCHORS, []), anchor_mask=[6, 7, 8], class_num=80,
+            ignore_thresh=0.7, downsample_ratio=32, scale_x_y=1.05),)
+    yolo_err = _card_vs_cpu(yolo, [head, gt, gt_label], 2)
+    dx = torch.randn(2, 128, 20, 20, generator=rng)
+    doff = torch.randn(2, 18, 20, 20, generator=rng) * 2
+    dw = torch.randn(128, 128, 3, 3, generator=rng) * 0.03
+    db = torch.randn(128, generator=rng)
+    dm = torch.rand(2, 9, 20, 20, generator=rng)
+
+    def deform(dev_name, a, o, w, b, m):
+        return (ops.deform_conv2d(a, o, w, b, padding=1, mask=m),)
+    deform_err = _card_vs_cpu(deform, [dx, doff, dw, db, dm], 3)
+    for what, err in (('roi_align', roi_err), ('yolo_loss', yolo_err),
+                      ('deform_conv2d', deform_err)):
+        _check(err <= DET_TOL, '%s card vs CPU %.3g apart (tol %g)'
+               % (what, err, DET_TOL))
+    del cpu, on_card
+    torch.cuda.empty_cache()
+    out = {'decode': decode, 'nms': nms, 'roi_align': roi_err,
+           'yolo_loss': yolo_err, 'deform_conv2d': deform_err,
+           'seconds': time.time() - t0}
+    print('slice 20 (b) [%s]: card vs CPU, f32, TF32 off: PP-YOLOv2 decode '
+          'at batch 2 x %d, boxes %.3g and scores %.3g of the largest (tol '
+          '%g); on the CPU decode\'s outputs: %s (labels, counts and boxes '
+          'equal, scores within %g; rows placed by a tie within %d ulps '
+          'counted, and those a tie at the cut left out); '
+          'roi_align 64 rois (some past the image) 7 x 7 over [2, 64, 40, '
+          '40] %.3g (the value), yolo_loss [8, 255, 10, 10] with 20 boxes '
+          'an image %.3g, deform_conv2d [2, 128, 20, 20] 3 x 3 with a mask '
+          '%.3g (values and gradients), each of its largest entry (tol %g); '
+          '%.1f s'
+          % (card, size, decode[0], decode[1], DECODE_TOL, json.dumps(nms),
+             NMS_SCORE_TOL, TIE_ULPS, roi_err, yolo_err, deform_err, DET_TOL,
+             out['seconds']), flush=True)
+    return out
+
+
+def yolo_predictor_phase(card):
+    """Phase 29 (c): jit.save of the eval model, then a Predictor on the
+    card at batch 1 x 320, held to the eager forward."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.vision.models import ppyolov2
+
+    t0 = time.time()
+    torch.backends.cudnn.allow_tf32 = False
+    model = ppyolov2(**YOLO_CFG, device='cuda', seed=SEED).eval()
+    size = YOLO_CFG['img_size']
+    x = np.random.RandomState(SEED + 293).rand(1, 3, size, size).astype(
+        np.float32)
+    with torch.no_grad():
+        want = model(torch.from_numpy(x).cuda())[0].cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_yolo_')
+    try:
+        path = os.path.join(tmp, 'ppyolov2')
+        jit.save(model, path)
+        config = inference.Config(path)
+        config.enable_use_gpu()
+        pred = inference.create_predictor(config)
+        name = pred.get_input_names()[0]
+        t1 = time.perf_counter()
+        pred.get_input_handle(name).copy_from_cpu(x)
+        pred.run()
+        compile_s = time.perf_counter() - t1
+        handle = pred.get_output_handle(pred.get_output_names()[0])
+        boxes = handle.copy_to_cpu()
+        err = float(np.abs(boxes - want).max() / np.abs(want).max())
+        _check(err <= DECODE_TOL, 'Predictor boxes vs eager %.3g of the '
+               'largest (tol %g)' % (err, DECODE_TOL))
+        run_ms = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            pred.get_input_handle(name).copy_from_cpu(x)
+            pred.run()
+            handle.copy_to_cpu()
+            run_ms.append((time.perf_counter() - t1) * 1e3)
+        _check(pred.compile_count() == 1, 'Predictor compiled %d programs'
+               % pred.compile_count())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, pred
+    torch.cuda.empty_cache()
+    out = {'err': err, 'compile_s': compile_s, 'p50_ms': _p50(run_ms),
+           'seconds': time.time() - t0}
+    print('slice 20 (c) [%s]: jit.save -> Config / create_predictor on the '
+          'card, batch 1 x %d: first run (compiles) %.2f s, run() p50 %.3f '
+          'ms over 20 (numpy in, boxes back to the host), boxes %.3g of the '
+          'largest off the eager forward (tol %g); %.1f s'
+          % (card, size, compile_s, out['p50_ms'], err, DECODE_TOL,
+             out['seconds']), flush=True)
+    return out
+
+
+def yolo_fluid_phase(card):
+    """Phase 29 (d): the fluid PP-YOLO tail (yolo_box -> transpose2 ->
+    multiclass_nms3, as tests/test_fluid_interop.py writes it) through
+    load_fluid_model compiled on the card, against the op table run on
+    the CPU (uncompiled)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.inference import fluid_program
+
+    t0 = time.time()
+    na, cls, h, batch = 3, 80, 10, 8
+    c = na * (5 + cls)
+    variables = [_pb_var('head', dims=[-1, c, h, h]),
+                 _pb_var('imgsz', dims=[-1, 2], dtype=2),
+                 _pb_var('boxes', dims=[-1, na * h * h, 4]),
+                 _pb_var('scores_mc', dims=[-1, na * h * h, cls]),
+                 _pb_var('scores', dims=[-1, cls, na * h * h]),
+                 _pb_var('dets', dims=[-1, 6]),
+                 _pb_var('rois_n', dims=[-1], dtype=2)]
+    ops = [_pb_op('yolo_box', {'X': ['head'], 'ImgSize': ['imgsz']},
+                  {'Boxes': ['boxes'], 'Scores': ['scores_mc']},
+                  anchors=[116, 90, 156, 198, 373, 326], class_num=cls,
+                  conf_thresh=0.01, downsample_ratio=32, clip_bbox=True,
+                  scale_x_y=1.05),
+           _pb_op('transpose2', {'X': ['scores_mc']}, {'Out': ['scores']},
+                  axis=[0, 2, 1]),
+           _pb_op('multiclass_nms3', {'BBoxes': ['boxes'],
+                                      'Scores': ['scores']},
+                  {'Out': ['dets'], 'NmsRoisNum': ['rois_n']},
+                  **YOLO_TAIL_NMS)]
+    gen = np.random.RandomState(SEED + 294)
+    feed = {'head': gen.randn(batch, c, h, h).astype(np.float32),
+            'imgsz': np.full((batch, 2), 320, np.int32)}
+    root = tempfile.mkdtemp(prefix='chip_smoke_yolo_fluid_')
+    try:
+        model, _ = _write_fluid(root, 'yolo_tail', ['head', 'imgsz'],
+                                ['dets', 'rois_n'], variables, ops, {},
+                                False)
+        ref = fluid_program.load_fluid_model(model, device='cpu')
+        with torch.no_grad():
+            want = [t.numpy() for t in ref._forward(
+                *[torch.from_numpy(feed[n]) for n in ('head', 'imgsz')])]
+        prog = fluid_program.load_fluid_model(model, device='cuda')
+        t1 = time.perf_counter()
+        got = prog.run(feed)
+        compile_s = time.perf_counter() - t1
+        ms = _timed_runs(lambda: prog.run(feed), 5)
+        tensors = prog.run(feed, return_numpy=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _check(all(t.is_cuda for t in tensors), 'the fluid tail left the card')
+    _check(np.array_equal(got[1], want[1]), 'fluid tail counts card %s vs '
+           'CPU %s' % (got[1].tolist(), want[1].tolist()))
+    keep = YOLO_TAIL_NMS['keep_top_k']
+    moved, cut, b_err = _nms_rows(got[0], want[0], keep, NMS_SCORE_TOL,
+                                  DECODE_TOL * 320)
+    s_err = float(np.abs(got[0][:, 1] - want[0][:, 1]).max())
+    _check(prog.compile_count() == 1, 'the fluid tail compiled %d graphs'
+           % prog.compile_count())
+    out = {'counts': want[1].tolist(), 'tie_rows': moved,
+           'tie_cut_rows': cut, 'score_err': s_err, 'box_err': b_err, 'compile_s': compile_s, 'run_p50_ms': _p50(ms),
+           'seconds': time.time() - t0}
+    print('slice 20 (d) [%s]: the fluid PP-YOLO tail (yolo_box on [%d, %d, '
+          '%d, %d], 80 classes, transpose2, multiclass_nms3 %s) compiled on '
+          'the card: first run %.2f s, run p50 %.3f ms; against the CPU: '
+          'counts %s equal, %d rows placed by a score tie within %d ulps, '
+          '%d left out by one at the cut, scores %.3g (tol %g), boxes %.3g '
+          'px apart; %.1f s'
+          % (card, batch, c, h, h, json.dumps(YOLO_TAIL_NMS), compile_s,
+             out['run_p50_ms'], out['counts'], moved, TIE_ULPS, cut, s_err,
+             NMS_SCORE_TOL, b_err, out['seconds']), flush=True)
+    return out
+
+
+def slice20_phases(card, sku):
+    """Phase 29: slice 20, detection, on one card; no flash kernel is on
+    this path."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t0 = time.time()
+    _reset_counts(fa)
+    out = {'infer': yolo_infer_phase(card, sku),
+           'parity': yolo_parity_phase(card),
+           'predictor': yolo_predictor_phase(card),
+           'fluid': yolo_fluid_phase(card)}
+    launches = _launches(fa)
+    _check(launches == _want(0), 'the detection path launched flash '
+           'kernels: %s' % launches)
+    out['seconds'] = time.time() - t0
+    rows = {(r['tf32'], r['batch']): r for r in out['infer']['rows']}
+    summary = {}
+    for tf32 in (False, True):
+        for b in YOLO_BATCHES:
+            r = rows[tf32, b]
+            key = 'b%d_tf32_%s' % (b, 'on' if tf32 else 'off')
+            summary[key + '_ms_img'] = round(r['ms_img'], 3)
+            summary[key + '_qps'] = round(r['qps'], 1)
+            summary[key + '_post_ms'] = round(r['post_ms'], 3)
+    for b in YOLO_BATCHES:
+        summary['b%d_busy' % b] = round(rows[False, b]['busy'], 3)
+        summary['b%d_post_busy' % b] = round(rows[False, b]['post_busy'], 3)
+    parity = out['parity']
+    summary.update({
+        'decode_err': max(parity['decode']),
+        'nms_tie_rows': {k: [v['tie_rows'], v['tie_cut_rows']]
+                         for k, v in parity['nms'].items()},
+        'roi_yolo_deform_err': [parity['roi_align'], parity['yolo_loss'],
+                                parity['deform_conv2d']],
+        'predictor_p50_ms': round(out['predictor']['p50_ms'], 3),
+        'fluid_tie_rows': [out['fluid']['tie_rows'],
+                           out['fluid']['tie_cut_rows']],
+        'flash_launches': sum(launches.values()),
+        'seconds': round(out['seconds'], 1)})
+    print('phase 29 (slice 20) [%s]: %s' % (card, json.dumps(summary)),
+          flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -7818,6 +8333,7 @@ def main():
     slice17 = timed(slice17_phases, card)
     timed(slice18_phases, card, sku)
     timed(slice19_phases, card, sku)
+    timed(slice20_phases, card, sku)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows

@@ -18,9 +18,9 @@ The protobuf wire parsing is hand-rolled (proto2 subset: varint / 64-bit /
 length-delimited / 32-bit fields): no protobuf runtime dependency. bf16
 LoDTensors are read as their uint16 bits and viewed as torch.bfloat16, so
 no ml_dtypes is needed. The detection ops (yolo_box, roi_align, box_coder,
-prior_box, anchor_generator, multiclass_nms / 2 / 3) need the port's
-vision/ package, which is not ported yet (ROADMAP Queue 1 item 5): they
-raise NotImplementedError naming it.
+prior_box, anchor_generator, multiclass_nms / 2 / 3) call the port's
+vision/ package, with fixed-size padded outputs, so the whole block stays
+one compiled program.
 """
 import functools
 import math
@@ -560,15 +560,6 @@ def _no_dynamic(op, *slots):
                 're-export with static attrs' % (op.type, s))
 
 
-def _vision_op(name):
-    def impl(op, scope):
-        raise NotImplementedError(
-            'fluid op %r needs the port\'s vision/ package (vision.ops, '
-            'vision.detection), which is not ported yet (ROADMAP Queue 1 '
-            'item 5)' % name)
-    FLUID_OP_TABLE[name] = impl
-
-
 def _nearest_fluid(x, out_h, out_w, align_corners):
     """Fluid nearest sampling: floor(dst*scale) when align_corners=False
     (asymmetric), round(dst*(h-1)/(out-1)) when True."""
@@ -892,11 +883,114 @@ def _init_table():
             x, (pads[2], pads[3], pads[0], pads[1]),
             value=op.attr('pad_value', 0.0))
 
-    # -- detection: needs vision/ (ROADMAP Queue 1 item 5) -------------------
-    for vname in ('yolo_box', 'multiclass_nms', 'multiclass_nms2',
-                  'multiclass_nms3', 'roi_align', 'box_coder', 'prior_box',
-                  'anchor_generator'):
-        _vision_op(vname)
+    # -- detection (PP-YOLO family serving, BASELINE config 4) --------------
+    # the vision implementations (vision/ops.py, vision/detection.py);
+    # fixed-size padded outputs keep the whole block one program
+
+    @_op('yolo_box')
+    def _yolo_box(op, scope):
+        from ..vision.ops import yolo_box
+        boxes, scores = yolo_box(
+            scope[op.input('X')[0]], scope[op.input('ImgSize')[0]],
+            anchors=list(op.attr('anchors', [])),
+            class_num=op.attr('class_num', 1),
+            conf_thresh=op.attr('conf_thresh', 0.01),
+            downsample_ratio=op.attr('downsample_ratio', 32),
+            clip_bbox=op.attr('clip_bbox', True),
+            scale_x_y=op.attr('scale_x_y', 1.0),
+            iou_aware=op.attr('iou_aware', False),
+            iou_aware_factor=op.attr('iou_aware_factor', 0.5))
+        scope[op.output('Boxes')[0]] = boxes
+        scope[op.output('Scores')[0]] = scores
+
+    def _nms_common(op, scope, with_index):
+        from ..vision.detection import multiclass_nms
+        if op.attr('nms_eta', 1.0) != 1.0:
+            raise NotImplementedError(
+                'multiclass_nms: adaptive NMS (nms_eta != 1) is not '
+                'implemented — suppression would silently use a fixed '
+                'threshold')
+        res = multiclass_nms(
+            scope[op.input('BBoxes')[0]], scope[op.input('Scores')[0]],
+            score_threshold=op.attr('score_threshold', 0.05),
+            nms_top_k=op.attr('nms_top_k', 1000),
+            keep_top_k=op.attr('keep_top_k', 100),
+            nms_threshold=op.attr('nms_threshold', 0.3),
+            normalized=op.attr('normalized', True),
+            background_label=op.attr('background_label', 0),
+            return_index=with_index, return_rois_num=True)
+        scope[op.output('Out')[0]] = res[0]
+        if with_index and op.output('Index'):
+            scope[op.output('Index')[0]] = res[1]
+        rois = op.output('NmsRoisNum') or op.output('RoisNum')
+        if rois:
+            scope[rois[0]] = res[-1]
+
+    FLUID_OP_TABLE['multiclass_nms'] = functools.partial(
+        _nms_common, with_index=False)
+    FLUID_OP_TABLE['multiclass_nms2'] = functools.partial(
+        _nms_common, with_index=True)
+    FLUID_OP_TABLE['multiclass_nms3'] = functools.partial(
+        _nms_common, with_index=True)
+
+    @_op('roi_align')
+    def _roi_align(op, scope):
+        from ..vision.ops import roi_align
+        if not op.input('RoisNum'):
+            raise NotImplementedError(
+                'roi_align: LoD-carried roi batching is not supported '
+                '(SURVEY §7.5) — re-export with the RoisNum input')
+        scope[op.output('Out')[0]] = roi_align(
+            scope[op.input('X')[0]], scope[op.input('ROIs')[0]],
+            scope[op.input('RoisNum')[0]],
+            output_size=(op.attr('pooled_height', 1),
+                         op.attr('pooled_width', 1)),
+            spatial_scale=op.attr('spatial_scale', 1.0),
+            sampling_ratio=op.attr('sampling_ratio', -1),
+            aligned=op.attr('aligned', True))
+
+    @_op('box_coder')
+    def _box_coder(op, scope):
+        from ..vision.ops import box_coder
+        pbv = (scope[op.input('PriorBoxVar')[0]]
+               if op.input('PriorBoxVar')
+               else list(op.attr('variance', [])) or [1.0, 1.0, 1.0, 1.0])
+        scope[op.output('OutputBox')[0]] = box_coder(
+            scope[op.input('PriorBox')[0]], pbv,
+            scope[op.input('TargetBox')[0]],
+            code_type=op.attr('code_type', 'encode_center_size'),
+            box_normalized=op.attr('box_normalized', True),
+            axis=op.attr('axis', 0))
+
+    @_op('prior_box')
+    def _prior_box(op, scope):
+        from ..vision.ops import prior_box
+        boxes, variances = prior_box(
+            scope[op.input('Input')[0]], scope[op.input('Image')[0]],
+            min_sizes=list(op.attr('min_sizes', [])),
+            max_sizes=list(op.attr('max_sizes', [])) or None,
+            aspect_ratios=list(op.attr('aspect_ratios', [1.0])),
+            variance=list(op.attr('variances', [0.1, 0.1, 0.2, 0.2])),
+            flip=op.attr('flip', False), clip=op.attr('clip', False),
+            steps=(op.attr('step_w', 0.0), op.attr('step_h', 0.0)),
+            offset=op.attr('offset', 0.5),
+            min_max_aspect_ratios_order=op.attr(
+                'min_max_aspect_ratios_order', False))
+        scope[op.output('Boxes')[0]] = boxes
+        scope[op.output('Variances')[0]] = variances
+
+    @_op('anchor_generator')
+    def _anchor_generator(op, scope):
+        from ..vision.detection import anchor_generator
+        anchors, variances = anchor_generator(
+            scope[op.input('Input')[0]],
+            anchor_sizes=list(op.attr('anchor_sizes', [])),
+            aspect_ratios=list(op.attr('aspect_ratios', [])),
+            variances=list(op.attr('variances', [])) or None,
+            stride=tuple(op.attr('stride', [])) or None,
+            offset=op.attr('offset', 0.5))
+        scope[op.output('Anchors')[0]] = anchors
+        scope[op.output('Variances')[0]] = variances
 
     @_op('norm')
     def _norm(op, scope):

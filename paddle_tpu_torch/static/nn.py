@@ -31,8 +31,9 @@ masked lengths). Where the JAX builder draws a default from numpy
 sample_logits' negatives), the port draws the same values.
 
 spectral_norm, nce and sparse_embedding refuse as the JAX package's do
-(nn.utils.spectral_norm works on the layer); deform_conv2d and the LoD
-sequence ops raise NotImplementedError naming their ROADMAP item.
+(nn.utils.spectral_norm works on the layer); the LoD sequence ops raise
+NotImplementedError naming their ROADMAP item. deform_conv2d passes
+through to vision.ops.deform_conv2d, as the JAX builder does.
 """
 import operator
 
@@ -386,9 +387,8 @@ def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, **kw):
 
 
 def deform_conv2d(*args, **kwargs):
-    raise NotImplementedError(
-        'static.nn.deform_conv2d is not ported: it needs '
-        'vision.ops.deform_conv2d (ROADMAP Queue 1 item 5, slice 20)')
+    from ..vision.ops import deform_conv2d as _dc
+    return _dc(*args, **kwargs)
 
 
 def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None,

@@ -1,19 +1,7 @@
-"""paddle.vision (counterpart of paddle_tpu/vision/): models, transforms
-and datasets. `vision.ops` and `vision.detection` are not ported yet and
-raise an AttributeError naming their ROADMAP item, as do the models'
-PPYOLOv2 / ppyolov2."""
-from . import datasets, models, transforms  # noqa: F401
+"""paddle.vision (counterpart of paddle_tpu/vision/): models, transforms,
+datasets, the detection ops (`ops`, `detection`) and PPYOLOv2."""
+from . import datasets, detection, models, ops, transforms  # noqa: F401
 from .models import *  # noqa: F401,F403
-
-_SLICE20 = ('is not ported yet (ROADMAP Queue 1 item 5, slice 20: '
-            'vision/ops.py, vision/detection.py and vision/models/yolo.py)')
-
-
-def __getattr__(name):
-    if name in ('ops', 'detection', 'PPYOLOv2', 'ppyolov2'):
-        raise AttributeError('paddle_tpu_torch.vision.%s %s'
-                             % (name, _SLICE20))
-    raise AttributeError('module %r has no attribute %r' % (__name__, name))
 
 
 def set_image_backend(backend):

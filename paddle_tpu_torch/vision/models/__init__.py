@@ -1,6 +1,5 @@
 """paddle.vision.models (counterpart of paddle_tpu/vision/models/):
-LeNet, ResNet, VGG and MobileNet V1 / V2. PPYOLOv2 / ppyolov2 are not
-ported yet and raise an AttributeError naming their ROADMAP item."""
+LeNet, ResNet, VGG, MobileNet V1 / V2 and PPYOLOv2."""
 from ._utils import load_vision_state  # noqa: F401
 from .lenet import LeNet  # noqa: F401
 from .mobilenet import (MobileNetV1, MobileNetV2, mobilenet_v1,  # noqa: F401
@@ -9,18 +8,10 @@ from .resnet import (ResNet, resnet18, resnet34, resnet50,  # noqa: F401
                      resnet101, resnet152, wide_resnet50_2,
                      wide_resnet101_2)
 from .vgg import VGG, vgg11, vgg13, vgg16, vgg19  # noqa: F401
+from .yolo import PPYOLOv2, ppyolov2  # noqa: F401
 
 __all__ = ['LeNet', 'ResNet', 'resnet18', 'resnet34', 'resnet50',
            'resnet101', 'resnet152', 'wide_resnet50_2', 'wide_resnet101_2',
            'VGG', 'vgg11', 'vgg13', 'vgg16', 'vgg19', 'MobileNetV1',
-           'MobileNetV2', 'mobilenet_v1', 'mobilenet_v2']
-
-_YOLO = ('is not ported yet (ROADMAP Queue 1 item 5, slice 20: '
-         'vision/models/yolo.py, PP-YOLOv2 inference)')
-
-
-def __getattr__(name):
-    if name in ('PPYOLOv2', 'ppyolov2'):
-        raise AttributeError('paddle_tpu_torch.vision.models.%s %s'
-                             % (name, _YOLO))
-    raise AttributeError('module %r has no attribute %r' % (__name__, name))
+           'MobileNetV2', 'mobilenet_v1', 'mobilenet_v2', 'PPYOLOv2',
+           'ppyolov2']

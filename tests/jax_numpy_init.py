@@ -6,14 +6,16 @@ The tests build a JAX layer and carry its weights to the port, so where
 the draws come from does not matter to them; jax.random would compile a
 kernel for every parameter shape, which is most of the time a test of a
 model spends. Import the fixture into a test module to use it:
-`from jax_numpy_init import numpy_init  # noqa: F401`.
+`from jax_numpy_init import numpy_init  # noqa: F401`; a fixture of
+wider scope calls `install` on a `pytest.MonkeyPatch` of its own.
 """
 import numpy as np
 import pytest
 
 
-@pytest.fixture
-def numpy_init(monkeypatch):
+def install(monkeypatch):
+    """Patch the initializers on `monkeypatch` to draw from one numpy
+    RandomState seeded with 0."""
     import jax.numpy as jnp
     import paddle_tpu.nn.initializer as I
     from paddle_tpu.framework.dtype import to_jax_dtype
@@ -31,3 +33,8 @@ def numpy_init(monkeypatch):
         return jnp.asarray(a.astype(np.float32)).astype(to_jax_dtype(dtype))
     for cls in (I.Uniform, I.Constant, I.XavierNormal):
         monkeypatch.setattr(cls, '__call__', draw)
+
+
+@pytest.fixture
+def numpy_init(monkeypatch):
+    install(monkeypatch)

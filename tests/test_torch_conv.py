@@ -333,5 +333,16 @@ def test_static_cos_sim_and_refusals_match_jax():
     for mod in (jstatic_nn, tstatic_nn):
         with pytest.raises(NotImplementedError, match='nn.utils.spectral'):
             mod.spectral_norm(None)
-    with pytest.raises(NotImplementedError, match='slice 20'):
-        tstatic_nn.deform_conv2d(torch.zeros(1, 3, 4, 4))
+    # deform_conv2d passes through to vision.ops.deform_conv2d in both
+    # packages. The JAX function raises on every input (a reference
+    # defect, tests/test_torch_detection.py), so the port's is held, with
+    # zero offsets, to the JAX package's conv2d
+    x = rng.randn(1, 3, 5, 4).astype(np.float32)
+    w = rng.randn(2, 3, 3, 3).astype(np.float32)
+    off = np.zeros((1, 18, 3, 2), np.float32)
+    _close(tstatic_nn.deform_conv2d(torch.tensor(x), torch.tensor(off),
+                                    torch.tensor(w)),
+           JF.conv2d(paddle.to_tensor(x), paddle.to_tensor(w)).numpy())
+    with pytest.raises(TypeError):
+        jstatic_nn.deform_conv2d(paddle.to_tensor(x), paddle.to_tensor(off),
+                                 paddle.to_tensor(w))

@@ -11,8 +11,9 @@ layouts, the digits CNN, word2vec, an extended op table (one program over
 most of the table's entries), reshape -1 / decrease_axis, the parser round
 trip of negative and typed attrs, the trailing-byte guard, Executor +
 load_inference_model on a reference directory, and a bf16 LoDTensor read
-without ml_dtypes. The detection ops raise NotImplementedError naming
-vision/.
+without ml_dtypes. The detection ops run (yolo_box, the anchor ops and
+box_coder here; the NMS and roi_align programs in test_torch_yolo.py)
+and keep the JAX table's two refusals.
 
 The port compiles each block with Inductor on the CPU (one compile thread);
 the JAX side runs jax.jit.
@@ -736,20 +737,84 @@ def test_executor_load_inference_model_serves_reference_dir_as_jax(tmp_path):
     assert isinstance(tensor, torch.Tensor) and prog.compile_count() == 1
 
 
+def _anchors_dir(tmp_path):
+    """prior_box and anchor_generator over a feature map, the priors
+    flattened by reshape2, and box_coder encoding ground truths against
+    them."""
+    variables, head, tail = _feed_fetch(
+        ['feat', 'img', 'gt'], ['pb', 'pv', 'an', 'av', 'enc'])
+    variables += [_var('feat', dims=[-1, 8, 3, 4]),
+                  _var('img', dims=[-1, 3, 48, 64]), _var('gt', dims=[-1, 4]),
+                  _var('pb', dims=[3, 4, 6, 4]), _var('pv', dims=[3, 4, 6, 4]),
+                  _var('pb2', dims=[-1, 4]), _var('an', dims=[3, 4, 4, 4]),
+                  _var('av', dims=[3, 4, 4, 4]), _var('enc', dims=[-1, 72, 4])]
+    ops = [
+        _op('prior_box', [('Input', ['feat']), ('Image', ['img'])],
+            [('Boxes', ['pb']), ('Variances', ['pv'])],
+            [('min_sizes', 4, [16.0, 24.0]), ('max_sizes', 4, [32.0, 40.0]),
+             ('aspect_ratios', 4, [2.0]), ('flip', 6, True),
+             ('clip', 6, True), ('variances', 4, [0.1, 0.1, 0.2, 0.2]),
+             ('offset', 1, 0.5)]),
+        _op('anchor_generator', [('Input', ['feat'])],
+            [('Anchors', ['an']), ('Variances', ['av'])],
+            [('anchor_sizes', 4, [32.0, 64.0]),
+             ('aspect_ratios', 4, [0.5, 1.0]), ('stride', 4, [16.0, 16.0]),
+             ('offset', 1, 0.5)]),
+        _op('reshape2', [('X', ['pb'])], [('Out', ['pb2'])],
+            [('shape', 3, [-1, 4])]),
+        _op('box_coder', [('PriorBox', ['pb2']), ('TargetBox', ['gt'])],
+            [('OutputBox', ['enc'])],
+            [('code_type', 2, 'encode_center_size'),
+             ('box_normalized', 6, True),
+             ('variance', 4, [0.1, 0.1, 0.2, 0.2])]),
+    ]
+    return _write_model(tmp_path, 'anchors', variables, head + ops + tail)
+
+
+def _refusal_dir(tmp_path, name, op):
+    variables, head, tail = _feed_fetch(['a', 'b'], ['out'])
+    variables += [_var('a', dims=[-1, 6, 4]), _var('b', dims=[-1, 3, 6]),
+                  _var('out', dims=[-1, 6])]
+    return _write_model(tmp_path, name, variables, head + [op] + tail)
+
+
 def test_vision_ops_raise_naming_vision(tmp_path):
-    d = _yolo_dir(tmp_path)
-    prog = tfp.load_fluid_model(str(d), device='cpu')
-    feed = {'head': np.zeros((1, 27, 4, 4), np.float32),
-            'imgsz': np.array([[128, 128]], np.int32)}
-    with pytest.raises(NotImplementedError, match='vision/'):
-        prog._run_block(prog.params, {k: torch.from_numpy(v)
-                                      for k, v in feed.items()})
+    """Since slice 20 the detection ops run (their name is kept from the
+    slice that refused them): yolo_box, and prior_box / anchor_generator
+    / box_coder in one compiled block, through both packages' loaders;
+    the two refusals the JAX table keeps (adaptive NMS, roi_align without
+    RoisNum) raise in both with its messages."""
+    feed = {'head': np.random.RandomState(5).randn(2, 27, 4, 4).astype(
+        np.float32), 'imgsz': np.array([[128, 128], [64, 96]], np.int32)}
+    jout, tout = _both_loaders(str(_yolo_dir(tmp_path)), feed)
+    np.testing.assert_allclose(tout[0], jout[0], **TOL)
+    rng = np.random.RandomState(6)
+    gt = rng.rand(5, 4).astype(np.float32) * 0.5
+    gt[:, 2:] += gt[:, :2] + 0.1
+    feed = {'feat': np.zeros((1, 8, 3, 4), np.float32),
+            'img': np.zeros((1, 3, 48, 64), np.float32), 'gt': gt}
+    jout, tout = _both_loaders(str(_anchors_dir(tmp_path)), feed)
+    for j, t in zip(jout, tout):
+        np.testing.assert_allclose(t, j, **TOL)
     for name in ('yolo_box', 'multiclass_nms', 'multiclass_nms2',
                  'multiclass_nms3', 'roi_align', 'box_coder', 'prior_box',
                  'anchor_generator'):
-        assert name in jfp.FLUID_OP_TABLE
-        with pytest.raises(NotImplementedError, match='vision/'):
-            tfp.FLUID_OP_TABLE[name](None, {})
+        assert name in jfp.FLUID_OP_TABLE and name in tfp.FLUID_OP_TABLE
+    nms = _op('multiclass_nms', [('BBoxes', ['a']), ('Scores', ['b'])],
+              [('Out', ['out'])], [('nms_eta', 1, 0.5)])
+    roi = _op('roi_align', [('X', ['a']), ('ROIs', ['b'])],
+              [('Out', ['out'])], [('pooled_height', 0, 2)])
+    feeds = {'a': np.zeros((1, 6, 4), np.float32),
+             'b': np.zeros((1, 3, 6), np.float32)}
+    for name, op, match in (('eta', nms, 'nms_eta != 1'),
+                            ('lod', roi, 'RoisNum')):
+        d = str(_refusal_dir(tmp_path, name, op))
+        with pytest.raises(NotImplementedError, match=match):
+            jfp.load_fluid_model(d).run(feeds)
+        prog = tfp.load_fluid_model(d, device='cpu')
+        with pytest.raises(NotImplementedError, match=match):
+            prog._run_block(prog.params, {k: torch.from_numpy(v)
+                                          for k, v in feeds.items()})
 
 
 def test_unknown_op_raises_listing_the_table(tmp_path):

@@ -542,9 +542,16 @@ def test_fluid_surface_objects():
 
 def test_unported_builders_name_their_queue_item():
     x = torch.zeros(1, 3, 8, 8)
-    for name in ('deform_conv2d', 'sequence_conv'):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
-            getattr(static.nn, name)(x, 4)
+    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
+        static.nn.sequence_conv(x, 4)
+    # deform_conv2d runs since slice 20 (vision.ops.deform_conv2d): with
+    # zero offsets it is the convolution
+    gen = torch.Generator().manual_seed(0)
+    xr = torch.randn(1, 3, 8, 8, generator=gen)
+    w = torch.randn(4, 3, 3, 3, generator=gen)
+    torch.testing.assert_close(
+        static.nn.deform_conv2d(xr, torch.zeros(1, 18, 6, 6), w),
+        torch.nn.functional.conv2d(xr, w), rtol=1e-5, atol=1e-5)
     # nce refuses as the JAX package's does, with its message; the other
     # fluid-era builders run (against the JAX package's in
     # test_torch_static_fluid.py)

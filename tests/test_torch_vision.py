@@ -225,14 +225,19 @@ def test_hapi_flops_counts_convolutions_as_jax(numpy_init):
 
 
 def test_vision_namespace_resolves_and_names_what_is_absent():
+    """The namespace resolves as the JAX package's: since slice 20 the
+    detection modules and PPYOLOv2 are there too (nothing is absent),
+    each name under the one the JAX package uses."""
     assert tpt.vision is tvision
-    for name in ('LeNet', 'resnet50', 'mobilenet_v2', 'vgg16'):
+    for name in ('LeNet', 'resnet50', 'mobilenet_v2', 'vgg16', 'PPYOLOv2',
+                 'ppyolov2'):
         assert getattr(tvision, name) is getattr(tvision.models, name)
-    for mod, name in ((tvision, 'ops'), (tvision, 'detection'),
-                      (tvision, 'PPYOLOv2'), (tvision.models, 'PPYOLOv2'),
-                      (tvision.models, 'ppyolov2')):
-        with pytest.raises(AttributeError, match='slice 20'):
-            getattr(mod, name)
+        assert hasattr(jvision, name)
+    import paddle_tpu_torch.vision.detection as tdet
+    import paddle_tpu_torch.vision.ops as tops
+    assert tvision.ops is tops and tvision.detection is tdet
+    assert sorted(tops.__all__) == sorted(jvision.ops.__all__)
+    assert sorted(tdet.__all__) == sorted(jvision.detection.__all__)
     assert tvision.get_image_backend() == jvision.get_image_backend()
 
 
