@@ -399,8 +399,41 @@ Phases, each printed as it finishes; any failure exits non-zero:
                load_fluid_model compiled on the card against the op table
                on the CPU. No flash launch. The phase prints its own
                seconds.
+ 30. slice 21, quantization and the rest of incubate - (a) weight-only
+               int8 serving on phase 4's model and prompts: GPT-2 small
+               in bf16, 8 x 768 + 128 new, greedy; generate()'s prefill
+               ms and decode tokens/s (medians of 3), streamed_bytes and
+               peak memory, plain and after quantize_weight_only (48
+               Linears swapped, the tied head kept), 12 flash launches a
+               prefill; the slot engine (8 slots) over the same requests,
+               plain and int8; at 2 layers in f32 on 2 prompts of 512:
+               the card's int8 weights equal the CPU's, the prefill on
+               the f32 kernel, its last logits within 1e-4 of the CPU's,
+               16 greedy tokens equal the CPU's and the engine's equal
+               generate()'s. (b) QAT at BASELINE config 2: phase 27 (a)'s
+               ResNet-50 recipe, plain then under ImperativeQuantAware
+               (channel-wise weights; 53 Conv2D and 1 Linear wrapped),
+               the median of 10 steps after 2 warm-up each, images/s,
+               busy share, peak memory; the loss falls, every activation
+               scale set and finite, no flash launch; resnet18 QAT in
+               float64, 3 steps, card vs CPU within 1e-6. (c) PTQ of
+               ResNet-50 in f32 (abs_max and KL, 4 batches of 16 x 224):
+               calibration seconds split into the forward and the host
+               observers, the quantized eval forward at batch 64 beside
+               the plain one; resnet18 in float64 (8 x 224, 2 batches),
+               each of the five algorithms: every layer's scale on the
+               card within 1e-5 (relative) of the CPU's. (d) ASP on
+               phase 6's bench GPT in bf16 at 8 x 512: prune_model 2:4
+               (48 Linears), 3 eager steps of a decorated AdamW beside
+               the same steps unpruned, 12 flash forward and 12 fused
+               backward launches a step, every pruned weight 2:4 after
+               the steps; ResNet-50: the fc alone pruned. (e)
+               LookAhead, ModelAverage and ExponentialMovingAverage over
+               6 eager steps of an MLP, the segment ops (empty segments
+               too) and softmax_mask_fuse_upper_triangle: card vs CPU in
+               float64 within 1e-6. The phase prints its own seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28 and 29 in main().)
+18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29 and 30 in main().)
 The last lines are the whole run's seconds (the build included), a
 {"kernels_wide": [...]} line, the card's name and power limit as
 nvidia-smi gives them, a {"kernels": [...]} line and the {"ok": true,
@@ -8252,6 +8285,651 @@ def slice20_phases(card, sku):
     return out
 
 
+# Phase 30 (slice 21, quantization and the rest of incubate).
+# (a) weight-only int8 serving on phase 4's model and prompts (8 x 768,
+# 128 new); the engine at 8 slots; the f32 checks at 2 layers on 2 prompts
+# of 512, 16 new tokens, the last prefill logits within INT8_LOGIT_TOL
+INT8_NEW, INT8_SLOTS = 128, 8
+INT8_PARITY_LAYERS, INT8_PARITY_ROWS, INT8_PARITY_LEN = 2, 2, 512
+INT8_PARITY_NEW, INT8_LOGIT_TOL = 16, 1e-4
+# (c) PTQ of ResNet-50: 4 calibration batches of 16 x 224; the card-vs-CPU
+# scales on resnet18 at 8 x 224, 2 batches, within PTQ_SCALE_RTOL
+PTQ_ALGOS = ('abs_max', 'avg', 'mse', 'KL', 'hist')
+PTQ_BATCHES, PTQ_BATCH = 4, 16
+PTQ_PARITY_BATCHES, PTQ_PARITY_BATCH, PTQ_SCALE_RTOL = 2, 8, 1e-5
+# (d) ASP on phase 6's bench GPT: 3 eager steps at batch 8 x 512
+ASP_BATCH, ASP_STEPS = 8, 3
+
+
+def _generate_rates(model, ids, new):
+    """generate(ids, new) as phase 4 times it: (prefill ms, call ms,
+    decode tokens/s, peak GiB), the prefill and the call each the median of
+    3 calls."""
+    def median_s(n):
+        calls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.generate(ids, max_new_tokens=n)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+        return sorted(calls)[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    total = median_s(new)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prefill = median_s(1)
+    tps = ids.shape[0] * (new - 1) / max(total - prefill, 1e-9)
+    return prefill * 1e3, total * 1e3, tps, peak
+
+
+def int8_serving_phase(card):
+    """Phase 30 (a): GPT-2 small in bf16 served plain, then with its
+    Linears swapped for WeightOnlyLinear, through generate() and the slot
+    engine."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.slim import (WeightOnlyLinear, quantize_weight_only,
+                                       streamed_bytes)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    t0 = time.time()
+    cfg = GPTConfig.gpt2_small()
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval().bfloat16()
+    ids = torch.randint(0, cfg.vocab_size, (8, 768),
+                        generator=torch.Generator().manual_seed(SEED))
+    prompts = ids.tolist()
+    ids = ids.cuda()
+    wte = model.gpt.wte.weight
+    rows = {}
+    for label in ('bf16', 'int8w'):
+        if label == 'int8w':
+            swapped = quantize_weight_only(model)
+            _check(swapped == 4 * cfg.num_layers, 'quantize_weight_only '
+                   'swapped %d Linears, want %d' % (swapped,
+                                                    4 * cfg.num_layers))
+            _check(model.lm_head is None and model.gpt.wte.weight is wte,
+                   'the tied head did not stay the embedding')
+            _check(all(isinstance(m, WeightOnlyLinear) for b in model.gpt.h
+                       for m in (b.attn.qkv_proj, b.attn.out_proj,
+                                 b.mlp.fc_in, b.mlp.fc_out)),
+                   'a block kept a float Linear')
+        model.generate(ids[:, :64], max_new_tokens=2)  # warm-up, no flash
+        _reset_counts(fa)
+        first = model.generate(ids, max_new_tokens=1)[:, -1].cpu()
+        torch.cuda.synchronize()
+        launches = _launches(fa)
+        _check(launches == _want(1, flash_fwd=cfg.num_layers),
+               '%s prefill launches %s, want %d flash_fwd' % (
+                   label, launches, cfg.num_layers))
+        prefill_ms, call_ms, tps, peak = _generate_rates(model, ids, INT8_NEW)
+        eng = ContinuousBatchingEngine(model, num_slots=INT8_SLOTS,
+                                       max_len=1024, prefill_chunk=128,
+                                       decode_block=4)
+        eng.generate([p[:64] for p in prompts[:2]], max_new_tokens=8)
+        _reset_counts(fa)
+        _, wall, _ = _serve(eng, prompts, INT8_NEW)
+        _check(_launches(fa) == _want(1), 'the slot engine launched a '
+               'flash kernel: %s' % _launches(fa))
+        del eng
+        rows[label] = {'prefill_ms': prefill_ms, 'call_ms': call_ms,
+                       'decode_tps': tps, 'peak_gib': peak,
+                       'engine_tps': len(prompts) * INT8_NEW / wall,
+                       'streamed_bytes': streamed_bytes(model),
+                       'launches': launches['flash_fwd'], 'first': first}
+    agree = int((rows['bf16']['first'] == rows['int8w']['first']).sum())
+    swapped = 4 * len(model.gpt.h)
+    del model
+    torch.cuda.empty_cache()
+    b, q = rows['bf16'], rows['int8w']
+    print('slice 21 (a) [%s]: GPT-2 small bf16, 8 x 768 + %d new, greedy: '
+          'plain prefill %.2f ms, decode %.1f tokens/s (call %.1f ms), peak '
+          '%.2f GiB, streamed_bytes %.0f, slot engine (%d slots) %.1f '
+          'tokens/s; weight-only int8 (%d Linears): prefill %.2f ms, decode '
+          '%.1f tokens/s (call %.1f ms), peak %.2f GiB, streamed_bytes %.0f '
+          '(%.3f of plain), engine %.1f tokens/s; int8 / plain decode %.3f, '
+          'engine %.3f; first tokens agreeing %d of 8; flash launches a '
+          'prefill %d / %d; %.1f s'
+          % (card, INT8_NEW, b['prefill_ms'], b['decode_tps'], b['call_ms'],
+             b['peak_gib'], b['streamed_bytes'], INT8_SLOTS, b['engine_tps'],
+             swapped, q['prefill_ms'], q['decode_tps'], q['call_ms'],
+             q['peak_gib'], q['streamed_bytes'],
+             q['streamed_bytes'] / b['streamed_bytes'], q['engine_tps'],
+             q['decode_tps'] / b['decode_tps'],
+             q['engine_tps'] / b['engine_tps'], agree, b['launches'],
+             q['launches'], time.time() - t0), flush=True)
+    parity = int8_parity_phase()
+    print('slice 21 (a) f32 [%s]: weight-only int8 GPT-2 small cut to %d '
+          'layers, %d prompts of %d: int8 weights card == CPU, prefill '
+          'logits max abs err %.3g (tol %g), %d x %d greedy tokens equal the '
+          "CPU's, the slot engine's equal generate()'s, kernels %s"
+          % (card, INT8_PARITY_LAYERS, INT8_PARITY_ROWS, INT8_PARITY_LEN,
+             parity['err'], INT8_LOGIT_TOL, INT8_PARITY_ROWS,
+             INT8_PARITY_NEW, sorted(parity['kernels'])), flush=True)
+    return {'rows': rows, 'first_token_agree': agree, 'parity': parity,
+            'seconds': time.time() - t0}
+
+
+def int8_parity_phase():
+    """Phase 30 (a), f32 at INT8_PARITY_LAYERS layers: the card's
+    quantized GPT against the same quantized model on the CPU."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.slim import quantize_weight_only
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig.gpt2_small()
+    cfg.num_layers = INT8_PARITY_LAYERS
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).eval()
+    cpu = GPTForCausalLM(cfg, device='cpu', seed=SEED + 1).eval()
+    cpu.load_state_dict(model.state_dict())
+    _check(quantize_weight_only(model) == quantize_weight_only(cpu) ==
+           4 * cfg.num_layers, 'f32 swap count')
+    cpu_state = cpu.state_dict()
+    for k, v in model.state_dict().items():
+        _check(v.dtype == cpu_state[k].dtype and
+               torch.equal(v.cpu(), cpu_state[k]),
+               'the int8 quantization of %s differs from the CPU\'s' % k)
+    ids = torch.randint(0, cfg.vocab_size, (INT8_PARITY_ROWS,
+                                            INT8_PARITY_LEN),
+                        generator=torch.Generator().manual_seed(SEED + 30))
+    seen = set()
+    undo = _kernel_dtypes(fa, seen)
+    try:
+        _reset_counts(fa)
+        logits = _prefill_logits(model, ids)[:, -1].cpu()
+        torch.cuda.synchronize()
+        launches = _launches(fa)
+    finally:
+        undo()
+    _check(launches == _want(1, flash_fwd=cfg.num_layers) and
+           seen == {('flash_fwd', 'float32')}, 'f32 int8 prefill launched '
+           '%s (%s), want %d f32 flash_fwd' % (launches, sorted(seen),
+                                               cfg.num_layers))
+    err = (logits - _prefill_logits(cpu, ids)[:, -1]).abs().max().item()
+    _check(err <= INT8_LOGIT_TOL, 'f32 int8 prefill logits vs CPU %.3g > '
+           '%g' % (err, INT8_LOGIT_TOL))
+    out = model.generate(ids.cuda(), max_new_tokens=INT8_PARITY_NEW).cpu()
+    want = cpu.generate(ids, max_new_tokens=INT8_PARITY_NEW)
+    _check(torch.equal(out, want), 'f32 int8 tokens on the card %s differ '
+           'from the CPU\'s %s' % (out[:, INT8_PARITY_LEN:].tolist(),
+                                   want[:, INT8_PARITY_LEN:].tolist()))
+    eng = ContinuousBatchingEngine(model, num_slots=INT8_PARITY_ROWS,
+                                   max_len=640, prefill_chunk=128,
+                                   decode_block=4)
+    got = eng.generate(ids.tolist(), max_new_tokens=INT8_PARITY_NEW)
+    _check(got == out[:, INT8_PARITY_LEN:].tolist(), 'the slot engine\'s '
+           'int8 tokens differ from generate()\'s')
+    return {'err': err, 'kernels': seen}
+
+
+def _qat_steps(step, x, y, steps=10):
+    """2 warm-up and `steps` timed calls of step(x, y): (median ms, the
+    losses of all the calls)."""
+    losses = [step(x, y).item() for _ in range(2)]
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss.item())
+    return sorted(times)[steps // 2], losses
+
+
+def qat_phase(card):
+    """Phase 30 (b): QAT at BASELINE config 2 (phase 27 (a)'s recipe)
+    beside the plain step; resnet18 QAT in float64 against the CPU."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.slim import (FakeQuantMovingAverageAbsMax,
+                                       ImperativeQuantAware)
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t0 = time.time()
+    # phase 27 (a)'s weights and batch, so the plain and the QAT runs start
+    # alike. At lr 0.1 the QAT loss rises for a few steps before it falls
+    # below its start (qat_probe.py: on another batch its 12th loss was
+    # still above its first, below it from the 21st)
+    x, y = _vision_batch(SEED + 27, VISION_BATCH, VISION_SIZE, 'cuda',
+                         torch.bfloat16)
+    model = resnet50(device='cuda', seed=SEED).bfloat16()
+    plain_ms, plain_losses = _qat_steps(_vision_step(model, VISION_LR), x, y)
+    del model
+    torch.cuda.empty_cache()
+    model = resnet50(device='cuda', seed=SEED).bfloat16()
+    ImperativeQuantAware(
+        weight_quantize_type='channel_wise_abs_max').quantize(model)
+    kinds = collections.Counter(type(m).__name__ for m in model.modules())
+    _check(kinds['QuantedConv2D'] == 53 and kinds['QuantedLinear'] == 1 and
+           kinds['Conv2D'] == 0 and kinds['Linear'] == 0,
+           'QAT wrapped %s' % dict(kinds))
+    step = _vision_step(model, VISION_LR)
+    _reset_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    median, losses = _qat_steps(step, x, y)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _launches(fa)
+    _check(launches == _want(0), 'QAT launched flash kernels: %s'
+           % launches)
+    _check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+           'QAT ResNet-50 losses %s' % losses)
+    quanters = [m for m in model.modules()
+                if isinstance(m, FakeQuantMovingAverageAbsMax)]
+    scales = torch.stack([q.scale for q in quanters]).cpu()
+    inited = torch.stack([q.initialized for q in quanters]).cpu()
+    _check(len(quanters) == 54 and bool((inited == 1).all()) and
+           bool(torch.isfinite(scales).all()) and bool((scales > 0).all()),
+           'activation scales not all set: %d quanters, scales %s'
+           % (len(quanters), scales.tolist()))
+    wall, dev, top, _ = _profile(lambda: step(x, y))
+    del model, step
+    torch.cuda.empty_cache()
+    f64 = _qat_f64_runs(SEED)
+    out = {'plain_ms': plain_ms, 'median_ms': median,
+           'images_s': VISION_BATCH / median * 1e3, 'busy': dev / wall,
+           'peak_gib': peak, 'losses': losses, 'f64': f64,
+           'seconds': time.time() - t0}
+    print('slice 21 (b) [%s]: ResNet-50 QAT (bf16, channel-wise weights, '
+          'moving-average activations; 53 Conv2D + 1 Linear wrapped), batch '
+          '%d x %d, Momentum lr %g: median step %.2f ms, %.1f images/s, '
+          'against the plain step\'s %.2f ms (%.3fx); peak %.2f GiB; '
+          'profiled step wall %.2f ms, device kernels %.2f ms, busy share '
+          '%.3f; top kernels: %s; losses %s (plain %s); activation scales '
+          '%.4g-%.4g; resnet18 QAT float64, 3 steps, each from the CPU\'s '
+          'state: card vs CPU losses %.3g, state %.3g (%s) (tol %g), the '
+          'stem\'s conv1.weight (max-pool ties) %.3g; flash launches 0; '
+          '%.1f s'
+          % (card, VISION_BATCH, VISION_SIZE, VISION_LR, median,
+             out['images_s'],
+             plain_ms, median / plain_ms, peak, wall, dev, out['busy'],
+             '; '.join('%s %.2f ms x%d' % t for t in top),
+             ['%.4f' % v for v in losses], ['%.4f' % v for v in
+                                            plain_losses],
+             scales.min().item(), scales.max().item(), f64[0], f64[1][1],
+             f64[1][0], F64_TOL, f64[2], out['seconds']), flush=True)
+    return out
+
+
+def _qat_f64_runs(seed):
+    """resnet18 under QAT in float64 on the CPU and the card from one set of
+    weights, 3 Momentum steps on the same batches, the card starting each
+    step from the CPU's state (parameters, buffers and the optimizer's
+    velocities): (the largest relative loss error, (name, the largest error
+    of a tensor over its largest entry) after a step over every tensor but
+    the stem's conv1.weight, conv1.weight's), the first two checked within
+    F64_TOL.
+
+    Why step by step, and conv1.weight apart: the fake quant puts the stem
+    convolution's inputs and weights on grids, so its outputs tie exactly
+    in the max pool's windows, and each device's sum order breaks the ties
+    in its last bit. The max pool's gradient goes to the position that
+    wins, so conv1.weight's gradient moves with it (qat_tie_probe.py: on
+    the CPU alone, 1e-15 on the weights moves it by 0.9% of its largest
+    entry, and by 1.4e-14 with an average pool in the max pool's place),
+    and every later step after it. The other gradients see the tied value
+    only."""
+    from paddle_tpu_torch.slim import ImperativeQuantAware
+    from paddle_tpu_torch.vision.models import resnet18
+
+    base = resnet18(device='cpu', seed=seed).state_dict()
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        model = resnet18(device=device, seed=seed + 1).double()
+        model.load_state_dict(base)
+        ImperativeQuantAware(
+            weight_quantize_type='channel_wise_abs_max').quantize(model)
+        runs[device] = (model, _vision_step(model, VISION_LR))
+    (cpu, cpu_step), (card, card_step) = runs['cpu'], runs['cuda']
+    loss_err, worst, stem = 0.0, ('', 0.0), 0.0
+    for i in range(3):
+        card.load_state_dict(cpu.state_dict())
+        card_step.optimizer.set_state_dict(cpu_step.optimizer.state_dict())
+        x, y = _vision_batch(SEED + 300 + i, RESNET_F32_BATCH,
+                             RESNET_F32_SIZE, 'cpu', torch.float64)
+        want = cpu_step(x, y).item()
+        got = card_step(x.cuda(), y.cuda()).item()
+        loss_err = max(loss_err, abs(got - want) / abs(want))
+        errs = _max_rel({k: v.cpu().double() for k, v in
+                         card.state_dict().items()},
+                        {k: v.double() for k, v in cpu.state_dict().items()},
+                        1e-6)
+        stem = max(stem, errs.pop('conv1.weight'))
+        worst = max([worst] + list(errs.items()), key=lambda kv: kv[1])
+    _check(loss_err <= F64_TOL and worst[1] <= F64_TOL, 'resnet18 QAT '
+           'float64 card vs CPU: losses %.3g, state %s (tol %g)'
+           % (loss_err, worst, F64_TOL))
+    del runs, cpu, card, cpu_step, card_step
+    torch.cuda.empty_cache()
+    return loss_err, worst, stem
+
+
+def ptq_phase(card):
+    """Phase 30 (c): PTQ of ResNet-50 in f32 (abs_max and KL), timed by
+    part; resnet18 in float64: every algorithm's scales, card vs CPU."""
+    from paddle_tpu_torch.slim import PostTrainingQuantization
+    from paddle_tpu_torch.slim import ptq as ptq_mod
+    from paddle_tpu_torch.vision.models import resnet18, resnet50
+
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x64, _ = _vision_batch(SEED + 31, VISION_BATCH, VISION_SIZE, 'cuda')
+    calib = [_vision_batch(SEED + 32 + i, PTQ_BATCH, VISION_SIZE, 'cuda')[0]
+             for i in range(PTQ_BATCHES)]
+    model = resnet50(device='cuda', seed=SEED).eval()
+    with torch.no_grad():
+        plain_ms = _time_ms(lambda: model(x64), iters=5)
+        plain = model(x64).float()
+    del model
+    # the host's parts of a calibration: each layer input's copy to the
+    # host, the observers' statistics, and their scales (the KL search)
+    host = dict.fromkeys(('copy', 'observe', 'scale'), 0.0)
+    orig = {'copy': ptq_mod._host_f32, 'observe': ptq_mod._Observer.observe,
+            'scale': ptq_mod._Observer.scale}
+
+    def timed(part):
+        def wrapper(*args):
+            t = time.perf_counter()
+            try:
+                return orig[part](*args)
+            finally:
+                host[part] += time.perf_counter() - t
+        return wrapper
+
+    rows = {}
+    ptq_mod._host_f32 = timed('copy')
+    ptq_mod._Observer.observe = timed('observe')
+    ptq_mod._Observer.scale = timed('scale')
+    try:
+        for algo in ('abs_max', 'KL'):
+            model = resnet50(device='cuda', seed=SEED).eval()
+            host.update(dict.fromkeys(host, 0.0))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ptq = PostTrainingQuantization(model=model, data_loader=calib,
+                                           batch_nums=PTQ_BATCHES, algo=algo)
+            qmodel = ptq.quantize()
+            torch.cuda.synchronize()
+            calib_s = time.perf_counter() - t
+            scales = ptq.scales
+            _check(len(scales) == 54 and all(
+                math.isfinite(s) and s > 0 for s in scales.values()),
+                'PTQ %s scales: %d, %s' % (algo, len(scales), scales))
+            with torch.no_grad():
+                q_ms = _time_ms(lambda: qmodel(x64), iters=5)
+                got = qmodel(x64).float()
+            rel = ((got - plain).abs().max() / plain.abs().max()).item()
+            agree = int((got.argmax(-1) == plain.argmax(-1)).sum())
+            rows[algo] = dict(host, calib_s=calib_s, ms=q_ms, rel=rel,
+                              agree=agree)
+            del model, qmodel, ptq
+            torch.cuda.empty_cache()
+    finally:
+        ptq_mod._host_f32 = orig['copy']
+        ptq_mod._Observer.observe = orig['observe']
+        ptq_mod._Observer.scale = orig['scale']
+
+    # resnet18 in float64: each algorithm's scales on the card and the CPU
+    base = resnet18(device='cpu', seed=SEED).state_dict()
+    batches = [_vision_batch(SEED + 40 + i, PTQ_PARITY_BATCH, VISION_SIZE,
+                             'cpu', torch.float64)[0]
+               for i in range(PTQ_PARITY_BATCHES)]
+    worst = {}
+    for algo in PTQ_ALGOS:
+        got = {}
+        for device in ('cpu', 'cuda'):
+            model = resnet18(device=device, seed=SEED + 1).double().eval()
+            model.load_state_dict(base)
+            ptq = PostTrainingQuantization(
+                model=model, data_loader=[b.to(device) for b in batches],
+                batch_nums=PTQ_PARITY_BATCHES, algo=algo)
+            ptq.quantize()
+            got[device] = ptq.scales
+        _check(sorted(got['cuda']) == sorted(got['cpu']) and
+               len(got['cpu']) == 21, 'resnet18 %s scales named %s'
+               % (algo, sorted(got['cuda'])))
+        worst[algo] = max((abs(got['cuda'][k] - v) / abs(v), k)
+                          for k, v in got['cpu'].items())
+        _check(worst[algo][0] <= PTQ_SCALE_RTOL, 'resnet18 PTQ %s scale %s '
+               'on the card vs the CPU %.3g apart (tol %g)'
+               % (algo, worst[algo][1], worst[algo][0], PTQ_SCALE_RTOL))
+    out = {'plain_ms': plain_ms, 'rows': rows, 'parity': worst,
+           'seconds': time.time() - t0}
+    print('slice 21 (c) [%s]: ResNet-50 PTQ (f32, TF32 off), %d calibration '
+          'batches of %d x %d: %s; eval forward at batch %d: plain %.2f ms; '
+          'resnet18 float64 (%d x %d, %d batches) scales card vs CPU, '
+          'worst relative: %s (tol %g); %.1f s'
+          % (card, PTQ_BATCHES, PTQ_BATCH, VISION_SIZE, '; '.join(
+              '%s calibration %.2f s (the forwards and the swap %.2f s; on '
+              'the host: inputs copied %.2f s, observed %.2f s, scales %.2f '
+              's), quantized forward %.2f ms (%.3fx plain), logits %.3g of '
+              'range from plain, top-1 agreeing %d of %d'
+              % (algo, r['calib_s'], r['calib_s'] - r['copy'] -
+                 r['observe'] - r['scale'], r['copy'], r['observe'],
+                 r['scale'], r['ms'], r['ms'] / plain_ms, r['rel'],
+                 r['agree'], VISION_BATCH)
+              for algo, r in rows.items()), VISION_BATCH, plain_ms,
+             PTQ_PARITY_BATCH, VISION_SIZE, PTQ_PARITY_BATCHES,
+             {a: '%.3g (%s)' % w for a, w in worst.items()}, PTQ_SCALE_RTOL,
+             out['seconds']), flush=True)
+    return out
+
+
+def asp_phase(card):
+    """Phase 30 (d): 2:4 sparsity on phase 6's bench GPT, eager steps of a
+    decorated AdamW beside the unpruned steps; a convnet's prune count."""
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t0 = time.time()
+    cfg = GPTConfig(**BENCH_CFG)
+    layers = cfg.num_layers
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED).bfloat16()
+    gen = torch.Generator().manual_seed(SEED + 33)
+    ids = torch.randint(0, cfg.vocab_size, (ASP_BATCH, TRAIN_SEQ),
+                        generator=gen).cuda()
+    labels = torch.randint(0, cfg.vocab_size, (ASP_BATCH, TRAIN_SEQ),
+                           generator=gen).cuda()
+
+    def eager_steps(opt, n):
+        times, losses = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = model.loss(model(ids), labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(loss.item())
+        return sorted(times)[n // 2], losses
+
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    eager_steps(opt, 1)  # warm-up
+    plain_ms, plain_losses = eager_steps(opt, ASP_STEPS)
+    del opt
+    helper = asp.ASPHelper()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    masks = helper.prune_model(model, n=2, m=4, mask_algo='mask_1d')
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - t
+    _check(len(masks) == 4 * layers, 'prune_model pruned %d weights, want '
+           '%d' % (len(masks), 4 * layers))
+    opt = helper.decorate(AdamW(learning_rate=TRAIN_LR,
+                                parameters=model.parameters()))
+    _reset_counts(fa)
+    pruned_ms, losses = eager_steps(opt, ASP_STEPS)
+    launches = _launches(fa)
+    _check(launches == _want(ASP_STEPS, flash_fwd=layers,
+                             flash_bwd_fused=layers),
+           'pruned eager steps launched %s, want %d forward and %d fused '
+           'backward a step' % (launches, layers, layers))
+    _check(all(math.isfinite(v) for v in losses), 'pruned losses %s'
+           % losses)
+    density = []
+    for w, _ in masks.values():
+        _check(asp.check_sparsity(w, 'check_1d', 2, 4), 'a pruned weight '
+               'lost its 2:4 pattern after the steps')
+        density.append(asp.calculate_density(w))
+    del model, opt, helper, masks
+    torch.cuda.empty_cache()
+    convnet = resnet50(device='cuda', seed=SEED)
+    conv_masks = asp.ASPHelper().prune_model(convnet)
+    pruned = [w for w, _ in conv_masks.values()]
+    _check(len(pruned) == 1 and pruned[0] is convnet.fc.weight,
+           'ResNet-50: ASP pruned %d weights, want the fc alone'
+           % len(pruned))
+    del convnet
+    torch.cuda.empty_cache()
+    out = {'plain_ms': plain_ms, 'pruned_ms': pruned_ms, 'prune_s': prune_s,
+           'launches': launches, 'steps': ASP_STEPS,
+           'seconds': time.time() - t0}
+    print('slice 21 (d) [%s]: ASP 2:4 (mask_1d) on the bench GPT (bf16, '
+          'batch %d x %d): prune_model %.2f s for %d Linears (densities '
+          '%.4f-%.4f after the steps); decorated AdamW eager step %.2f ms '
+          '(median of %d) against %.2f ms unpruned; losses %s (unpruned %s); '
+          'launches over %d steps %s; ResNet-50: %d weight pruned (fc), the '
+          '53 convolutions skipped by the last-dim rule; %.1f s'
+          % (card, ASP_BATCH, TRAIN_SEQ, prune_s, 4 * layers, min(density),
+             max(density), pruned_ms, ASP_STEPS, plain_ms,
+             ['%.4f' % v for v in losses], ['%.4f' % v for v in
+                                            plain_losses],
+             ASP_STEPS, {k: v for k, v in launches.items() if v},
+             len(pruned), out['seconds']), flush=True)
+    return out
+
+
+def _incubate_runs(device, state):
+    """The optimizer wrappers over 6 eager steps of a float64 MLP from
+    `state`, the segment ops and the masked softmax on `device`: {name:
+    tensor on the CPU}."""
+    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+
+    out = {}
+    for kind in ('lookahead', 'model_average', 'ema'):
+        model = pnn.Sequential(pnn.Linear(16, 32, device=device), pnn.Tanh(),
+                               pnn.Linear(32, 4, device=device)).double()
+        model.load_state_dict(state)
+        params = list(model.parameters())
+        after = None
+        if kind == 'lookahead':
+            opt = incubate.LookAhead(popt.Momentum(
+                learning_rate=0.1, momentum=0.9, parameters=params),
+                alpha=0.5, k=5)
+        else:
+            opt = popt.SGD(learning_rate=0.2, parameters=params)
+            wrap = incubate.ModelAverage(0.15, parameters=params) \
+                if kind == 'model_average' else \
+                incubate.optimizer.ExponentialMovingAverage(
+                    decay=0.8, parameters=params)
+            after = wrap.step if kind == 'model_average' else wrap.update
+        gen = torch.Generator().manual_seed(SEED + 34)
+        for _ in range(6):
+            x = torch.randn(16, 16, generator=gen, dtype=torch.float64)
+            y = torch.randn(16, 4, generator=gen, dtype=torch.float64)
+            pnn.functional.mse_loss(model(x.to(device)),
+                                    y.to(device)).backward()
+            opt.step()
+            opt.clear_grad()
+            if after is not None:
+                after()
+        # copies: on the CPU .cpu() would alias the parameters, which
+        # apply() and restore() overwrite in place
+        for k, v in model.state_dict().items():
+            out['%s.%s' % (kind, k)] = v.to('cpu', copy=True)
+        if after is not None:
+            with wrap.apply():
+                for k, v in model.state_dict().items():
+                    out['%s.applied.%s' % (kind, k)] = v.to('cpu',
+                                                            copy=True)
+    gen = torch.Generator().manual_seed(SEED + 35)
+    data = torch.randn(10, 3, generator=gen, dtype=torch.float64).to(device)
+    ids = torch.tensor([0, 0, 1, 1, 1, 3, 3, 4, 6, 6]).to(device)
+    cot = torch.arange(1.0, 22.0, dtype=torch.float64).reshape(7, 3)
+    for op in ('sum', 'mean', 'max', 'min'):
+        x = data.clone().requires_grad_()
+        y = getattr(incubate, 'segment_' + op)(x, ids)
+        (y * cot.to(device)).sum().backward()
+        out['segment_' + op] = y.detach().cpu()
+        out['segment_%s.grad' % op] = x.grad.cpu()
+    scores = torch.randn(2, 4, 64, 64, generator=gen,
+                         dtype=torch.float64) * 4
+    out['softmax_mask_fuse_upper_triangle'] = \
+        incubate.softmax_mask_fuse_upper_triangle(scores.to(device)).cpu()
+    return out
+
+
+def incubate_parity_phase(card):
+    """Phase 30 (e): the optimizer wrappers and the incubate ops, card vs
+    CPU in float64."""
+    from paddle_tpu_torch import nn as pnn
+
+    t0 = time.time()
+    base = pnn.Sequential(pnn.Linear(16, 32, device='cpu'), pnn.Tanh(),
+                          pnn.Linear(32, 4, device='cpu')).double()
+    state = base.state_dict()
+    cpu, card_out = _incubate_runs('cpu', state), _incubate_runs('cuda',
+                                                                  state)
+    for k in ('segment_sum', 'segment_max'):
+        _check(not cpu[k][2].any() and not cpu[k][5].any(),
+               '%s: an empty segment is not 0' % k)
+    errs = _max_rel(card_out, cpu, 1e-6)
+    name, worst = max(errs.items(), key=lambda kv: kv[1])
+    _check(worst <= F64_TOL, 'incubate float64 card vs CPU: %s %.3g apart '
+           '(tol %g)' % (name, worst, F64_TOL))
+    out = {'worst': (name, worst), 'count': len(errs),
+           'seconds': time.time() - t0}
+    print('slice 21 (e) [%s]: LookAhead (Momentum, alpha 0.5, k 5), '
+          'ModelAverage and ExponentialMovingAverage (applied and after) over '
+          '6 eager float64 MLP steps, segment_sum / mean / max / min with 2 '
+          'empty segments (values and gradients), '
+          'softmax_mask_fuse_upper_triangle: %d tensors card vs CPU, worst '
+          '%.3g (%s; tol %g); %.1f s'
+          % (card, len(errs), worst, name, F64_TOL, out['seconds']),
+          flush=True)
+    return out
+
+
+def slice21_phases(card, sku):
+    """Phase 30: slice 21, quantization and the rest of incubate, on one
+    card."""
+    t0 = time.time()
+    out = {'int8w': int8_serving_phase(card), 'qat': qat_phase(card),
+           'ptq': ptq_phase(card), 'asp': asp_phase(card),
+           'incubate': incubate_parity_phase(card)}
+    out['seconds'] = time.time() - t0
+    rows = out['int8w']['rows']
+    ptq = out['ptq']['rows']
+    print('phase 30 (slice 21) [%s]: %s' % (card, json.dumps({
+        'int8w_decode_tps': round(rows['int8w']['decode_tps'], 1),
+        'bf16_decode_tps': round(rows['bf16']['decode_tps'], 1),
+        'int8w_prefill_ms': round(rows['int8w']['prefill_ms'], 2),
+        'bf16_prefill_ms': round(rows['bf16']['prefill_ms'], 2),
+        'int8w_engine_tps': round(rows['int8w']['engine_tps'], 1),
+        'bf16_engine_tps': round(rows['bf16']['engine_tps'], 1),
+        'streamed_bytes': [rows['bf16']['streamed_bytes'],
+                           rows['int8w']['streamed_bytes']],
+        'qat_step_ms': round(out['qat']['median_ms'], 2),
+        'plain_step_ms': round(out['qat']['plain_ms'], 2),
+        'qat_images_s': round(out['qat']['images_s'], 1),
+        'ptq_calib_s': {a: round(r['calib_s'], 2) for a, r in ptq.items()},
+        'ptq_forward_ms': {a: round(r['ms'], 2) for a, r in ptq.items()},
+        'asp_step_ms': round(out['asp']['pruned_ms'], 2),
+        'asp_plain_step_ms': round(out['asp']['plain_ms'], 2),
+        'seconds': round(out['seconds'], 1)})), flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -8334,6 +9012,7 @@ def main():
     timed(slice18_phases, card, sku)
     timed(slice19_phases, card, sku)
     timed(slice20_phases, card, sku)
+    slice21 = timed(slice21_phases, card, sku)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -8492,6 +9171,13 @@ def main():
         k['composed_launches_per_step'] = \
             slice17['launch']['composed']['launches'][-1][k['name']]
     kernels[0]['tp_decode_launches'] = slice17['decode']['launches']
+    # slice 21: the weight-only int8 GPT-2 small's prefill, and the 2:4
+    # pruned bench GPT's eager steps (the forward and the fused backward)
+    kernels[0]['int8w_prefill_launches'] = \
+        slice21['int8w']['rows']['int8w']['launches']
+    for k in kernels[:2]:
+        k['asp_launches_per_step'] = \
+            slice21['asp']['launches'][k['name']] // slice21['asp']['steps']
     enc = slice14['encoder']['encoder']
     encoder_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 non-causal'
     for kernel, source, line, row in (

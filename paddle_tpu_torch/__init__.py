@@ -13,8 +13,7 @@ that are not here raise an AttributeError that says why and which ROADMAP
 item brings them (`_ABSENT` below): Tensor-method patching (the port's
 tensors are torch's, and patching torch.Tensor would change every torch
 program in the process), the XPU / NPU places, and the subpackages not
-ported yet (incubate/ holds its MoE layers and vision/ its models,
-transforms and datasets; their other names raise there).
+ported yet.
 """
 import sys as _sys
 
@@ -26,7 +25,7 @@ from . import amp, framework, nn, ops, optimizer, text  # noqa: F401,E402
 from . import data, hapi, io, metric, regularizer  # noqa: F401,E402
 from . import autograd, inference, jit, static  # noqa: F401,E402
 from . import distributed, monitor, profiler, tensor  # noqa: F401,E402
-from . import incubate, vision  # noqa: F401,E402
+from . import incubate, slim, vision  # noqa: F401,E402
 from .tensor import *  # noqa: F401,F403,E402
 from .tensor import einsum  # noqa: F401,E402
 from .tensor.creation import to_tensor  # noqa: F401,E402
@@ -136,7 +135,6 @@ _ABSENT = {
     'NPUPlace': 'is absent: the port runs on CUDA GPUs and the CPU '
                 '(ROADMAP Queue 1 item 5, breadth)',
     'onnx': _BREADTH % 'onnx.py',
-    'slim': _BREADTH % 'slim/',
     'hub': _BREADTH % 'hub.py',
     'distribution': _BREADTH % 'distribution/',
     'utils': _BREADTH % 'utils/',

@@ -12,6 +12,7 @@ from .utils_weight_norm import (remove_spectral_norm,  # noqa: F401
                                 remove_weight_norm, spectral_norm,
                                 weight_norm)
 from .decode import BeamSearchDecoder, dynamic_decode  # noqa: F401
+from . import quant  # noqa: F401
 
 
 class utils:

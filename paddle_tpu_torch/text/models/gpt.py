@@ -311,7 +311,8 @@ class GPTAttention(nn.Module):
         weight a call, and so a token and layer in decode), the output
         projection row-parallel."""
         b, n = x.shape[0], x.shape[1]
-        group = mp_layers.mp_group_of(self.qkv_proj.weight)
+        # a projection swapped for slim's WeightOnlyLinear has no weight
+        group = mp_layers.mp_group_of(getattr(self.qkv_proj, 'weight', None))
         if group is None:
             qkv = self.qkv_proj(x).reshape(b, n, 3, self.num_heads,
                                            self.head_dim)
@@ -465,7 +466,8 @@ class GPTMLP(nn.Module):
         self.fc_out.weight.placement = ('mp', None)
 
     def forward(self, x):
-        if mp_layers.mp_group_of(self.fc_in.weight) is not None:
+        if mp_layers.mp_group_of(getattr(self.fc_in, 'weight', None)) \
+                is not None:
             # column-parallel fc_in, row-parallel fc_out
             h = F.gelu(mp_layers.column_linear(x, self.fc_in.weight,
                                                self.fc_in.bias),
@@ -811,7 +813,8 @@ def cache_heads(model):
     sharded over 'mp' (each rank attends over its own heads)."""
     heads = model.config.num_heads
     for block in model.gpt.h:
-        group = mp_layers.mp_group_of(block.attn.qkv_proj.weight)
+        group = mp_layers.mp_group_of(
+            getattr(block.attn.qkv_proj, 'weight', None))
         return heads if group is None else heads // group.size
     return heads
 
