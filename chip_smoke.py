@@ -432,8 +432,36 @@ Phases, each printed as it finishes; any failure exits non-zero:
                6 eager steps of an MLP, the segment ops (empty segments
                too) and softmax_mask_fuse_upper_triangle: card vs CPU in
                float64 within 1e-6. The phase prints its own seconds.
+ 31. slice 22, the library surface - (a) utils.op_benchmark's default
+               suite (the JAX package's seven configs at its sizes) on the
+               card: the flash config through run_benchmarks, then the
+               suite through main --out into a temporary file (once: its
+               set-up draws 250 M normals with numpy): every config ok,
+               the flash config 23 launches of the flash forward (3
+               warm-up + 20 timed) and no other kernel in each run,
+               compare(results, results) empty, the seven mean_ms. (b) F.sparse_attention at a BigBird-base layout
+               (b 2, h 12, n = m = 4096, d 64, 64-token blocks, 3 window +
+               2 global + 3 random blocks a row, a key-padding mask) on
+               the card: f32 forward and q / k / v gradients on batch 0's
+               first two heads against the float64 CPU run of the same
+               function on those heads, within SPARSE_TOL; bf16 forward
+               within SPARSE_TOL_BF16; each timed by CUDA events. (c) the
+               eight distributions on the card: 10^6 draws' mean and
+               variance within 5 standard errors of the closed forms, the
+               same draws again from the same generator seed, log_prob /
+               entropy / kl_divergence in float64 within 1e-12 of the
+               CPU's. (d) utils.cpp_extension.load builds the relu / cat
+               C++ source with g++: CUDA tensors forward, backward and
+               under torch.compile(fullgraph=True) equal to the CPU run,
+               with the op's host round trips. (e) fit-a-line: a seeded
+               506 x 14 housing.data, nn.Linear(13, 1) in float64 with
+               SGD for 2 epochs through batch(dataset.uci_housing.train(),
+               20) on the card: every step's loss within 1e-10 of the
+               CPU's, and the loss falls. (f) check_numerics on card
+               tensors and utils.run_check() on the card. The phase prints
+               its own seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29 and 30 in main().)
+18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30 and 31 in main().)
 The last lines are the whole run's seconds (the build included), a
 {"kernels_wide": [...]} line, the card's name and power limit as
 nvidia-smi gives them, a {"kernels": [...]} line and the {"ok": true,
@@ -8930,6 +8958,565 @@ def slice21_phases(card, sku):
     return out
 
 
+# phase 31: slice 22, the library surface
+OP_BENCH_LAUNCHES = 23  # op_benchmark's warm-up 3 + timed 20 calls
+SPARSE_CFG = dict(batch=2, heads=12, seq=4096, head_dim=64, block=64,
+                  window=3, globals=2, randoms=3)
+SPARSE_REF_HEADS = 2
+# f32 card vs the float64 CPU run: largest error over the largest value
+SPARSE_TOL = 1e-5
+SPARSE_TOL_BF16 = 2e-2
+DIST_DRAWS = 1_000_000
+DIST_TOL = 1e-12
+HOUSING_ROWS = 506
+FIT_EPOCHS = 2
+FIT_TOL = 1e-10
+# tests/test_custom_op.py's relu (with its grad kernel) and cat (with its
+# shape inference) source
+CUSTOM_OP_SRC = r"""
+#include "pd_extension.h"
+
+static int relu_fwd(const PDTensor* ins, int n_in, PDTensor* outs,
+                    int n_out) {
+  const float* x = (const float*)ins[0].data;
+  float* y = (float*)outs[0].data;
+  for (int64_t i = 0; i < pd_numel(&ins[0]); i++)
+    y[i] = x[i] > 0.f ? x[i] : 0.f;
+  return 0;
+}
+
+static int relu_bwd(const PDTensor* ins, int n_in, PDTensor* outs,
+                    int n_out) {
+  const float* x = (const float*)ins[0].data;
+  const float* dy = (const float*)ins[1].data;
+  float* dx = (float*)outs[0].data;
+  for (int64_t i = 0; i < pd_numel(&ins[0]); i++)
+    dx[i] = x[i] > 0.f ? dy[i] : 0.f;
+  return 0;
+}
+
+PD_BUILD_OP(custom_relu, 1, 1, relu_fwd);
+PD_BUILD_GRAD_OP(custom_relu, 2, 1, relu_bwd);
+
+static int cat_infer(const PDTensor* ins, int n_in, PDTensor* outs,
+                     int n_out) {
+  outs[0].ndim = 2;
+  outs[0].shape[0] = ins[0].shape[0];
+  outs[0].shape[1] = ins[0].shape[1] + ins[1].shape[1];
+  outs[0].dtype = ins[0].dtype;
+  return 0;
+}
+
+static int cat_fwd(const PDTensor* ins, int n_in, PDTensor* outs,
+                   int n_out) {
+  int64_t n = ins[0].shape[0], a = ins[0].shape[1], b = ins[1].shape[1];
+  const float* x = (const float*)ins[0].data;
+  const float* y = (const float*)ins[1].data;
+  float* o = (float*)outs[0].data;
+  for (int64_t r = 0; r < n; r++) {
+    for (int64_t i = 0; i < a; i++) o[r * (a + b) + i] = x[r * a + i];
+    for (int64_t i = 0; i < b; i++) o[r * (a + b) + a + i] = y[r * b + i];
+  }
+  return 0;
+}
+
+PD_BUILD_OP_INFER(custom_cat2, 2, 1, cat_fwd, cat_infer);
+"""
+
+
+def op_benchmark_phase(card):
+    """Phase 31 (a): op_benchmark on the card: the flash config through
+    run_benchmarks, then the default suite through main --out (which runs
+    run_benchmarks over OP_CONFIGS). The suite's set-up is numpy's normals
+    for its inputs (8192 x 30528 of them for the CE), so it runs once."""
+    import tempfile
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.utils import op_benchmark as ob
+
+    t0 = time.time()
+    flash = [c for c in ob.OP_CONFIGS if c[0].startswith('flash_')]
+    _reset_counts(fa)
+    direct = ob.run_benchmarks(flash)
+    direct_launches = _launches(fa)
+    _check(len(direct) == 1 and direct[0]['ok'], 'run_benchmarks of the '
+           'flash config: %s' % direct)
+    _check(direct_launches == _want(1, flash_fwd=OP_BENCH_LAUNCHES),
+           'run_benchmarks of the flash config launched %s, want %d flash '
+           'forward launches and no other' % (direct_launches,
+                                              OP_BENCH_LAUNCHES))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, 'ops.json')
+        _reset_counts(fa)
+        rc = ob.main(['--out', out])
+        launches = _launches(fa)
+        with open(out) as f:
+            results = json.load(f)
+    _check(rc == 0, 'op_benchmark main --out returned %d' % rc)
+    _check(all(r['ok'] for r in results),
+           'op_benchmark configs failed: %s' % [r for r in results
+                                                if not r['ok']])
+    _check([r['op'] for r in results] == [n for n, _ in ob.OP_CONFIGS],
+           'op_benchmark ran %s' % [r['op'] for r in results])
+    _check(launches == _want(1, flash_fwd=OP_BENCH_LAUNCHES),
+           'the suite launched %s, want %d flash forward launches and no '
+           'other' % (launches, OP_BENCH_LAUNCHES))
+    _check(ob.compare(results, results) == [], 'compare(results, results) '
+           'found regressions')
+    means = {r['op']: r['mean_ms'] for r in results}
+    print('slice 22 (a) [%s]: op_benchmark default suite through main '
+          '--out (warm-up 3, 20 timed calls, host clock between '
+          'synchronisations): %s; the flash config through run_benchmarks '
+          '%.4f ms; flash forward launches %d a run; %.1f s'
+          % (card, json.dumps(means), direct[0]['mean_ms'],
+             launches['flash_fwd'], time.time() - t0), flush=True)
+    return {'mean_ms': means, 'direct_flash_ms': direct[0]['mean_ms'],
+            'launches': launches['flash_fwd'], 'seconds': time.time() - t0}
+
+
+def _bigbird_csr(cfg, seed):
+    """The CSR (offsets, columns) over tokens of a BigBird layout: each
+    query block attends its window blocks, the global blocks and seeded
+    random blocks; a global block's rows attend every block."""
+    nb = cfg['seq'] // cfg['block']
+    rng = np.random.RandomState(seed)
+    glob = set(range(cfg['globals']))
+    blocks_of = []
+    for i in range(nb):
+        if i in glob:
+            blocks_of.append(list(range(nb)))
+            continue
+        half = cfg['window'] // 2
+        chosen = glob | set(range(max(0, i - half), min(nb, i + half + 1)))
+        rest = [b for b in range(nb) if b not in chosen]
+        chosen |= set(rng.choice(rest, cfg['randoms'], replace=False)
+                      .tolist())
+        blocks_of.append(sorted(chosen))
+    offs, cols = [0], []
+    base = np.arange(cfg['block'])
+    for i in range(nb):
+        row = np.concatenate([b * cfg['block'] + base for b in blocks_of[i]])
+        for _ in range(cfg['block']):
+            cols.append(row)
+            offs.append(offs[-1] + len(row))
+    return (torch.tensor(offs, dtype=torch.int32),
+            torch.tensor(np.concatenate(cols), dtype=torch.int32))
+
+
+def _rel_err(got, want):
+    return ((got.double().cpu() - want).abs().max() /
+            want.abs().max()).item()
+
+
+def sparse_attention_phase(card):
+    """Phase 31 (b): F.sparse_attention at a BigBird-base layout on the
+    card, f32 forward and gradients against the float64 CPU run of two
+    heads, bf16 forward."""
+    import paddle_tpu_torch.nn.functional as F
+
+    t0 = time.time()
+    c = SPARSE_CFG
+    b, h, n, d = c['batch'], c['heads'], c['seq'], c['head_dim']
+    offs, cols = _bigbird_csr(c, SEED + 41)
+    gen = torch.Generator().manual_seed(SEED + 42)
+    q, k, v, cot = (torch.randn(b, h, n, d, generator=gen)
+                    for _ in range(4))
+    kpm = torch.ones(b, n)
+    kpm[0, n - 300:] = 0
+    kpm[1, n - 700:] = 0
+    dev_offs = offs.cuda()[None, None].expand(b, h, -1)
+    dev_cols = cols.cuda()[None, None].expand(b, h, -1)
+    dev_kpm = kpm.cuda()
+
+    def run(dtype, grads):
+        qq, kk, vv = (t.detach().to('cuda', dtype).requires_grad_(grads)
+                      for t in (q, k, v))
+        out = F.sparse_attention(qq, kk, vv, dev_offs, dev_cols,
+                                 key_padding_mask=dev_kpm)
+        if grads:
+            (out * cot.cuda().to(dtype)).sum().backward()
+        return out.detach(), [t.grad for t in (qq, kk, vv)], (qq, kk, vv)
+
+    # full f32 products: an earlier phase may have left TF32 on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out32, grads32, leaves = run(torch.float32, True)
+    torch.cuda.synchronize()
+    # the reference: batch 0's first heads in float64 on the CPU
+    r = SPARSE_REF_HEADS
+    rq, rk, rv = (t[:1, :r].detach().double().requires_grad_(True)
+                  for t in (q, k, v))
+    ref = F.sparse_attention(rq, rk, rv, offs[None, None].expand(1, r, -1),
+                             cols[None, None].expand(1, r, -1),
+                             key_padding_mask=kpm[:1].double())
+    (ref * cot[:1, :r].double()).sum().backward()
+    errs = {'out': _rel_err(out32[:1, :r], ref.detach())}
+    for name, g, rg in zip('qkv', grads32, (rq, rk, rv)):
+        errs['d' + name] = _rel_err(g[:1, :r], rg.grad)
+    _check(all(math.isfinite(e) and e <= SPARSE_TOL for e in errs.values()),
+           'sparse_attention f32 against the float64 CPU run: %s (tol %g)'
+           % (errs, SPARSE_TOL))
+    _check(bool(torch.isfinite(out32).all()) and
+           all(bool(torch.isfinite(g).all()) for g in grads32),
+           'sparse_attention f32: non-finite values')
+    out16, _, _ = run(torch.bfloat16, False)
+    err16 = _rel_err(out16[:1, :r], ref.detach())
+    _check(math.isfinite(err16) and err16 <= SPARSE_TOL_BF16,
+           'sparse_attention bf16 forward against the float64 CPU run: %.3g '
+           '(tol %g)' % (err16, SPARSE_TOL_BF16))
+    del out16, ref, rq, rk, rv
+    qq, kk, vv = leaves
+    q16, k16, v16 = (t.detach().bfloat16() for t in leaves)
+    cot32 = cot.cuda()
+
+    def fwd32():
+        with torch.no_grad():
+            F.sparse_attention(qq, kk, vv, dev_offs, dev_cols,
+                               key_padding_mask=dev_kpm)
+
+    def fwd_bwd32():
+        for t in leaves:
+            t.grad = None
+        out = F.sparse_attention(qq, kk, vv, dev_offs, dev_cols,
+                                 key_padding_mask=dev_kpm)
+        (out * cot32).sum().backward()
+
+    def fwd16():
+        with torch.no_grad():
+            F.sparse_attention(q16, k16, v16, dev_offs, dev_cols,
+                               key_padding_mask=dev_kpm)
+    torch.cuda.reset_peak_memory_stats()
+    ms = {'f32_fwd': _time_ms(fwd32, iters=3, warmup=1),
+          'f32_fwd_bwd': _time_ms(fwd_bwd32, iters=3, warmup=1),
+          'bf16_fwd': _time_ms(fwd16, iters=3, warmup=1)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nnz = cols.numel()
+    del leaves, qq, kk, vv, q16, k16, v16, grads32, out32
+    torch.cuda.empty_cache()
+    out = {'errs': errs, 'err_bf16': err16, 'ms': ms, 'peak_gib': peak,
+           'nnz': nnz, 'density': nnz / (n * n), 'seconds': time.time() - t0}
+    print('slice 22 (b) [%s]: sparse_attention, BigBird-base layout (b %d, '
+          'h %d, n = m = %d, d %d, %d-token blocks, %d window + %d global '
+          '+ %d random blocks a row; nnz %d of %d, density %.4f) with a '
+          'key-padding mask: f32 vs the float64 CPU run of batch 0 heads '
+          '0-%d, largest error over largest value %s (tol %g); bf16 forward '
+          '%.3g (tol %g); f32 forward %.2f ms, forward + backward %.2f ms, '
+          'bf16 forward %.2f ms (dense masked scores, CUDA events, mean of '
+          '3); peak %.2f GiB; %.1f s'
+          % (card, b, h, n, d, c['block'], c['window'], c['globals'],
+             c['randoms'], nnz, n * n, out['density'], r - 1,
+             {k2: '%.3g' % e for k2, e in errs.items()}, SPARSE_TOL, err16,
+             SPARSE_TOL_BF16, ms['f32_fwd'], ms['f32_fwd_bwd'],
+             ms['bf16_fwd'], peak, out['seconds']), flush=True)
+    return out
+
+
+def _dist_cases(device):
+    """{name: (distribution, closed-form mean, variance)} on `device` in
+    float64, and a value to score for each that has log_prob."""
+    from paddle_tpu_torch import distribution as D
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float64, device=device)
+    logits = np.log(np.array([0.1, 0.2, 0.3, 0.4]))
+    p = np.exp(logits)
+    k = np.arange(4)
+    conc = np.array([1.0, 2.0, 3.0])
+    a0 = conc.sum()
+    mp = np.array([0.2, 0.3, 0.5])
+    cases = {
+        'Normal': (D.Normal(t(0.5), t(2.0)), 0.5, 4.0, t([-1.0, 0.3, 4.0])),
+        'Uniform': (D.Uniform(t(-1.0), t(3.0)), 1.0, 16.0 / 12,
+                    t([-2.0, 0.0, 2.5])),
+        'Categorical': (D.Categorical(t(logits)), (k * p).sum(),
+                        (k * k * p).sum() - (k * p).sum() ** 2,
+                        torch.tensor(3, device=device)),
+        'Beta': (D.Beta(t(2.0), t(3.0)), 0.4, 0.04, t([0.1, 0.5, 0.9])),
+        'Dirichlet': (D.Dirichlet(t(conc)), conc / a0,
+                      conc * (a0 - conc) / (a0 ** 2 * (a0 + 1)),
+                      t([[0.2, 0.3, 0.5], [0.6, 0.1, 0.3]])),
+        'Exponential': (D.Exponential(t(2.0)), 0.5, 0.25,
+                        t([0.1, 1.0, 3.0])),
+        'Bernoulli': (D.Bernoulli(t(0.3)), 0.3, 0.21, t([0.0, 1.0])),
+        'Multinomial': (D.Multinomial(10, t(mp)), 10 * mp,
+                        10 * mp * (1 - mp), None),
+    }
+    return cases
+
+
+def _moment_z(x, mean, var):
+    """The largest distance of the draws' mean and variance from the closed
+    forms, in standard errors (the variance's from the fourth moment)."""
+    x = x.double()
+    n = x.shape[0]
+    m = x.mean(0)
+    cen = x - m
+    v = (cen ** 2).mean(0)
+    m4 = (cen ** 4).mean(0)
+    mean = torch.as_tensor(mean, dtype=torch.float64, device=x.device)
+    var = torch.as_tensor(var, dtype=torch.float64, device=x.device)
+    z_mean = (m - mean).abs() / torch.sqrt(var / n)
+    z_var = (v - var).abs() / torch.sqrt((m4 - v ** 2).clamp_min(1e-300) / n)
+    return float(torch.maximum(z_mean, z_var).max())
+
+
+def distribution_phase(card):
+    """Phase 31 (c): the eight distributions on the card."""
+    from paddle_tpu_torch import distribution as D
+
+    t0 = time.time()
+    card_cases, cpu_cases = _dist_cases('cuda'), _dist_cases('cpu')
+    rows = {}
+    for name, (dist, mean, var, value) in card_cases.items():
+        gen = torch.Generator(device='cuda').manual_seed(SEED + 51)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x = dist.sample((DIST_DRAWS,), generator=gen)
+        torch.cuda.synchronize()
+        draw_ms = (time.perf_counter() - t) * 1e3
+        _check(x.is_cuda and x.shape[0] == DIST_DRAWS,
+               '%s drew %s on %s' % (name, tuple(x.shape), x.device))
+        z = _moment_z(x, mean, var)
+        _check(z < 5.0, '%s: %d draws %.2f standard errors from the closed '
+               'forms' % (name, DIST_DRAWS, z))
+        again = dist.sample((DIST_DRAWS,), generator=torch.Generator(
+            device='cuda').manual_seed(SEED + 51))
+        _check(torch.equal(x, again), '%s: the same seed drew other values'
+               % name)
+        cpu = cpu_cases[name][0]
+        scores = {}
+        if value is not None:
+            scores['log_prob'] = (dist.log_prob(value),
+                                  cpu.log_prob(value.cpu()))
+        try:
+            scores['entropy'] = (dist.entropy(), cpu.entropy())
+        except NotImplementedError:
+            pass
+        if name in ('Normal', 'Categorical'):
+            other = (D.Normal(dist.loc * 0.5 + 1.0, dist.scale * 1.5)
+                     if name == 'Normal' else
+                     D.Categorical(dist.logits.flip(-1)))
+            cpu_other = (D.Normal(cpu.loc * 0.5 + 1.0, cpu.scale * 1.5)
+                         if name == 'Normal' else
+                         D.Categorical(cpu.logits.flip(-1)))
+            scores['kl'] = (D.kl_divergence(dist, other),
+                            D.kl_divergence(cpu, cpu_other))
+        errs = {}
+        for key, (got, want) in scores.items():
+            _check(got.is_cuda and got.dtype == torch.float64,
+                   '%s %s: %s on %s' % (name, key, got.dtype, got.device))
+            finite = torch.isfinite(want)
+            _check(torch.equal(torch.isfinite(got).cpu(), finite),
+                   '%s %s: infinities differ' % (name, key))
+            errs[key] = float((got.cpu()[finite] - want[finite]).abs()
+                              .max()) if finite.any() else 0.0
+        _check(all(e <= DIST_TOL for e in errs.values()),
+               '%s: card vs CPU %s (tol %g)' % (name, errs, DIST_TOL))
+        rows[name] = {'z': z, 'errs': errs, 'draw_ms': draw_ms,
+                      'dtype': str(x.dtype).split('.')[-1]}
+    out = {'rows': rows, 'seconds': time.time() - t0}
+    print('slice 22 (c) [%s]: distributions on the card, %d draws each '
+          '(float64 parameters): %s; %.1f s'
+          % (card, DIST_DRAWS, '; '.join(
+              '%s %s: moments within %.2f SE, draw %.2f ms, card vs CPU %s'
+              % (n, r['dtype'], r['z'], r['draw_ms'],
+                 {k: '%.2g' % e for k, e in r['errs'].items()})
+              for n, r in rows.items()), out['seconds']), flush=True)
+    return out
+
+
+def custom_op_phase(card):
+    """Phase 31 (d): a g++-built custom op on CUDA tensors, eager and
+    compiled, against the CPU run."""
+    import tempfile
+
+    from paddle_tpu_torch.utils import cpp_extension
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, 'custom_ops.cc')
+        with open(src, 'w') as f:
+            f.write(CUSTOM_OP_SRC)
+        tb = time.time()
+        ext = cpp_extension.load('custom_ops', [src], build_directory=tmp)
+        build_s = time.time() - tb
+    gen = torch.Generator().manual_seed(SEED + 61)
+    x = torch.randn(64, 33, generator=gen)
+    cot = torch.randn(64, 33, generator=gen)
+    a, b = torch.randn(8, 5, generator=gen), torch.randn(8, 7, generator=gen)
+
+    def run(device, fn):
+        xx = x.detach().to(device).requires_grad_(True)
+        y = fn(xx)
+        (y * cot.to(device)).sum().backward()
+        return y.detach().cpu(), xx.grad.cpu()
+
+    def relu2(t):
+        return ext.custom_relu(t) * 2.0
+
+    relu = ext.custom_relu
+    trips0 = relu.host_round_trips
+    cpu_y, cpu_g = run('cpu', relu)
+    _check(relu.host_round_trips == trips0, 'CPU tensors made a host round '
+           'trip')
+    card_y, card_g = run('cuda', relu)
+    eager_trips = relu.host_round_trips - trips0
+    _check(torch.equal(card_y, cpu_y) and torch.equal(card_g, cpu_g),
+           'custom_relu on the card differs from the CPU run')
+    cat_cpu = ext.custom_cat2(a, b)
+    cat_card = ext.custom_cat2(a.cuda(), b.cuda())
+    _check(cat_card.is_cuda and tuple(cat_card.shape) == (8, 12) and
+           torch.equal(cat_card.cpu(), cat_cpu), 'custom_cat2 on the card')
+    tc = time.time()
+    compiled = torch.compile(relu2, fullgraph=True)
+    comp_y, comp_g = run('cuda', compiled)
+    compile_s = time.time() - tc
+    want_y, want_g = run('cpu', relu2)
+    _check(torch.equal(comp_y, want_y) and torch.equal(comp_g, want_g),
+           'custom_relu under torch.compile on the card differs from the '
+           'CPU run')
+    trips = relu.host_round_trips - trips0
+    out = {'build_s': build_s, 'compile_s': compile_s,
+           'host_round_trips': trips, 'eager_round_trips': eager_trips,
+           'seconds': time.time() - t0}
+    print('slice 22 (d) [%s]: custom op (tests/test_custom_op.py\'s relu '
+          '/ cat source) built with g++ in %.2f s; CUDA tensors, eager '
+          'forward + backward and torch.compile(fullgraph=True) forward + '
+          'backward (compile %.1f s): equal to the CPU run bit for bit; '
+          'custom_relu host_round_trips %d (%d eager: forward, grad), '
+          'custom_cat2 %d; %.1f s'
+          % (card, build_s, compile_s, trips, eager_trips,
+             ext.custom_cat2.host_round_trips, out['seconds']), flush=True)
+    return out
+
+
+def _write_housing(path, seed):
+    """A seeded HOUSING_ROWS x 14 housing.data in UCI's layout: 13
+    features and a price a row, fixed-width, whitespace-separated."""
+    rng = np.random.RandomState(seed)
+    feats = rng.uniform(0.0, 1.0, (HOUSING_ROWS, 13)) * \
+        rng.uniform(1.0, 100.0, 13)
+    w = rng.randn(13)
+    price = 22.5 + (feats - feats.mean(0)) / feats.std(0) @ w + \
+        rng.randn(HOUSING_ROWS)
+    np.savetxt(path, np.hstack([feats, price[:, None]]), fmt='%9.4f')
+
+
+def fit_a_line_phase(card):
+    """Phase 31 (e): fit-a-line through the legacy reader and batch on the
+    card against the CPU, in float64."""
+    import tempfile
+
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import dataset, nn, optimizer
+
+    t0 = time.time()
+
+    def train(device, data_file):
+        lin = nn.Linear(13, 1, device=device, generator=torch.Generator()
+                        .manual_seed(SEED + 71)).double()
+        opt = optimizer.SGD(learning_rate=0.01, parameters=lin.parameters())
+        losses = []
+        reader = tpt.batch(dataset.uci_housing.train(data_file=data_file), 20)
+        for _ in range(FIT_EPOCHS):
+            for rows in reader():
+                x = torch.tensor(np.stack([r[0] for r in rows]),
+                                 dtype=torch.float64, device=device)
+                y = torch.tensor(np.stack([r[1] for r in rows]),
+                                 dtype=torch.float64, device=device)
+                loss = ((lin(x) - y) ** 2).mean()
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses.append(loss.item())
+        return losses
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_file = os.path.join(tmp, 'housing.data')
+        _write_housing(data_file, SEED + 72)
+        card_losses = train('cuda', data_file)
+        cpu_losses = train('cpu', data_file)
+    worst = max(abs(a - b) for a, b in zip(card_losses, cpu_losses))
+    _check(len(card_losses) == len(cpu_losses) == FIT_EPOCHS * 21,
+           'fit-a-line took %d steps, want %d' % (len(card_losses),
+                                                  FIT_EPOCHS * 21))
+    _check(worst <= FIT_TOL, 'fit-a-line losses card vs CPU %.3g (tol %g)'
+           % (worst, FIT_TOL))
+    _check(card_losses[-1] < card_losses[0], 'fit-a-line loss did not fall: '
+           '%s' % card_losses)
+    out = {'losses': card_losses, 'worst': worst,
+           'seconds': time.time() - t0}
+    print('slice 22 (e) [%s]: fit-a-line (nn.Linear(13, 1), float64, SGD '
+          'lr 0.01) on a seeded %d x 14 housing.data through '
+          'batch(dataset.uci_housing.train(), 20), %d epochs of 21 steps: '
+          'loss %.4f -> %.4f, card vs CPU worst %.3g (tol %g); %.1f s'
+          % (card, HOUSING_ROWS, FIT_EPOCHS, card_losses[0],
+             card_losses[-1], worst, FIT_TOL, out['seconds']), flush=True)
+    return out
+
+
+def numerics_phase(card):
+    """Phase 31 (f): check_numerics on card tensors and run_check() on the
+    card."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import utils
+    from paddle_tpu_torch.framework.debug import check_numerics
+
+    x = torch.randn(4, 5, device='cuda')
+    _check(check_numerics(x, 'x') is x, 'check_numerics returned another '
+           'tensor')
+    bad = x.clone()
+    bad[0, 0] = float('nan')
+    bad[1, 1] = float('inf')
+    bad[2, 2] = -float('inf')
+    try:
+        check_numerics(bad, 'bad')
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    want = ('bad contains 1 NaN and 2 Inf values (shape (4, 5), dtype '
+            'float32)')
+    _check(raised == want, 'check_numerics on the card raised %r, want %r'
+           % (raised, want))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ok = utils.run_check()
+    _check(ok and 'installed successfully' in buf.getvalue(),
+           'run_check() on the card: %r' % buf.getvalue())
+    print('slice 22 (f) [%s]: check_numerics on card tensors (finite: '
+          'returned; NaN / Inf: %r); run_check() on %s: %s'
+          % (card, raised, torch.cuda.get_device_name(0),
+             buf.getvalue().strip()), flush=True)
+    return {'raised': raised}
+
+
+def slice22_phases(card):
+    """Phase 31: slice 22, the library surface, on one card."""
+    t0 = time.time()
+    out = {'op_benchmark': op_benchmark_phase(card),
+           'sparse': sparse_attention_phase(card),
+           'distribution': distribution_phase(card),
+           'custom_op': custom_op_phase(card),
+           'fit': fit_a_line_phase(card),
+           'numerics': numerics_phase(card)}
+    out['seconds'] = time.time() - t0
+    sp = out['sparse']
+    print('phase 31 (slice 22) [%s]: %s' % (card, json.dumps({
+        'op_benchmark_mean_ms': out['op_benchmark']['mean_ms'],
+        'flash_launches_a_run': out['op_benchmark']['launches'],
+        'sparse_f32_fwd_ms': round(sp['ms']['f32_fwd'], 2),
+        'sparse_f32_fwd_bwd_ms': round(sp['ms']['f32_fwd_bwd'], 2),
+        'sparse_bf16_fwd_ms': round(sp['ms']['bf16_fwd'], 2),
+        'sparse_f32_err': max(sp['errs'].values()),
+        'sparse_bf16_err': sp['err_bf16'],
+        'custom_op_host_round_trips':
+            out['custom_op']['host_round_trips'],
+        'fit_worst': out['fit']['worst'],
+        'seconds': round(out['seconds'], 1)})), flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -9013,6 +9600,7 @@ def main():
     timed(slice19_phases, card, sku)
     timed(slice20_phases, card, sku)
     slice21 = timed(slice21_phases, card, sku)
+    slice22 = timed(slice22_phases, card)
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -9178,6 +9766,9 @@ def main():
     for k in kernels[:2]:
         k['asp_launches_per_step'] = \
             slice21['asp']['launches'][k['name']] // slice21['asp']['steps']
+    # slice 22: op_benchmark's flash config, warm-up and timed calls
+    kernels[0]['op_benchmark_launches_per_run'] = \
+        slice22['op_benchmark']['launches']
     enc = slice14['encoder']['encoder']
     encoder_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 non-causal'
     for kernel, source, line, row in (

@@ -12,8 +12,8 @@ torch.Tensor and a parameter an nn.Parameter. Names of the JAX package
 that are not here raise an AttributeError that says why and which ROADMAP
 item brings them (`_ABSENT` below): Tensor-method patching (the port's
 tensors are torch's, and patching torch.Tensor would change every torch
-program in the process), the XPU / NPU places, and the subpackages not
-ported yet.
+program in the process), the XPU / NPU places, and `onnx`, not ported
+yet.
 """
 import sys as _sys
 
@@ -26,10 +26,12 @@ from . import data, hapi, io, metric, regularizer  # noqa: F401,E402
 from . import autograd, inference, jit, static  # noqa: F401,E402
 from . import distributed, monitor, profiler, tensor  # noqa: F401,E402
 from . import incubate, slim, vision  # noqa: F401,E402
+from . import dataset, distribution, hub, sysconfig, utils  # noqa: F401,E402
 from .tensor import *  # noqa: F401,F403,E402
 from .tensor import einsum  # noqa: F401,E402
 from .tensor.creation import to_tensor  # noqa: F401,E402
 from .tensor.logic import is_tensor  # noqa: F401,E402
+from .batch import batch  # noqa: F401,E402
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401,E402
                        no_grad, set_grad_enabled)
 from .distributed import DataParallel  # noqa: F401,E402
@@ -135,12 +137,6 @@ _ABSENT = {
     'NPUPlace': 'is absent: the port runs on CUDA GPUs and the CPU '
                 '(ROADMAP Queue 1 item 5, breadth)',
     'onnx': _BREADTH % 'onnx.py',
-    'hub': _BREADTH % 'hub.py',
-    'distribution': _BREADTH % 'distribution/',
-    'utils': _BREADTH % 'utils/',
-    'sysconfig': _BREADTH % 'sysconfig.py',
-    'dataset': _BREADTH % 'dataset/',
-    'batch': _BREADTH % 'batch.py',
 }
 
 

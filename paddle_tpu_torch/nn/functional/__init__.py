@@ -10,3 +10,4 @@ from .extension import (gather_tree, temporal_shift,  # noqa: F401
                         grid_sample, hsigmoid_loss)
 from .norm import (batch_norm, group_norm, instance_norm,  # noqa: F401
                    layer_norm, local_response_norm, normalize, rms_norm)
+from .sparse_attention import sparse_attention  # noqa: F401

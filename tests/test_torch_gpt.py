@@ -172,14 +172,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     # launcher, elastic membership, auto_parallel and norms, slice 18's
     # convolutions, pools, weight norms and vision package, slice 19's
     # losses, extension functionals, RNN layers and beam search, and slice
-    # 20's detection ops and PP-YOLOv2, and slice 21's slim package,
-    # nn.quant and the rest of incubate
+    # 20's detection ops and PP-YOLOv2, slice 21's slim package,
+    # nn.quant and the rest of incubate, and slice 22's library surface
     imported = set(res.stdout.split())
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
             SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES + \
             SLICE15_MODULES + SLICE17_MODULES + SLICE18_MODULES + \
-            SLICE19_MODULES + SLICE20_MODULES + SLICE21_MODULES:
+            SLICE19_MODULES + SLICE20_MODULES + SLICE21_MODULES + \
+            SLICE22_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -208,6 +209,11 @@ SLICE21_MODULES = ('slim', 'slim.quant_layers', 'slim.qat', 'slim.ptq',
                    'slim.cal_kl_threshold', 'slim.weight_only', 'nn.quant',
                    'incubate', 'incubate.asp', 'incubate.optimizer',
                    'incubate.auto_checkpoint')
+SLICE22_MODULES = ('batch', 'hub', 'sysconfig', 'dataset', 'distribution',
+                   'framework.debug', 'nn.functional.sparse_attention',
+                   'text.datasets', 'utils', 'utils.cpp_extension',
+                   'utils.cpp_extension.extension_utils',
+                   'utils.op_benchmark')
 SLICE4_MODULES = ('serving', 'serving.engine', 'serving.paged_engine',
                   'serving.kv_cache', 'serving.scheduler', 'serving.metrics',
                   'monitor', 'monitor.registry', 'monitor.tracing',
@@ -295,7 +301,8 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
             SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES + \
-            SLICE15_MODULES + SLICE20_MODULES + SLICE21_MODULES:
+            SLICE15_MODULES + SLICE20_MODULES + SLICE21_MODULES + \
+            SLICE22_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod
