@@ -80,9 +80,10 @@ Phases, each printed as it finishes; any failure exits non-zero:
                TTFT, shed rate, tokens/s, each replica's burst split,
                peak memory; the gateway's /metrics and /readyz scraped;
                then the same replay on 1 replica.
- 15. slice 6, f32 - the fabric: the gpt-bench preset (the rungs' on-TPU
-               configuration, vocab 30528, 768 x 12 x 12, slot engine 8 x
-               256) published as v1 (seeded) and v2 (another seed) into a
+ 15. slice 6, f32 - the fabric: the gpt-bench preset (the rungs'
+               on-TPU configuration, vocab 30528, 768 x 12 heads, slot
+               engine 8 x 256) at 2 of its 12 layers since slice 23 (a
+               variant, its overrides in the artifacts' meta) published as v1 (seeded) and v2 (another seed) into a
                ModelRegistry and served by an ArtifactServer; 2 worker
                processes on the card pull v1 by fingerprint into a
                ModelHost; a gateway over their SocketReplicas: 10 prompts
@@ -149,8 +150,9 @@ Phases, each printed as it finishes; any failure exits non-zero:
                flash_bwd): torch.library.opcheck of both on each route
                (standard + fused in bf16 and f32, two-pass at n = 1024,
                long at b=1 h=2 n=4096), each op's outputs against the
-               plain versions; (2) f32, the bench GPT cut to 2 layers,
-               batch 2 x 512: 3 AdamW steps with the forward and the loss
+               plain versions; (2) f32, the bench GPT cut to 1 layer
+               (2 before slice 23), batch 2 x 512: 3 AdamW steps with the
+               forward and the loss
                under jit.to_static against the same steps eager; (3) path
                (a): the bench's bf16 step (phase 6's model cut to 1
                layer to make room for phases 24-25 and 28, its batch and
@@ -327,13 +329,14 @@ Phases, each printed as it finishes; any failure exits non-zero:
                1e-5 of the 6 steps uninterrupted in this process (and
                whether bitwise). (c) GPT-2 small generate() of 8 x 768 +
                32 new through weights over 'mp' (fleet.distributed_model)
-               against the plain model: f32 tokens identical, 12 flash
-               launches (the prefill); bf16 decode tokens/s of both; the
+               against the plain model: f32 tokens identical, one flash
+               launch a layer (the prefill); bf16 decode tokens/s of both; the
                QKV weight's gather and head cut timed alone. (d) Linear ->
                SyncBatchNorm -> ReLU -> Linear under DataParallel on the
                card against BatchNorm1D on the CPU, f32, 5 SGD steps,
-               within 1e-5. (c) decodes through GPT-2 small cut to 6 of
-               its 12 layers (TP_DECODE_LAYERS, since slice 18).
+               within 1e-5. (c) decodes through GPT-2 small cut to 2 of
+               its 12 layers (TP_DECODE_LAYERS: 6 since slice 18, 2 since
+               slice 23).
  27. slice 18, convolutional vision - (a) BASELINE config 2: resnet50()
                cast to bf16 (its batch norm statistics too), batch 64 of
                seeded 3 x 224 x 224 images and labels in [0, 1000),
@@ -393,8 +396,11 @@ Phases, each printed as it finishes; any failure exits non-zero:
                tie within 4 ulps placed counted; roi_align (the value),
                yolo_loss and deform_conv2d (values and gradients) within
                1e-5. (c) jit.save of the eval model, a Predictor on the
-               card at batch 1: boxes within 1e-4 of the eager forward,
-               the first run and run()'s p50. (d) the fluid PP-YOLO tail
+               card at batch 8 (batch 1 before slice 23), its Inductor
+               cache in a directory of its own: boxes within 1e-4 of the
+               eager forward, the first run and run()'s p50; then phase
+               32 (b) on the same artifact, cache and Predictor, before
+               the directory is removed. (d) the fluid PP-YOLO tail
                (yolo_box -> transpose2 -> multiclass_nms3) through
                load_fluid_model compiled on the card against the op table
                on the CPU. No flash launch. The phase prints its own
@@ -417,7 +423,8 @@ Phases, each printed as it finishes; any failure exits non-zero:
                busy share, peak memory; the loss falls, every activation
                scale set and finite, no flash launch; resnet18 QAT in
                float64, 3 steps, card vs CPU within 1e-6. (c) PTQ of
-               ResNet-50 in f32 (abs_max and KL, 4 batches of 16 x 224):
+               ResNet-50 in f32 (abs_max and KL, 2 batches of 16 x 224,
+               4 before slice 23):
                calibration seconds split into the forward and the host
                observers, the quantized eval forward at batch 64 beside
                the plain one; resnet18 in float64 (8 x 224, 2 batches),
@@ -460,8 +467,32 @@ Phases, each printed as it finishes; any failure exits non-zero:
                CPU's, and the loss falls. (f) check_numerics on card
                tensors and utils.run_check() on the card. The phase prints
                its own seconds.
+ 32. slice 23, export and the C surface - (a) GPT-2 small (full width
+               and depth, f32, TF32 off, seeded) on 1 x 512 ids: the eager
+               forward on the card (12 f32 flash_fwd launches, split
+               TF32), onnx.export at the same spec (no launch; the flash
+               op lowered to its plain version, 12 lowered nodes), the
+               file read back and run on the host by tests/onnx_numpy.py:
+               logits within 1e-4 of the card's largest; the export's
+               seconds, the file's MB, the evaluation's seconds. (b) runs
+               inside phase 29 (c), beside the Predictor it is held to;
+               this phase prints its numbers again. The C
+               API: the library (g++, CPython embedded) and a C client
+               (gcc) built on the machine; the client in a child process
+               serves phase 29 (c)'s PP-YOLOv2 artifact (batch 8 x 3 x
+               320 x 320, f32) on device "gpu" with phase 29 (c)'s
+               Inductor cache (warm or cold, by its new entries) and
+               writes its outputs as raw bytes: equal bit for bit to the
+               in-process Predictor's under the same TF32 defaults
+               (cuDNN's on), or within 1e-4 of the largest; the child's
+               seconds to its first output, PD_PredictorRun's p50 over
+               10 (C clock) beside the in-process run()'s. (c) (a)'s
+               state saved from the card with encryption_key= and loaded
+               back onto the card: bit-equal, the scheme (AES-256-GCM
+               expected), GB/s each way, a wrong key refused. The phase
+               prints its own seconds.
 (Phases 9-11 and 13-16 run after phase 8 and before phases 5-7, 12, 17,
-18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30 and 31 in main().)
+18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31 and 32 in main().)
 The last lines are the whole run's seconds (the build included), a
 {"kernels_wide": [...]} line, the card's name and power limit as
 nvidia-smi gives them, a {"kernels": [...]} line and the {"ok": true,
@@ -483,6 +514,12 @@ import numpy as np
 import torch
 
 SEED = 1234
+# torch's matmul precision setting as a fresh process has it (the phases
+# below set allow_tf32, which changes it): Inductor's cache key holds it,
+# so phase 29 (c) compiles under it for phase 32 (b)'s C client, a fresh
+# process, to find that compile in the cache
+MATMUL_FP32_DEFAULT = getattr(torch.backends.cuda.matmul, 'fp32_precision',
+                              None)
 
 # The card's datasheet peaks (dense, no sparsity) come from the port's cost
 # model (paddle_tpu_torch/monitor/perf/costmodel.py, SKUS), the one table
@@ -2320,16 +2357,22 @@ def _eager_or_static_steps(model, opt, fn, ids, labels, steps):
     return losses
 
 
+# phase 19's f32 to_static parity: the bench's width at 1 of its 12 layers
+# (2 before slice 23; the compile grows with the depth)
+STATIC_PARITY_LAYERS = 1
+
+
 def static_parity_phase():
-    """(2) f32 at the bench's width cut to 2 layers, batch 2 x 512: 3 AdamW
-    steps through to_static against the same steps eager on the card."""
+    """(2) f32 at the bench's width cut to STATIC_PARITY_LAYERS, batch 2 x
+    512: 3 AdamW steps through to_static against the same steps eager on
+    the card."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.models.gpt import GPTConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = GPTConfig(**dict(BENCH_CFG, num_layers=2))
+    cfg = GPTConfig(**dict(BENCH_CFG, num_layers=STATIC_PARITY_LAYERS))
     t0 = time.time()
     eager, _, ids, labels = _train_setup(cfg, 'cuda', SEED, 2, TRAIN_SEQ)
     static, _, _, _ = _train_setup(cfg, 'cuda', SEED + 1, 2, TRAIN_SEQ)
@@ -2345,7 +2388,8 @@ def static_parity_phase():
     _reset_counts(fa)
     got = _eager_or_static_steps(static, opts[1], step, ids, labels, 3)
     launches = _launches(fa)
-    _check(launches == _want(3, flash_fwd=2, flash_bwd_fused=2),
+    _check(launches == _want(3, flash_fwd=cfg.num_layers,
+                             flash_bwd_fused=cfg.num_layers),
            'to_static f32 steps launched %s' % launches)
     _check(step.compile_count() == 1, 'f32 step compiled %d graphs'
            % step.compile_count())
@@ -2365,10 +2409,10 @@ def static_parity_phase():
            'to_static f32 params differ by %.3g' % worst)
     _check(close >= 0.999 * total,
            'to_static f32 params: %d of %d close' % (close, total))
-    print('to_static f32: 2 layers, batch 2 x %d, 3 AdamW steps, losses %s '
+    print('to_static f32: %d layers, batch 2 x %d, 3 AdamW steps, losses %s '
           'vs eager %s (max rel %.3g, tol 1e-5), params max abs diff %.3g '
           '(tol 2 lr a step), %d of %d within 1e-6 + 1e-4 |p|, launches %s, '
-          '%.1f s' % (TRAIN_SEQ, ['%.7f' % x for x in got],
+          '%.1f s' % (cfg.num_layers, TRAIN_SEQ, ['%.7f' % x for x in got],
                       ['%.7f' % x for x in want], rel, worst, close, total,
                       launches, time.time() - t0), flush=True)
     del eager, static, opts
@@ -4654,7 +4698,13 @@ def gateway_qos_phase():
 # the fabric parity workload: phase 13's prompts, the two longest cut to
 # fit the preset's 256-row slots beside 16 new tokens
 FABRIC_PROMPT_LENS = (3, 170, 41, 241, 9, 122, 64, 230, 17, 88)
+# phase 16 (a)'s workers: the full-width preset, beside phase 14's
+# in-process replicas of the same model
 FABRIC_PRESET = 'gpt-bench'
+# phase 15's: the same preset at 2 of its 12 layers (since slice 23; token
+# identity, the rollout and the failover do not depend on depth),
+# published as a variant: the artifacts' meta carries the overrides
+FABRIC_PARITY_MODEL = {'num_layers': 2}
 
 
 def _spawn_workers(kwargs_list, timeout=300):
@@ -4700,7 +4750,9 @@ def _fabric_gateway(handles, **kw):
 
 def fabric_parity_phase():
     """Slice 6, f32: two worker processes (ModelHost on the card) pull the
-    full-width preset's seeded weights as v1 from an ArtifactServer by
+    FABRIC_PRESET's seeded weights at FABRIC_PARITY_MODEL's depth (2 of
+    its 12 layers, a variant published with the overrides in its meta) as
+    v1 from an ArtifactServer by
     fingerprint; a gateway over their SocketReplicas must match one
     in-process slot engine's tokens; rollout() to a differently seeded v2
     mid-burst loses nothing and serves v2 after the flip; a SIGKILLed
@@ -4719,6 +4771,7 @@ def fabric_parity_phase():
                                                  build_engine, preset,
                                                  publish_preset)
     from paddle_tpu_torch.serving.fabric import worker as fworker
+    from paddle_tpu_torch.serving.fabric.presets import build_model
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4728,17 +4781,20 @@ def fabric_parity_phase():
     handles, art, gw = [], None, None
     try:
         reg = ModelRegistry(root=os.path.join(root, 'registry'))
-        e1 = publish_preset(reg, FABRIC_PRESET, version='v1', device='cpu')
-        cfg = GPTConfig(**preset(FABRIC_PRESET)['model'])
+        e1 = publish_preset(reg, FABRIC_PRESET, version='v1', device='cpu',
+                            model=FABRIC_PARITY_MODEL)
+        cfg = GPTConfig(**dict(preset(FABRIC_PRESET)['model'],
+                               **FABRIC_PARITY_MODEL))
         e2 = reg.publish(FABRIC_PRESET, 'v2', GPTForCausalLM(
             cfg, device='cpu', seed=SEED + 15).state_dict(),
-            meta={'preset': FABRIC_PRESET})
+            meta=dict(e1.meta))
         t_publish = time.time() - t0
         art = ArtifactServer(reg).start()
         t1 = time.time()
         handles = _spawn_workers([dict(
             artifacts=art.endpoint, cache=os.path.join(root, 'w%d' % i),
-            model=FABRIC_PRESET, version='v1', fingerprint=e1.fingerprint)
+            model=FABRIC_PRESET, version='v1',
+            fingerprint=e1.fingerprint)
             for i in range(2)])
         t_bound = time.time() - t1
 
@@ -4750,8 +4806,9 @@ def fabric_parity_phase():
         _reset_counts(fa)
         want = {}
         for entry in (e1, e2):
-            eng = build_engine(FABRIC_PRESET,
-                               state_dict=io_save.load(entry.path))
+            eng = build_engine(FABRIC_PRESET, model=build_model(
+                FABRIC_PRESET, state_dict=io_save.load(entry.path),
+                model=FABRIC_PARITY_MODEL))
             want[entry.version] = eng.generate(prompts, max_new_tokens=new)
             del eng
         launches = _launches(fa)
@@ -4830,7 +4887,8 @@ def fabric_parity_phase():
         try:
             fworker._build_engine_from_args(argparse.Namespace(
                 artifacts=art.endpoint, cache=os.path.join(root, 'wrong'),
-                model=FABRIC_PRESET, version='v1', fingerprint='0' * 16,
+                model=FABRIC_PRESET, version='v1',
+                fingerprint='0' * 16,
                 preset=None, device='cuda', dtype=None))
             refused = None
         except ArtifactVerifyError as e:
@@ -4838,7 +4896,8 @@ def fabric_parity_phase():
         _check(refused is not None, 'a pull with a wrong fingerprint was '
                'accepted')
         t_refuse = time.time() - t4
-        print('fabric f32 (slice 6): %s preset (f32 artifacts of %.0f MB), '
+        print('fabric f32 (slice 6): %s preset at %d layers (f32 artifacts '
+              'of %.0f MB), '
               '2 worker processes on the card pulling v1 by fingerprint '
               '(publish %.1f s, both bound in %.1f s, first generate with '
               'the lazy loads %.1f s); %d prompts of %d-%d tokens + %d new '
@@ -4849,7 +4908,8 @@ def fabric_parity_phase():
               'in flight -> %d failovers, completed ratio 1.0, v2 tokens; '
               'wrong fingerprint refused (%s, %.1f s); reference flash '
               'launches %d; %.1f s'
-              % (FABRIC_PRESET, e1.nbytes / 2 ** 20, t_publish, t_bound, t_first, len(prompts),
+              % (FABRIC_PRESET, cfg.num_layers, e1.nbytes / 2 ** 20,
+                 t_publish, t_bound, t_first, len(prompts),
                  min(FABRIC_PROMPT_LENS), max(FABRIC_PROMPT_LENS), new,
                  routed, in_flight, summary['cache_hits'],
                  summary['cache_misses'], summary['load_s'], t_rollout,
@@ -6672,7 +6732,7 @@ DECODE_NEW = 32
 # phase 26 (c) decodes through GPT-2 small's width and vocabulary cut to
 # 6 of its 12 layers (since slice 18: the depth cut that makes room for
 # phase 27's vision training in chip_smoke's time limit)
-TP_DECODE_LAYERS = 6
+TP_DECODE_LAYERS = 2
 
 
 def _composed_job(res):
@@ -8139,7 +8199,13 @@ def yolo_parity_phase(card):
 
 def yolo_predictor_phase(card):
     """Phase 29 (c): jit.save of the eval model, then a Predictor on the
-    card at batch 1 x 320, held to the eager forward."""
+    card at BASELINE config 4's batch (YOLO_BATCHES[-1] x 320), its
+    Inductor cache in a directory of its own, held to the eager forward;
+    then phase 32 (b) (capi_phase) serves the same artifact from a child
+    process against this Predictor, before the directory is removed.
+    TF32 is off for the convolutions and the matmuls, the matmuls under a
+    fresh process's setting (capi_phase turns cuDNN's on, as the child has
+    it); both settings are restored at the end."""
     import shutil
     import tempfile
 
@@ -8147,10 +8213,15 @@ def yolo_predictor_phase(card):
     from paddle_tpu_torch.vision.models import ppyolov2
 
     t0 = time.time()
+    matmul = torch.backends.cuda.matmul
+    settings = (torch.backends.cudnn.allow_tf32,
+                getattr(matmul, 'fp32_precision', None))
     torch.backends.cudnn.allow_tf32 = False
+    if MATMUL_FP32_DEFAULT is not None:  # TF32 off for matmuls all the same
+        matmul.fp32_precision = MATMUL_FP32_DEFAULT
     model = ppyolov2(**YOLO_CFG, device='cuda', seed=SEED).eval()
-    size = YOLO_CFG['img_size']
-    x = np.random.RandomState(SEED + 293).rand(1, 3, size, size).astype(
+    size, batch = YOLO_CFG['img_size'], YOLO_BATCHES[-1]
+    x = np.random.RandomState(SEED + 293).rand(batch, 3, size, size).astype(
         np.float32)
     with torch.no_grad():
         want = model(torch.from_numpy(x).cuda())[0].cpu().numpy()
@@ -8160,12 +8231,19 @@ def yolo_predictor_phase(card):
         jit.save(model, path)
         config = inference.Config(path)
         config.enable_use_gpu()
+        before = os.environ.get('TORCHINDUCTOR_CACHE_DIR')
+        config.set_optim_cache_dir(os.path.join(tmp, 'inductor'))
         pred = inference.create_predictor(config)
         name = pred.get_input_names()[0]
         t1 = time.perf_counter()
         pred.get_input_handle(name).copy_from_cpu(x)
         pred.run()
         compile_s = time.perf_counter() - t1
+        # the later phases compile into the cache they used before
+        if before is None:
+            os.environ.pop('TORCHINDUCTOR_CACHE_DIR', None)
+        else:
+            os.environ['TORCHINDUCTOR_CACHE_DIR'] = before
         handle = pred.get_output_handle(pred.get_output_names()[0])
         boxes = handle.copy_to_cpu()
         err = float(np.abs(boxes - want).max() / np.abs(want).max())
@@ -8180,18 +8258,23 @@ def yolo_predictor_phase(card):
             run_ms.append((time.perf_counter() - t1) * 1e3)
         _check(pred.compile_count() == 1, 'Predictor compiled %d programs'
                % pred.compile_count())
+        out = {'err': err, 'compile_s': compile_s, 'p50_ms': _p50(run_ms),
+               'seconds': time.time() - t0}
+        print('slice 20 (c) [%s]: jit.save -> Config / create_predictor on '
+              'the card, batch %d x %d: first run (compiles) %.2f s, run() '
+              'p50 %.3f ms over 20 (numpy in, boxes back to the host), boxes '
+              '%.3g of the largest off the eager forward (tol %g); %.1f s'
+              % (card, batch, size, compile_s, out['p50_ms'], err,
+                 DECODE_TOL, out['seconds']), flush=True)
+        out['capi'] = capi_phase(card, pred, x, path,
+                                 os.path.join(tmp, 'inductor'), tmp)
     finally:
+        torch.backends.cudnn.allow_tf32 = settings[0]
+        if settings[1] is not None:
+            matmul.fp32_precision = settings[1]
         shutil.rmtree(tmp, ignore_errors=True)
     del model, pred
     torch.cuda.empty_cache()
-    out = {'err': err, 'compile_s': compile_s, 'p50_ms': _p50(run_ms),
-           'seconds': time.time() - t0}
-    print('slice 20 (c) [%s]: jit.save -> Config / create_predictor on the '
-          'card, batch 1 x %d: first run (compiles) %.2f s, run() p50 %.3f '
-          'ms over 20 (numpy in, boxes back to the host), boxes %.3g of the '
-          'largest off the eager forward (tol %g); %.1f s'
-          % (card, size, compile_s, out['p50_ms'], err, DECODE_TOL,
-             out['seconds']), flush=True)
     return out
 
 
@@ -8320,10 +8403,11 @@ def slice20_phases(card, sku):
 INT8_NEW, INT8_SLOTS = 128, 8
 INT8_PARITY_LAYERS, INT8_PARITY_ROWS, INT8_PARITY_LEN = 2, 2, 512
 INT8_PARITY_NEW, INT8_LOGIT_TOL = 16, 1e-4
-# (c) PTQ of ResNet-50: 4 calibration batches of 16 x 224; the card-vs-CPU
-# scales on resnet18 at 8 x 224, 2 batches, within PTQ_SCALE_RTOL
+# (c) PTQ of ResNet-50: 2 calibration batches of 16 x 224 (4 before slice
+# 23); the card-vs-CPU scales on resnet18 at 8 x 224, 2 batches, within
+# PTQ_SCALE_RTOL
 PTQ_ALGOS = ('abs_max', 'avg', 'mse', 'KL', 'hist')
-PTQ_BATCHES, PTQ_BATCH = 4, 16
+PTQ_BATCHES, PTQ_BATCH = 2, 16
 PTQ_PARITY_BATCHES, PTQ_PARITY_BATCH, PTQ_SCALE_RTOL = 2, 8, 1e-5
 # (d) ASP on phase 6's bench GPT: 3 eager steps at batch 8 x 512
 ASP_BATCH, ASP_STEPS = 8, 3
@@ -9517,6 +9601,365 @@ def slice22_phases(card):
     return out
 
 
+# -- phase 32: slice 23, export and the C surface -----------------------------
+# (a) GPT-2 small at full width and depth (f32, TF32 off, seeded weights) on
+# 1 x ONNX_SEQ ids: the eager forward on the card (12 causal f32 launches of
+# the flash forward), onnx.export at the same spec (the flash op lowered to
+# its plain version), the file read back and run by tests/onnx_numpy.py on
+# the host; the logits within ONNX_TOL of the card's largest magnitude
+ONNX_SEQ, ONNX_TOL = 512, 1e-4
+# (b) PP-YOLOv2 at BASELINE config 4 through the C API in a child process
+# (device "gpu"), on phase 29 (c)'s artifact and Inductor cache: its outputs
+# against the in-process Predictor's, bit for bit or within DECODE_TOL; the
+# child's seconds to its first output, PD_PredictorRun's p50 over CAPI_RUNS
+CAPI_RUNS = 10
+CAPI_CLIENT_C = r'''
+#include <stdio.h>
+#include <stdlib.h>
+#include <time.h>
+#include "pd_capi.h"
+
+static double now_s(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return (double)t.tv_sec + 1e-9 * (double)t.tv_nsec;
+}
+
+static int cmp(const void* a, const void* b) {
+  double x = *(const double*)a, y = *(const double*)b;
+  return (x > y) - (x < y);
+}
+
+int main(int argc, char** argv) {
+  /* argv: repo model device input.raw N C H W output.raw runs */
+  double t0 = now_s();
+  if (argc < 11) { fprintf(stderr, "usage\n"); return 2; }
+  int64_t shape[4];
+  int64_t count = 1;
+  for (int i = 0; i < 4; ++i) { shape[i] = atoll(argv[5 + i]); count *= shape[i]; }
+  float* x = (float*)malloc(count * sizeof(float));
+  FILE* f = fopen(argv[4], "rb");
+  if (!f || fread(x, sizeof(float), count, f) != (size_t)count) return 7;
+  fclose(f);
+  if (PD_Init(argv[1]) != 0) { fprintf(stderr, "init: %s\n", PD_GetLastError()); return 3; }
+  PD_Config* cfg = PD_ConfigCreate();
+  PD_ConfigSetModel(cfg, argv[2]);
+  PD_ConfigSetDevice(cfg, argv[3]);
+  PD_Predictor* pred = PD_PredictorCreate(cfg);
+  PD_ConfigDestroy(cfg);
+  if (!pred) { fprintf(stderr, "create: %s\n", PD_GetLastError()); return 4; }
+  char name[128];
+  if (PD_PredictorGetInputName(pred, 0, name, 128) < 0) { fprintf(stderr, "name: %s\n", PD_GetLastError()); return 5; }
+  double t_ready = now_s();
+  if (PD_PredictorSetInputFloat(pred, name, x, shape, 4) != 0 || PD_PredictorRun(pred) != 0) {
+    fprintf(stderr, "run: %s\n", PD_GetLastError());
+    return 6;
+  }
+  double t_first = now_s();
+  int runs = atoi(argv[10]);
+  double* ms = (double*)malloc(runs * sizeof(double));
+  for (int i = 0; i < runs; ++i) {
+    double a = now_s();
+    if (PD_PredictorRun(pred) != 0) { fprintf(stderr, "run: %s\n", PD_GetLastError()); return 6; }
+    ms[i] = 1e3 * (now_s() - a);
+  }
+  int n = PD_PredictorGetOutputNum(pred);
+  FILE* o = fopen(argv[9], "wb");
+  if (n < 1 || !o) return 8;
+  fwrite(&n, sizeof(int), 1, o);
+  for (int k = 0; k < n; ++k) {
+    int64_t dims[8];
+    int rank = PD_PredictorGetOutputShape(pred, k, dims, 8);
+    if (rank < 0 || rank > 8) { fprintf(stderr, "shape %d: %s\n", k, PD_GetLastError()); return 9; }
+    int64_t total = 1;
+    for (int i = 0; i < rank; ++i) total *= dims[i];
+    float* buf = (float*)malloc((total > 0 ? total : 1) * sizeof(float));
+    if (PD_PredictorGetOutputFloat(pred, k, buf, total) != total) {
+      fprintf(stderr, "output %d: %s\n", k, PD_GetLastError());
+      return 9;
+    }
+    fwrite(&rank, sizeof(int), 1, o);
+    fwrite(dims, sizeof(int64_t), rank, o);
+    fwrite(buf, sizeof(float), total, o);
+    free(buf);
+  }
+  fclose(o);
+  PD_PredictorDestroy(pred);
+  qsort(ms, runs, sizeof(double), cmp);
+  printf("{\"ready_s\": %.6f, \"first_output_s\": %.6f, \"run_p50_ms\": %.6f, "
+         "\"run_min_ms\": %.6f, \"run_max_ms\": %.6f}\n",
+         t_ready - t0, t_first - t0, ms[runs / 2], ms[0], ms[runs - 1]);
+  return 0;
+}
+'''
+
+
+def _onnx_evaluator():
+    """tests/onnx_numpy.py of this checkout (the evaluator the tests run),
+    loaded by path: the package ships no ONNX runtime."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                        'onnx_numpy.py')
+    spec = importlib.util.spec_from_file_location('onnx_numpy', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def onnx_export_phase(card, root):
+    """Phase 32 (a); returns its numbers and the model for (c)."""
+    from paddle_tpu_torch import onnx
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    evaluator = _onnx_evaluator()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig.gpt2_small()
+    model = GPTForCausalLM(cfg, device='cuda', seed=SEED + 320).eval()
+    ids = np.random.RandomState(SEED + 320).randint(
+        0, cfg.vocab_size, (1, ONNX_SEQ)).astype(np.int64)
+    seen = set()
+    undo = _kernel_dtypes(fa, seen)
+    try:
+        _reset_counts(fa)
+        with torch.no_grad():
+            want = model(torch.from_numpy(ids).cuda()).cpu().numpy()
+        torch.cuda.synchronize()
+        launches = _launches(fa)
+    finally:
+        undo()
+    _check(launches == _want(1, flash_fwd=cfg.num_layers) and
+           seen == {('flash_fwd', 'float32')}, 'the eager forward launched '
+           '%s (%s), want %d f32 flash_fwd' % (launches, sorted(seen),
+                                               cfg.num_layers))
+    t0 = time.perf_counter()
+    path = onnx.export(model, os.path.join(root, 'gpt2_small'),
+                       input_spec=[InputSpec([1, ONNX_SEQ], 'int64', 'ids')])
+    export_s = time.perf_counter() - t0
+    stats = dict(onnx.export.stats)
+    _check(_launches(fa) == launches, 'the export launched kernels: %s'
+           % _launches(fa))
+    _check(stats['flash_lowered'] == cfg.num_layers, 'the export lowered '
+           '%d flash nodes, want %d' % (stats['flash_lowered'],
+                                        cfg.num_layers))
+    t0 = time.perf_counter()
+    with open(path, 'rb') as f:
+        blob = f.read()
+    got = evaluator.run_onnx(blob, {'ids': ids})[0]
+    eval_s = time.perf_counter() - t0
+    del blob
+    _check(got.shape == want.shape and np.isfinite(got).all(),
+           'ONNX logits %s, want finite %s' % (got.shape, want.shape))
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    _check(err <= ONNX_TOL, 'ONNX logits vs the card %.3g of the largest '
+           '(tol %g)' % (err, ONNX_TOL))
+    out = {'export_s': export_s, 'mb': stats['bytes'] / 1e6,
+           'nodes': stats['nodes'], 'initializers': stats['initializers'],
+           'flash_lowered': stats['flash_lowered'],
+           'launches': launches['flash_fwd'], 'eval_s': eval_s, 'err': err}
+    print('slice 23 (a) [%s]: GPT-2 small f32 (TF32 off) on 1 x %d ids: the '
+          'eager forward %d f32 flash_fwd launches; onnx.export %.2f s, '
+          '%.1f MB, %d nodes, %d initializers, %d flash nodes lowered; '
+          'the file on the host through tests/onnx_numpy.py %.2f s, logits '
+          '%.3g of the largest off the card\'s (tol %g)'
+          % (card, ONNX_SEQ, out['launches'], export_s, out['mb'],
+             out['nodes'], out['initializers'], out['flash_lowered'],
+             eval_s, err, ONNX_TOL), flush=True)
+    return out, model
+
+
+def _cache_files(root, sub):
+    n = 0
+    for _, _, names in os.walk(os.path.join(root, sub)):
+        n += len(names)
+    return n
+
+
+def _read_outputs(path):
+    """The client's output file: int32 n, then per output int32 rank,
+    int64 dims, f32 values."""
+    with open(path, 'rb') as f:
+        blob = f.read()
+    (n,), pos, outs = struct.unpack_from('<i', blob), 4, []
+    for _ in range(n):
+        (rank,) = struct.unpack_from('<i', blob, pos)
+        dims = struct.unpack_from('<%dq' % rank, blob, pos + 4)
+        pos += 4 + 8 * rank
+        count = int(np.prod(dims))
+        outs.append(np.frombuffer(blob, np.float32, count, pos).reshape(
+            dims))
+        pos += 4 * count
+    return outs
+
+
+def capi_phase(card, pred, x, path, cache, root):
+    """Phase 32 (b), run by phase 29 (c): the C API serving its PP-YOLOv2
+    artifact `path` on input `x` from a child process (Inductor cache
+    `cache`, builds in `root`), against its Predictor `pred` in process.
+    The caller restores cuDNN's TF32 setting."""
+    from paddle_tpu_torch import capi
+
+    # the child runs under torch's defaults (cuDNN TF32 on, matmul TF32
+    # off, as phase 29 (c) compiled): the in-process reference runs under
+    # the same
+    torch.backends.cudnn.allow_tf32 = True
+    name = pred.get_input_names()[0]
+    names = pred.get_output_names()
+    run_ms = []
+    for _ in range(1 + CAPI_RUNS):
+        t0 = time.perf_counter()
+        pred.get_input_handle(name).copy_from_cpu(x)
+        pred.run()
+        want = [pred.get_output_handle(n).copy_to_cpu() for n in names]
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    _check(pred.compile_count() == 1, 'the Predictor compiled %d programs'
+           % pred.compile_count())
+    t0 = time.perf_counter()
+    lib = capi.build_capi()
+    src = os.path.join(root, 'client.c')
+    exe = os.path.join(root, 'client')
+    with open(src, 'w') as f:
+        f.write(CAPI_CLIENT_C)
+    proc = subprocess.run(['gcc', '-O2', '-o', exe, src, '-I',
+                           os.path.dirname(capi.header_path()), lib,
+                           '-Wl,-rpath,' + os.path.dirname(lib)],
+                          capture_output=True, text=True)
+    _check(proc.returncode == 0, 'the C client did not build: %s'
+           % proc.stderr[-2000:])
+    build_s = time.perf_counter() - t0
+    x_path, out_path = os.path.join(root, 'x.raw'), os.path.join(root,
+                                                                 'out.raw')
+    x.astype(np.float32).tofile(x_path)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TORCHINDUCTOR_CACHE_DIR=cache,
+               PYTHONPATH=os.pathsep.join(
+                   [repo] + [p for p in sys.path if p and os.path.isdir(p)]))
+    before = {sub: _cache_files(cache, sub)
+              for sub in ('fxgraph', 'aotautograd')}
+    t0 = time.perf_counter()
+    proc = subprocess.run([exe, repo, path, 'gpu', x_path] +
+                          [str(d) for d in x.shape] +
+                          [out_path, str(CAPI_RUNS)],
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+    child_s = time.perf_counter() - t0
+    _check(proc.returncode == 0, 'the C client exited %d: %s'
+           % (proc.returncode, proc.stderr[-3000:]))
+    timing = json.loads(proc.stdout.strip().splitlines()[-1])
+    new = {sub: _cache_files(cache, sub) - n
+           for sub, n in before.items()}
+    got = _read_outputs(out_path)
+    _check(len(got) == len(want) and all(
+        g.shape == w.shape for g, w in zip(got, want)), 'C outputs %s, want '
+        '%s' % ([g.shape for g in got], [w.shape for w in want]))
+    bitwise = all(np.array_equal(g, w.astype(np.float32))
+                  for g, w in zip(got, want))
+    err = max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+              for g, w in zip(got, want))
+    _check(bitwise or err <= DECODE_TOL, 'C outputs vs the Predictor %.3g '
+           'of the largest (tol %g)' % (err, DECODE_TOL))
+    out = {'bitwise': bitwise, 'err': err, 'build_s': build_s,
+           'child_s': child_s, 'first_output_s': timing['first_output_s'],
+           'ready_s': timing['ready_s'], 'capi_p50_ms': timing['run_p50_ms'],
+           'run_p50_ms': _p50(run_ms[1:]), 'new_cache_files': new,
+           'warm': new['fxgraph'] == 0}
+    print('slice 23 (b) [%s]: PP-YOLOv2 (BASELINE config 4, %s, f32, cuDNN '
+          'TF32 on as torch defaults) through the C API in a child process '
+          'on device "gpu": library + client built in %.2f s; the child %.2f '
+          's to its first output (interpreter and Predictor ready at %.2f '
+          's), %.2f s in all; Inductor cache %s (new entries %s); outputs %s '
+          '(largest error %.3g of the largest, tol %g); PD_PredictorRun p50 '
+          '%.3f ms over %d (C clock) beside the in-process run() p50 %.3f ms '
+          '(numpy in, both outputs to the host, as the bridge copies them)'
+          % (card, 'x'.join(str(d) for d in x.shape), build_s,
+             out['first_output_s'], out['ready_s'], child_s,
+             'warm' if out['warm'] else 'cold', json.dumps(new),
+             'bit-equal' if bitwise else 'not bit-equal', err, DECODE_TOL,
+             out['capi_p50_ms'], CAPI_RUNS, out['run_p50_ms']), flush=True)
+    return out
+
+
+def crypto_phase(card, model, root):
+    """Phase 32 (c): (a)'s GPT-2 small state saved from the card with
+    encryption_key=, loaded back onto the card: bit-equal, the scheme, the
+    rate each way; a wrong key raises."""
+    from paddle_tpu_torch.framework import crypto, io_save
+
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    key = crypto.generate_key()
+    path = os.path.join(root, 'gpt2_small.pdparams')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    io_save.save(state, path, encryption_key=key)
+    save_s = time.perf_counter() - t0
+    with open(path, 'rb') as f:
+        head = f.read(9)
+    scheme = {crypto._SCHEME_GCM: 'gcm',
+              crypto._SCHEME_HMAC_CTR: 'hmac_ctr'}.get(head[8])
+    _check(head[:8] == crypto._MAGIC, 'the file is not a PTCRYPT1 container')
+    t0 = time.perf_counter()
+    loaded = {k: v.cuda() for k, v in io_save.load(
+        path, encryption_key=key).items()}
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _check(set(loaded) == set(state) and all(
+        loaded[k].dtype == v.dtype and torch.equal(loaded[k], v)
+        for k, v in state.items()), 'the decrypted state differs')
+    try:
+        io_save.load(path, encryption_key='not-the-key')
+        refused = False
+    except ValueError:
+        refused = True
+    _check(refused, 'a wrong key loaded the state')
+    out = {'scheme': scheme, 'gb': nbytes / 1e9, 'save_s': save_s,
+           'load_s': load_s, 'save_gbs': nbytes / 1e9 / save_s,
+           'load_gbs': nbytes / 1e9 / load_s}
+    print('slice 23 (c) [%s]: GPT-2 small state (%d tensors, %.3f GB) '
+          'saved from the card with encryption_key= (%s) in %.2f s (%.3f '
+          'GB/s) and loaded onto the card in %.2f s (%.3f GB/s): bit-equal, '
+          'a wrong key refused' % (card, len(state), out['gb'], scheme,
+                                   save_s, out['save_gbs'], load_s,
+                                   out['load_gbs']), flush=True)
+    return out
+
+
+def slice23_phases(card, capi_out):
+    """Phase 32: slice 23, export and the C surface, on one card: (a) and
+    (c); (b) ran inside phase 29 (c), whose numbers `capi_out` are."""
+    import shutil
+    import tempfile
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix='chip_smoke_slice23_')
+    try:
+        onnx_out, model = onnx_export_phase(card, root)
+        out = {'onnx': onnx_out, 'crypto': crypto_phase(card, model, root)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    out['seconds'] = time.time() - t0
+    a, b, c = out['onnx'], capi_out, out['crypto']
+    print('phase 32 (slice 23) [%s]: %s' % (card, json.dumps({
+        'onnx_export_s': round(a['export_s'], 2), 'onnx_mb': round(a['mb'], 1),
+        'onnx_flash_lowered': a['flash_lowered'],
+        'onnx_flash_launches': a['launches'],
+        'onnx_eval_s': round(a['eval_s'], 2), 'onnx_err': a['err'],
+        'capi_bitwise': b['bitwise'], 'capi_err': b['err'],
+        'capi_first_output_s': round(b['first_output_s'], 2),
+        'capi_inductor_warm': b['warm'],
+        'capi_run_p50_ms': round(b['capi_p50_ms'], 3),
+        'predictor_run_p50_ms': round(b['run_p50_ms'], 3),
+        'crypto_scheme': c['scheme'],
+        'crypto_save_gbs': round(c['save_gbs'], 3),
+        'crypto_load_gbs': round(c['load_gbs'], 3),
+        'seconds': round(out['seconds'], 1)})), flush=True)
+    return out
+
+
 def _pct(xs, q):
     from paddle_tpu_torch.serving import percentile
     return percentile(xs, q)
@@ -9598,9 +10041,10 @@ def main():
     slice17 = timed(slice17_phases, card)
     timed(slice18_phases, card, sku)
     timed(slice19_phases, card, sku)
-    timed(slice20_phases, card, sku)
+    slice20 = timed(slice20_phases, card, sku)
     slice21 = timed(slice21_phases, card, sku)
     slice22 = timed(slice22_phases, card)
+    slice23 = timed(slice23_phases, card, slice20['predictor']['capi'])
 
     def train_fwd(dtype):
         return next(r for r in fwd_rows
@@ -9769,6 +10213,8 @@ def main():
     # slice 22: op_benchmark's flash config, warm-up and timed calls
     kernels[0]['op_benchmark_launches_per_run'] = \
         slice22['op_benchmark']['launches']
+    # slice 23: GPT-2 small's eager forward before its ONNX export (f32)
+    kernels[0]['onnx_export_forward_launches'] = slice23['onnx']['launches']
     enc = slice14['encoder']['encoder']
     encoder_shape = 'b=32 h=12 n=m=512 d=64 bfloat16 non-causal'
     for kernel, source, line, row in (

@@ -8,12 +8,12 @@ changed the default. Kernels are built from csrc/ by nvcc at first use
 The top-level names are the JAX package's (`import paddle_tpu_torch as
 paddle`): the tensor functions, `to_tensor`, the dtypes (as torch dtypes),
 `seed`, `save` / `load`, the flags and the rest. A tensor is a
-torch.Tensor and a parameter an nn.Parameter. Names of the JAX package
-that are not here raise an AttributeError that says why and which ROADMAP
-item brings them (`_ABSENT` below): Tensor-method patching (the port's
-tensors are torch's, and patching torch.Tensor would change every torch
-program in the process), the XPU / NPU places, and `onnx`, not ported
-yet.
+torch.Tensor and a parameter an nn.Parameter. Every public top-level name
+of the JAX package is here: the XPU / NPU places are place classes of
+devices the port does not run on (placing a tensor on one raises), and
+the Tensor-method patching functions are no-ops, as in the JAX package
+(the port's tensors are torch's and already have their methods; nothing
+in torch.Tensor changes).
 """
 import sys as _sys
 
@@ -27,6 +27,7 @@ from . import autograd, inference, jit, static  # noqa: F401,E402
 from . import distributed, monitor, profiler, tensor  # noqa: F401,E402
 from . import incubate, slim, vision  # noqa: F401,E402
 from . import dataset, distribution, hub, sysconfig, utils  # noqa: F401,E402
+from . import onnx  # noqa: F401,E402
 from .tensor import *  # noqa: F401,F403,E402
 from .tensor import einsum  # noqa: F401,E402
 from .tensor.creation import to_tensor  # noqa: F401,E402
@@ -37,10 +38,11 @@ from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401,E402
 from .distributed import DataParallel  # noqa: F401,E402
 from .framework import device  # noqa: F401,E402
 from .framework.device import (CPUPlace, CUDAPinnedPlace,  # noqa: F401,E402
-                               CUDAPlace, device_count, get_cudnn_version,
-                               get_device, is_compiled_with_cuda,
-                               is_compiled_with_npu, is_compiled_with_rocm,
-                               is_compiled_with_xpu, set_device)
+                               CUDAPlace, NPUPlace, XPUPlace, device_count,
+                               get_cudnn_version, get_device,
+                               is_compiled_with_cuda, is_compiled_with_npu,
+                               is_compiled_with_rocm, is_compiled_with_xpu,
+                               set_device)
 from .framework.dtype import (get_default_dtype,  # noqa: F401,E402
                               set_default_dtype)
 from .framework.flags import get_flags, set_flags  # noqa: F401,E402
@@ -122,25 +124,11 @@ def crop_tensor(x, shape=None, offsets=None, name=None):
     return tensor.manipulation.crop(x, shape=shape, offsets=offsets)
 
 
-_BREADTH = 'is not ported yet (ROADMAP Queue 1 item 5, breadth: %s)'
-_ABSENT = {
-    'monkey_patch_math_varbase': (
-        'is absent: the port\'s tensors are torch tensors with torch\'s '
-        'methods, and patching torch.Tensor would change every torch '
-        'program in the process (ROADMAP Queue 1 item 5, the tensor '
-        'methods); call the paddle_tpu_torch.tensor functions'),
-    'monkey_patch_variable': (
-        'is absent: static Variables are recorded torch tensors (ROADMAP '
-        'Queue 1 item 5, the tensor methods)'),
-    'XPUPlace': 'is absent: the port runs on CUDA GPUs and the CPU '
-                '(ROADMAP Queue 1 item 5, breadth)',
-    'NPUPlace': 'is absent: the port runs on CUDA GPUs and the CPU '
-                '(ROADMAP Queue 1 item 5, breadth)',
-    'onnx': _BREADTH % 'onnx.py',
-}
+def monkey_patch_variable():
+    """No-op, as in the JAX package: static Variables are recorded torch
+    tensors, which already have their methods."""
 
 
-def __getattr__(name):
-    if name in _ABSENT:
-        raise AttributeError('paddle_tpu_torch.%s %s' % (name, _ABSENT[name]))
-    raise AttributeError('module %r has no attribute %r' % (__name__, name))
+def monkey_patch_math_varbase():
+    """No-op, as in the JAX package: the port's tensors are torch tensors
+    with torch's methods; torch.Tensor is left as it is."""

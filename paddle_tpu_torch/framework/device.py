@@ -5,7 +5,9 @@ current device is the card ('cuda') until set_device changes it. With no
 CUDA present a CUDA device raises instead of dropping to the CPU. Paddle's
 names are accepted: 'gpu', 'gpu:1', 'cpu' (and torch's 'cuda', 'cuda:1'),
 and the Place classes, whose `device` is the torch.device they name.
-XPUPlace and NPUPlace are absent: torch here runs on CUDA and the CPU.
+XPUPlace and NPUPlace are the JAX package's place classes for devices the
+port does not run on: they can be made and compared, and placing a tensor
+on one raises a ValueError that names it.
 """
 import torch
 
@@ -94,6 +96,42 @@ class CUDAPinnedPlace:
 
     def __repr__(self):
         return 'CUDAPinnedPlace'
+
+
+class _AbsentPlace:
+    """A place of a device the port has no backend for (torch here runs on
+    CUDA and the CPU)."""
+
+    def __init__(self, id=0):
+        self.device_id = id
+
+    def get_device_id(self):
+        return self.device_id
+
+    @property
+    def device(self):
+        raise ValueError(
+            '%r: paddle_tpu_torch runs on CUDA GPUs and the CPU '
+            "('gpu', 'gpu:N', 'cpu'); it has no %s device"
+            % (self, type(self).__name__[:3]))
+
+    def __eq__(self, other):
+        return type(self) is type(other) and \
+            self.device_id == other.device_id
+
+    def __hash__(self):
+        return hash((type(self).__name__, self.device_id))
+
+    def __repr__(self):
+        return '%s(%d)' % (type(self).__name__, self.device_id)
+
+
+class XPUPlace(_AbsentPlace):
+    pass
+
+
+class NPUPlace(_AbsentPlace):
+    pass
 
 
 def is_compiled_with_cuda():

@@ -20,8 +20,11 @@ CheckpointCorruptError instead of a confusing UnpicklingError (or, worse,
 silently wrong tensors). Files without a manifest load as before (legacy
 snapshots, foreign files).
 
-Not ported: encrypted save / load (`encryption_key=`, the reference's
-framework/crypto.py) raises NotImplementedError.
+Encryption: save(..., encryption_key=k) writes the pickle inside a
+PTCRYPT1 container (framework/crypto.py: AES-256-GCM, or the HMAC-CTR
+fallback); the manifest vouches for the container's bytes. load of an
+encrypted file needs the key: without it, or with a wrong one, it raises
+ValueError.
 """
 import json
 import os
@@ -30,6 +33,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from . import crypto
 
 __all__ = ['save', 'load', 'CheckpointCorruptError', 'manifest_path',
            'verify_checkpoint', 'write_bytes_atomic']
@@ -57,13 +62,6 @@ def _fire(point, path):
 class CheckpointCorruptError(IOError):
     """The file's bytes do not match its manifest (truncated / torn /
     bit-flipped snapshot)."""
-
-
-def _no_crypto(configs):
-    if configs.get('encryption_key') is not None:
-        raise NotImplementedError(
-            'encrypted save/load (encryption_key=) is not ported: the '
-            "reference's framework/crypto.py has no counterpart here")
 
 
 class _TensorPayload:
@@ -148,11 +146,16 @@ def write_bytes_atomic(path, data):
 
 
 def save(obj, path, protocol=_PROTOCOL, **configs):
-    _no_crypto(configs)
+    """configs: encryption_key=... writes an AES-GCM (or HMAC-CTR
+    fallback) PTCRYPT1 container (reference framework/io/crypto
+    encrypted save)."""
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
+    key = configs.get('encryption_key')
     payload = pickle.dumps(_to_saveable(obj), protocol=protocol)
+    if key is not None:
+        payload = crypto.encrypt(payload, key)
     manifest = json.dumps({'format': _MANIFEST_FORMAT,
                            'size': len(payload),
                            'crc32': zlib.crc32(payload) & 0xFFFFFFFF})
@@ -205,10 +208,16 @@ def verify_checkpoint(path, require_manifest=False):
 
 
 def load(path, **configs):
-    _no_crypto(configs)
     return_numpy = configs.get('return_numpy', False)
+    key = configs.get('encryption_key')
     with open(path, 'rb') as f:
         payload = f.read()
     _check_manifest(path, payload)
+    if payload.startswith(crypto._MAGIC):
+        if key is None:
+            raise ValueError(
+                '%s is encrypted — pass encryption_key= to paddle.load'
+                % path)
+        payload = crypto.decrypt(payload, key)
     obj = pickle.loads(payload)
     return _from_saveable(obj, return_numpy)

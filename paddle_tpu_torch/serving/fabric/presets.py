@@ -13,7 +13,9 @@ model registry exists to prevent, so the zoo pins named presets:
 `publish_preset` stamps `meta={'preset': name}` on the registry entry,
 so a worker that pulls the artifact by fingerprint knows which config
 to rebuild around the weights — the preset name IS the architecture
-pointer, the artifact IS the weights. `host_factory()` closes the loop
+pointer, the artifact IS the weights. A variant of a preset (fewer
+layers, say) is published with `model=` GPTConfig overrides, which the
+meta carries beside the name. `host_factory()` closes the loop
 for ModelHost: entry -> engine, loading the entry's state dict into
 the preset's model skeleton.
 
@@ -104,16 +106,18 @@ def preset(name):
             'seed': spec['seed']}
 
 
-def build_model(name, state_dict=None, device='cuda', dtype=None):
-    """The preset's model, eval mode, on `device`. Its weights are drawn
-    from a generator seeded with the preset's pin (every process building
-    the same preset holds bit-identical weights), then replaced by
-    `state_dict` (the port's state_dict() form) when one is given."""
+def build_model(name, state_dict=None, device='cuda', dtype=None,
+                model=None):
+    """The preset's model, eval mode, on `device`, its GPTConfig patched
+    by `model` (kwargs) when given. Its weights are drawn from a generator
+    seeded with the preset's pin (every process building the same preset
+    holds bit-identical weights), then replaced by `state_dict` (the
+    port's state_dict() form) when one is given."""
     from ...framework.dtype import to_torch_dtype
     from ...text.models.gpt import GPTConfig, GPTForCausalLM
     spec = preset(name)
-    m = GPTForCausalLM(GPTConfig(**spec['model']), device=device,
-                       seed=spec['seed'])
+    m = GPTForCausalLM(GPTConfig(**dict(spec['model'], **(model or {}))),
+                       device=device, seed=spec['seed'])
     if state_dict is not None:
         m.load_state_dict(state_dict)
     if dtype is not None:
@@ -140,25 +144,32 @@ def build_engine(name, model=None, state_dict=None, device='cuda',
     return cls(model, **kwargs)
 
 
-def publish_preset(registry, name, version='v0', device='cuda'):
+def publish_preset(registry, name, version='v0', device='cuda',
+                   model=None):
     """Ship the preset's seeded weights into `registry` as a
     CRC-manifested artifact under (name, version), meta-stamped with
-    the preset name so pullers can rebuild the architecture."""
-    state = build_model(name, device=device).state_dict()
-    return registry.publish(name, version, state,
-                            meta={'preset': name})
+    the preset name (and the `model` overrides of a variant) so pullers
+    can rebuild the architecture."""
+    state = build_model(name, device=device, model=model).state_dict()
+    meta = {'preset': name}
+    if model:
+        meta['model'] = dict(model)
+    return registry.publish(name, version, state, meta=meta)
 
 
 def host_factory(default_preset=None, device='cuda', dtype=None):
     """entry -> engine factory for ModelHost: loads the entry's state
     dict (CRC-checked by io_save) into the preset named by the entry's
-    meta — or `default_preset` for entries published outside the zoo."""
+    meta — or `default_preset` for entries published outside the zoo —
+    patched by the meta's `model` overrides, if any."""
     def _factory(entry):
         pname = entry.meta.get('preset', default_preset)
         if pname is None:
             raise KeyError(
                 'registry entry (%r, %r) has no preset meta and no '
                 'default_preset was given' % (entry.model, entry.version))
-        return build_engine(pname, state_dict=io_save.load(entry.path),
-                            device=device, dtype=dtype)
+        model = build_model(pname, state_dict=io_save.load(entry.path),
+                            device=device, dtype=dtype,
+                            model=entry.meta.get('model'))
+        return build_engine(pname, model=model)
     return _factory

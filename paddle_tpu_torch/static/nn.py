@@ -426,8 +426,8 @@ def py_func(*args, **kwargs):
 def _not_ported(name, needs):
     def fn(*a, **k):
         raise NotImplementedError(
-            'static.nn.%s is not ported: it needs %s, which a later slice '
-            'brings (ROADMAP Queue 1 item 5)' % (name, needs))
+            'static.nn.%s is not ported: it needs %s (ROADMAP Queue 1 '
+            'item 5, slice 19)' % (name, needs))
     fn.__name__ = name
     return fn
 

@@ -71,11 +71,19 @@ def yolo_box(x, img_size, anchors, class_num, conf_thresh, downsample_ratio,
     """Decode a YOLOv3 head's output to boxes and scores
     (operators/detection/yolo_box_op): boxes [N, na * H * W, 4] and scores
     [N, na * H * W, class_num], both zero where the confidence is at or
-    below conf_thresh."""
+    below conf_thresh.
+
+    The four box coordinates are computed as one [N, na, 4, H, W] tensor
+    and laid out as the scores are (permute, then reshape): compiled for
+    the card with torch 2.11, stacking four [N, na, H, W] coordinates on
+    a last axis gave wrong boxes for a channels-last 10 x 10 head at N >=
+    2 (Inductor's layout optimisation makes the head convolutions' outputs
+    channels-last), while this layout gives the eager values."""
     a, = amp_cast('yolo_box', x)
     na = len(anchors) // 2
+    dev = a.device
     anchors_arr = torch.tensor(anchors, dtype=torch.float32,
-                               device=a.device).reshape(na, 2)
+                               device=dev).reshape(1, na, 2, 1, 1)
     n, c, h, w = a.shape
     ioup = None
     if iou_aware:
@@ -84,39 +92,34 @@ def yolo_box(x, img_size, anchors, class_num, conf_thresh, downsample_ratio,
         ioup = torch.sigmoid(a[:, :na].reshape(n, na, h, w))
         a = a[:, na:]
     a = a.reshape(n, na, -1, h, w)
-    grid_x = torch.arange(w, dtype=torch.float32,
-                          device=a.device).reshape(1, 1, 1, w)
-    grid_y = torch.arange(h, dtype=torch.float32,
-                          device=a.device).reshape(1, 1, h, 1)
-    bx = (torch.sigmoid(a[:, :, 0]) * scale_x_y - 0.5 * (scale_x_y - 1.0) +
-          grid_x) / w
-    by = (torch.sigmoid(a[:, :, 1]) * scale_x_y - 0.5 * (scale_x_y - 1.0) +
-          grid_y) / h
-    bw = torch.exp(a[:, :, 2]) * anchors_arr[:, 0].reshape(1, na, 1, 1) / \
-        (w * downsample_ratio)
-    bh = torch.exp(a[:, :, 3]) * anchors_arr[:, 1].reshape(1, na, 1, 1) / \
-        (h * downsample_ratio)
+    grid_x = torch.arange(w, dtype=torch.float32, device=dev)
+    grid_y = torch.arange(h, dtype=torch.float32, device=dev)
+    grid = torch.stack([grid_x.reshape(1, w).expand(h, w),
+                        grid_y.reshape(h, 1).expand(h, w)]).reshape(
+        1, 1, 2, h, w)
+    size = torch.tensor([w, h], dtype=torch.float32,
+                        device=dev).reshape(1, 1, 2, 1, 1)
+    # centres (x, y) and sizes (w, h) as fractions of the image
+    xy = (torch.sigmoid(a[:, :, 0:2]) * scale_x_y - 0.5 * (scale_x_y - 1.0) +
+          grid) / size
+    wh = torch.exp(a[:, :, 2:4]) * anchors_arr / (size * downsample_ratio)
     conf = torch.sigmoid(a[:, :, 4])
     if ioup is not None:
         # PP-YOLO's IoU-aware confidence: obj^(1-f) * iou^f
         conf = conf ** (1.0 - iou_aware_factor) * ioup ** iou_aware_factor
     probs = torch.sigmoid(a[:, :, 5:5 + class_num])
     scores = conf[:, :, None] * probs
-    imgs = img_size.to(a.device)
-    img_h = imgs[:, 0].reshape(n, 1, 1, 1).to(torch.float32)
-    img_w = imgs[:, 1].reshape(n, 1, 1, 1).to(torch.float32)
-    x0 = (bx - bw / 2) * img_w
-    y0 = (by - bh / 2) * img_h
-    x1 = (bx + bw / 2) * img_w
-    y1 = (by + bh / 2) * img_h
+    # img_size rows are (h, w): (w, h) to scale (x, y)
+    img_wh = img_size.to(dev)[:, [1, 0]].to(torch.float32).reshape(
+        n, 1, 2, 1, 1)
+    lo = (xy - wh / 2) * img_wh
+    hi = (xy + wh / 2) * img_wh
     if clip_bbox:
-        zero = torch.zeros((), dtype=x0.dtype, device=a.device)
-
-        def clip(v, hi):
-            return torch.minimum(torch.maximum(v, zero), hi - 1)
-        x0, y0, x1, y1 = (clip(x0, img_w), clip(y0, img_h), clip(x1, img_w),
-                          clip(y1, img_h))
-    boxes = torch.stack([x0, y0, x1, y1], dim=-1).reshape(n, -1, 4)
+        zero = torch.zeros((), dtype=lo.dtype, device=dev)
+        lo = torch.minimum(torch.maximum(lo, zero), img_wh - 1)
+        hi = torch.minimum(torch.maximum(hi, zero), img_wh - 1)
+    boxes = torch.cat([lo, hi], dim=2).permute(0, 1, 3, 4, 2).reshape(
+        n, -1, 4)
     scores = scores.permute(0, 1, 3, 4, 2).reshape(n, -1, class_num)
     mask = (conf.reshape(n, -1, 1) > conf_thresh).to(boxes.dtype)
     return boxes * mask, scores * mask

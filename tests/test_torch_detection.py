@@ -271,6 +271,28 @@ def test_yolo_box_matches_jax(case):
         assert (got[1].numpy() == 0).any()  # the confidence mask bites
 
 
+def test_yolo_box_layout_independent_eager_and_compiled():
+    """A channels-last head (what Inductor's layout optimisation gives a
+    compiled program's convolutions) decodes as the contiguous head does,
+    eagerly and compiled, at the 10 x 10 head and batch where the stacked
+    box layout went wrong on the card (yolo_layout_probe.py)."""
+    head = torch.from_numpy(np.random.RandomState(9).randn(
+        2, 3 * (5 + 4), 10, 10).astype(np.float32))
+    img = torch.full((2, 2), 320, dtype=torch.int32)
+    args = dict(anchors=[116, 90, 156, 198, 373, 326], class_num=4,
+                conf_thresh=0.005, downsample_ratio=32)
+    want = TO.yolo_box(head, img, **args)
+    cl = head.contiguous(memory_format=torch.channels_last)
+    torch._dynamo.reset()
+    compiled = torch.compile(lambda a, b: TO.yolo_box(a, b, **args),
+                             fullgraph=True, dynamic=False)
+    for got in (TO.yolo_box(cl, img, **args), compiled(cl, img)):
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                       atol=1e-5)
+
+
 # two ground truths on one anchor and cell (the objectness target is the
 # larger weight, not the sum nor the last write), one matching an anchor
 # outside the mask, and a padded (w = 0) box

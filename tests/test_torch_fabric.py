@@ -757,6 +757,25 @@ def test_presets_build_deterministic_models(tmp_path):
     assert bf16.gpt.wte.weight.dtype == torch.bfloat16
 
 
+def test_preset_variant_published_with_model_overrides(tmp_path):
+    """A preset published with GPTConfig overrides (one layer of
+    gpt-nano's two) carries them in its meta; host_factory rebuilds that
+    architecture around the artifact and serves its tokens."""
+    from paddle_tpu_torch.serving.fabric import presets as tpresets
+    cut = tpresets.build_model('gpt-nano', device='cpu',
+                               model={'num_layers': 1})
+    assert cut.config.num_layers == len(cut.gpt.h) == 1
+    ref = tpresets.build_engine('gpt-nano', model=cut).generate(
+        [[5, 6, 7]], max_new_tokens=4)
+    reg = ModelRegistry(root=str(tmp_path))
+    entry = tpresets.publish_preset(reg, 'gpt-nano', device='cpu',
+                                    model={'num_layers': 1})
+    assert entry.meta == {'preset': 'gpt-nano', 'model': {'num_layers': 1}}
+    eng = tpresets.host_factory(device='cpu')(reg.entry('gpt-nano', 'v0'))
+    assert len(eng._model.gpt.h) == 1
+    assert eng.generate([[5, 6, 7]], max_new_tokens=4) == ref
+
+
 def test_worker_defaults_to_the_card_and_raises_without_one(
         tmp_path, monkeypatch):
     import torch

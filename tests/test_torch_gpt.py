@@ -173,14 +173,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     # convolutions, pools, weight norms and vision package, slice 19's
     # losses, extension functionals, RNN layers and beam search, and slice
     # 20's detection ops and PP-YOLOv2, slice 21's slim package,
-    # nn.quant and the rest of incubate, and slice 22's library surface
+    # nn.quant and the rest of incubate, slice 22's library surface, and
+    # slice 23's exporter, C API bridge and crypto
     imported = set(res.stdout.split())
     for mod in SLICE4_MODULES + SLICE6_MODULES + SLICE7_MODULES + \
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
             SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES + \
             SLICE15_MODULES + SLICE17_MODULES + SLICE18_MODULES + \
             SLICE19_MODULES + SLICE20_MODULES + SLICE21_MODULES + \
-            SLICE22_MODULES:
+            SLICE22_MODULES + SLICE23_MODULES:
         assert 'paddle_tpu_torch.' + mod in imported, mod
 
 
@@ -214,6 +215,7 @@ SLICE22_MODULES = ('batch', 'hub', 'sysconfig', 'dataset', 'distribution',
                    'text.datasets', 'utils', 'utils.cpp_extension',
                    'utils.cpp_extension.extension_utils',
                    'utils.op_benchmark')
+SLICE23_MODULES = ('onnx', 'capi', 'capi.bridge', 'framework.crypto')
 SLICE4_MODULES = ('serving', 'serving.engine', 'serving.paged_engine',
                   'serving.kv_cache', 'serving.scheduler', 'serving.metrics',
                   'monitor', 'monitor.registry', 'monitor.tracing',
@@ -274,7 +276,8 @@ SLICE12_MODULES = ('native', 'native.datafeed', 'native.embedding_table',
 
 def _port_files():
     files = [os.path.join(REPO, n) for n in ('chip_smoke.py',
-                                             'fleet_probe.py')]
+                                             'fleet_probe.py',
+                                             'tests/onnx_numpy.py')]
     for root, _, names in os.walk(os.path.join(REPO, 'paddle_tpu_torch')):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     return files
@@ -302,7 +305,7 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu():
             SLICE9_MODULES + SLICE10_MODULES + SLICE11_MODULES + \
             SLICE12_MODULES + SLICE13_MODULES + SLICE14_MODULES + \
             SLICE15_MODULES + SLICE20_MODULES + SLICE21_MODULES + \
-            SLICE22_MODULES:
+            SLICE22_MODULES + SLICE23_MODULES:
         path = os.path.join('paddle_tpu_torch', *mod.split('.'))
         assert path + '.py' in scanned or \
             os.path.join(path, '__init__.py') in scanned, mod

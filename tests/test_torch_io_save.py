@@ -10,7 +10,8 @@ share a format.
 - A truncated file or a flipped manifest raises CheckpointCorruptError; a
   writer killed at 'pre_rename' or 'pre_manifest' (chaos.crash_io_save)
   leaves the previous snapshot readable and its own torn state refused.
-- Encryption is not ported and says so.
+- encryption_key= writes a PTCRYPT1 container; a missing or wrong key
+  raises (tests/test_torch_crypto.py holds the container to the JAX one).
 """
 import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import json
@@ -175,12 +176,23 @@ def test_writer_killed_mid_save_leaves_the_old_snapshot(tmp_path, point):
 
 
 def test_write_bytes_atomic_and_encryption_not_ported(tmp_path):
+    """write_bytes_atomic, and encrypted save / load (the name predates
+    the port of framework/crypto.py): the round trip, the missing key and
+    the wrong key."""
     side = str(tmp_path / 'deep' / 'dir' / 'index.json')
     io_save.write_bytes_atomic(side, b'{"n": 1}')
     with open(side, 'rb') as f:
         assert f.read() == b'{"n": 1}'
     assert os.listdir(os.path.dirname(side)) == ['index.json']
-    with pytest.raises(NotImplementedError, match='crypto'):
-        io_save.save({'w': 1}, str(tmp_path / 'e.pd'), encryption_key=b'k')
-    with pytest.raises(NotImplementedError, match='crypto'):
-        io_save.load(side, encryption_key=b'k')
+    enc = str(tmp_path / 'e.pd')
+    w = torch.arange(6, dtype=torch.bfloat16).reshape(2, 3)
+    io_save.save({'w': w}, enc, encryption_key=b'k')
+    with open(enc, 'rb') as f:
+        assert f.read(8) == b'PTCRYPT1'
+    assert io_save.verify_checkpoint(enc, require_manifest=True)
+    got = io_save.load(enc, encryption_key=b'k')['w']
+    assert got.dtype == torch.bfloat16 and torch.equal(got, w)
+    with pytest.raises(ValueError, match='is encrypted'):
+        io_save.load(enc)
+    with pytest.raises(ValueError, match='wrong key'):
+        io_save.load(enc, encryption_key=b'other')

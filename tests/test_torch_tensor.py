@@ -572,16 +572,36 @@ def test_top_level_names_are_present_or_absent_with_a_reason():
             names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
     names = {n for n in names if not n.startswith('_')}
     assert len(names) > 80
-    absent = []
-    for name in sorted(names):
-        try:
-            getattr(tpt, name)
-        except AttributeError as e:
-            assert 'ROADMAP Queue 1 item' in str(e), (name, str(e))
-            absent.append(name)
-    assert sorted(absent) == sorted(tpt._ABSENT)
+    # since slice 23 no name is absent (the name of this test predates
+    # that): every public top-level name of the JAX package resolves
+    absent = [name for name in sorted(names) if not hasattr(tpt, name)]
+    assert absent == []
+    assert not hasattr(tpt, '_ABSENT')
     # and every tensor function the JAX package exports at the top
     assert all(hasattr(tpt, n) for n in tpt.tensor.__all__)
+
+
+def test_absent_device_places_and_patch_no_ops():
+    """XPUPlace / NPUPlace are place classes, as in the JAX package, of
+    devices the port does not run on: placing a tensor on one raises a
+    ValueError that names it. The patch functions change nothing."""
+    from paddle_tpu import NPUPlace as JNPUPlace, XPUPlace as JXPUPlace
+    for cls, jcls in ((tpt.XPUPlace, JXPUPlace), (tpt.NPUPlace, JNPUPlace)):
+        place = cls(1)
+        assert place == cls(1) and place != cls(0)
+        assert place.device_id == place.get_device_id() == \
+            jcls(1).device_id == 1
+        assert repr(place) == '%s(1)' % cls.__name__
+        with pytest.raises(ValueError, match=r'%s\(1\).*CUDA GPUs and the '
+                           'CPU' % cls.__name__):
+            tpt.to_tensor([1.0], place=place)
+        with pytest.raises(ValueError, match=cls.__name__):
+            place.device
+    methods = dict(vars(torch.Tensor))
+    assert tpt.monkey_patch_math_varbase() is None
+    assert tpt.monkey_patch_variable() is None
+    assert dict(vars(torch.Tensor)) == methods
+    assert tpt.onnx.export is tpt.onnx.__dict__['export']
 
 
 def test_top_level_values():
